@@ -8,13 +8,17 @@ code 1, no result line) without one.  Phases, each of which fails the run:
 
 1. card: name, power limit, torch and CUDA versions; TF32 off for every
    fp32 comparison (``torch.backends.cuda.matmul.allow_tf32 = False``);
-2. build: the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-   and the Triton RMSNorm, with the ptxas register/shared/spill lines;
+2. build: the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
+   one process per source) and the Triton RMSNorm and AdamW, with the
+   ptxas register/shared/spill lines;
 3. kernels against their plain versions on the card, bf16 and fp32, at the
-   shapes the serve path gives them (fp32 1e-4, bf16 2e-2 absolute), and
-   their times (CUDA events) beside the plain version, one PyTorch call as
-   a yardstick, and the bound from shapes (3.35 TB/s; 989 TFLOP/s bf16,
-   67 TFLOP/s fp32);
+   shapes the serve and train paths give them (fp32 1e-4, bf16 2e-2
+   absolute; AdamW 1e-6; the softmax-xent backward elementwise, each
+   element to 1e-5 (fp32) or 1e-2 (bf16) of its own size, since its
+   elements span ten orders of magnitude; a row pitch that is not 16-byte
+   aligned is refused), and their times (CUDA events) beside the plain
+   version, one PyTorch call as a yardstick, and the bound from shapes
+   (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32);
 4. full-width qwen3-4b in fp32: one batched prefill and 16 decode steps
    through the kernels and through the plain path (dense prefill, gathered
    decode, plain RMSNorm); logits agree to a relative max error of 1e-3 and
@@ -23,13 +27,28 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    prompts of 16-200 tokens, some sharing a prefix, 32 new tokens each,
    max_batch 8, max_seq 512, page 16); every request completes, one decode
    dispatch per iteration, and the kernel launch counts match the decode
-   steps, prefill dispatches and norms of that run.
+   steps, prefill dispatches and norms of that run;
+6. training parity: full-width qwen3-4b cut to 2 layers, fp32, two train
+   steps through K4 and K5 and through their plain versions; loss,
+   grad_norm and every parameter agree to a relative max error of 1e-3;
+   then in bf16 compute (fp32 parameters, as the train path runs), the
+   loss (1e-5) and every gradient leaf (relative max error 2e-2) through
+   K4 against the plain loss;
+7. training: full-width qwen3-4b cut to 12 layers (fp32 parameters, bf16
+   compute), batch 8 x seq 256 from a synthetic corpus, through
+   ``FTTrainLoop``; every loss is finite, the last is below the first, and
+   K4 forward/backward and K5 launch exactly once per step and once per
+   parameter tensor per step; tok/s, step ms, peak memory and MFU, then
+   one profiled step: device time by kernel group and the idle share;
+   then the same run from the same seed through the plain loss and plain
+   AdamW, whose per-step losses the kernel run's match to 2e-2 relative.
 
 It then prints a ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -109,6 +128,18 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def elem_rel_err(a, b) -> float:
+    """max |a - b| / |b| over the elements; where b is 0, a must be 0 too
+    (else inf).  For softmax gradients, whose elements span ten orders of
+    magnitude: one absolute tolerance would pass a kernel that got every
+    small element wrong, so each element is held to its own size."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    rel = torch.where(b == 0, torch.where(diff == 0, 0.0, float("inf")),
+                      diff / b.abs())
+    return float(rel.max())
 
 
 # ------------------------------------------------------------- phase 3 ----
@@ -268,6 +299,157 @@ def check_k3(report):
         bound_by=by, library_ms=lib_ms)
 
 
+K4_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}   # elementwise rel
+
+
+def check_k4(report):
+    from repro_torch.kernels import softmax_xent as sx
+    gen = torch.Generator().manual_seed(6)
+
+    def check(x, y, g_nll, g_lse, vocab, what):
+        """Forward (nll, lse to 1e-4 absolute; fp32 math on either dtype)
+        and backward (each element to K4_BWD_TOL of its own size, the
+        padded tail exactly 0) against the plain versions."""
+        dtype = x.dtype
+        nll, lse = sx.softmax_xent_fwd(x, y, vocab)
+        rnll, rlse = sx.softmax_xent_ref(x, y, vocab)
+        d = sx.softmax_xent_bwd(x, y, lse, g_nll, g_lse, vocab)
+        rd = sx.softmax_xent_bwd_ref(x, y, lse, g_nll, g_lse, vocab)
+        torch.cuda.synchronize()
+        e_f = max(max_err(nll, rnll), max_err(lse, rlse))
+        e_b, r_b = max_err(d, rd), elem_rel_err(d, rd)
+        tail = float(d[:, vocab:].float().abs().sum())
+        log(f"K4 softmax_xent {str(dtype)[6:]:8s} {what}: fwd max_abs_err "
+            f"{e_f:.3e} (tol {TOL[torch.float32]}); bwd elementwise rel err "
+            f"{r_b:.3e} (tol {K4_BWD_TOL[dtype]}), max_abs_err {e_b:.3e} "
+            f"(|dlogits| in [{float(rd[:, :vocab].float().abs().min()):.2e}, "
+            f"{float(rd.float().abs().max()):.2e}]), padded-tail grad {tail}")
+        assert e_f <= TOL[torch.float32], "K4 fwd disagrees with plain"
+        assert r_b <= K4_BWD_TOL[dtype] and tail == 0.0, \
+            "K4 bwd disagrees with plain"
+        return e_f, e_b, lse
+
+    # the train path's rows (8 x 256 tokens, qwen3 vocab) and a padded
+    # vocab, with O(1) upstream gradients so both the softmax term and the
+    # label term of the backward are of a size that the check can see
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, vp, vocab in ((2048, 151936, 151936), (64, 151936, 151000)):
+            x = (2 * torch.randn(n, vp, generator=gen)).to(DEV, dtype)
+            y = torch.randint(0, vocab, (n,), generator=gen).to(DEV)
+            g_nll = torch.rand(n, generator=gen).to(DEV)
+            g_lse = torch.rand(n, generator=gen).to(DEV)
+            check(x, y, g_nll, g_lse, vocab, f"N={n:4d} Vp={vp} vocab={vocab}")
+            del x
+    # rows that do not start on 16-byte boundaries are refused, not read
+    x = torch.zeros(4, 1001, device=DEV, dtype=torch.bfloat16)
+    y = torch.zeros(4, device=DEV, dtype=torch.int32)
+    for fn, args in ((sx.softmax_xent_fwd, (x, y, 999)),
+                     (sx.softmax_xent_bwd, (x, y, y.float(), y.float(),
+                                            y.float(), 999))):
+        try:
+            fn(*args)
+        except ValueError as e:
+            assert "16-byte" in str(e), e
+        else:
+            raise AssertionError(f"{fn.__name__} took a 1001-column pitch")
+    log("K4 refuses a 1001-column bf16 pitch (not 16-byte aligned)")
+    # timing at the train path's shape, bf16 logits, the train path's
+    # upstream gradients (mean loss with z-loss 1e-4)
+    n, vp = 2048, 151936
+    x = (2 * torch.randn(n, vp, generator=gen)).to(DEV, torch.bfloat16)
+    y = torch.randint(0, vp, (n,), generator=gen).to(DEV, torch.int32)
+    g_nll = torch.full((n,), 1.0 / n, device=DEV)
+    _, rlse = sx.softmax_xent_ref(x, y, vp)
+    g_lse = 2e-4 * rlse / n
+    err_f, err_b, lse = check(x, y, g_nll, g_lse, vp,
+                              f"timed inputs N={n} Vp={vp}")
+    ce = torch.nn.functional.cross_entropy
+    fwd = dict(
+        ms=time_ms(lambda: sx.softmax_xent_fwd(x, y, vp)),
+        host_ms=eager_ms(lambda: sx.softmax_xent_fwd(x, y, vp)),
+        plain_ms=time_ms(lambda: sx.softmax_xent_ref(x, y, vp)),
+        library_ms=time_ms(lambda: ce(x.float(), y.long(),
+                                      reduction="none")))
+    bwd = dict(
+        ms=time_ms(lambda: sx.softmax_xent_bwd(x, y, lse, g_nll, g_lse, vp)),
+        host_ms=eager_ms(lambda: sx.softmax_xent_bwd(x, y, lse, g_nll, g_lse,
+                                                     vp)),
+        plain_ms=time_ms(lambda: sx.softmax_xent_bwd_ref(x, y, lse, g_nll,
+                                                         g_lse, vp)))
+    xf = x.float().requires_grad_()
+    out = ce(xf, y.long(), reduction="none")
+    bwd["library_ms"] = eager_ms(lambda: torch.autograd.grad(
+        out, xf, g_nll, retain_graph=True), iters=20)
+    del xf, out
+    elems = n * vp
+    fwd["bound_ms"], fwd["bound_by"] = bound(elems * 2 + n * 4 + 2 * n * 4,
+                                             4 * elems, torch.float32)
+    bwd["bound_ms"], bwd["bound_by"] = bound(2 * elems * 2 + 4 * n * 4,
+                                             4 * elems, torch.float32)
+    for name, r, err, lib in (("forward", fwd, err_f, "F.cross_entropy"),
+                              ("backward", bwd, err_b,
+                               "autograd of F.cross_entropy, eager")):
+        log(f"K4 {name} timing bf16 N={n} Vp={vp}: kernel {r['ms']:.4f} ms "
+            f"(eager back-to-back {r['host_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, {lib} on fp32 {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        r["max_abs_err"] = err
+    report["softmax_xent_fwd"] = fwd
+    report["softmax_xent_bwd"] = bwd
+
+
+def check_k5(report):
+    from repro_torch.kernels import adamw_update as aw
+    gen = torch.Generator().manual_seed(7)
+    hyper = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1,
+                 bias_corr1=1 - 0.9 ** 3, bias_corr2=1 - 0.95 ** 3)
+    scale = torch.tensor(0.5, device=DEV)
+
+    def inputs(n, gdtype):
+        g = torch.randn(n, generator=gen).to(DEV, gdtype)
+        m = (0.1 * torch.randn(n, generator=gen)).to(DEV)
+        v = (0.1 * torch.rand(n, generator=gen)).to(DEV)
+        p = (0.02 * torch.randn(n, generator=gen)).to(DEV)
+        return g, m, v, p
+
+    # the tied embedding's size (151936 x 2560), a ragged size and the
+    # smallest leaves (qk norms)
+    emb = 151936 * 2560
+    for gdtype in (torch.float32, torch.bfloat16):
+        for n in (emb, 3 * 4096 + 7, 128):
+            g, m, v, p = inputs(n, gdtype)
+            km, kv, kp = m.clone(), v.clone(), p.clone()
+            aw.adamw_fused(g, km, kv, kp, scale, **hyper)
+            aw.adamw_ref(g, m, v, p, scale, **hyper)
+            torch.cuda.synchronize()
+            err = max(max_err(km, m), max_err(kv, v), max_err(kp, p))
+            log(f"K5 adamw grad {str(gdtype)[6:]:8s} n={n:9d}: max_abs_err "
+                f"{err:.3e} (tol 1e-6)")
+            assert err <= 1e-6, "K5 disagrees with its plain version"
+            if n == emb and gdtype == torch.float32:
+                err_main = err                 # the timed case's inputs
+            del g, m, v, p, km, kv, kp
+    # timing at the embedding's size with fp32 gradients (the train path's)
+    g, m, v, p = inputs(emb, torch.float32)
+    ms = time_ms(lambda: aw.adamw_fused(g, m, v, p, scale, **hyper), iters=10)
+    host_ms = eager_ms(lambda: aw.adamw_fused(g, m, v, p, scale, **hyper),
+                       iters=10)
+    plain_ms = time_ms(lambda: aw.adamw_ref(g, m, v, p, scale, **hyper),
+                       iters=10)
+    steps = [torch.tensor(3.0, device=DEV)]
+    lib_ms = time_ms(lambda: torch._fused_adamw_(
+        [p], [g], [m], [v], [], steps, lr=hyper["lr"], beta1=0.9, beta2=0.95,
+        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False,
+        grad_scale=None, found_inf=None), iters=10)
+    bms, by = bound(emb * 28, 15 * emb, torch.float32)
+    log(f"K5 timing fp32 grads, n={emb} (tied embedding): kernel {ms:.4f} ms "
+        f"(eager back-to-back {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"torch._fused_adamw_ {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+    report["adamw_fused"] = dict(
+        max_abs_err=err_main, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms)
+
+
 # ------------------------------------------------------------- phase 4 ----
 
 def model_check():
@@ -414,9 +596,10 @@ def serve(report):
     assert decodes == iters, (decodes, iters)
     L = cfg.num_layers
     norms = L * (2 + 2 * cfg.qk_norm) + 1
-    want = {"paged_flash_decode": decodes * L,
-            "flash_attention_bhsd": prefills * L,
-            "rmsnorm_rows": (decodes + prefills) * norms}
+    want = {name: 0 for name in launches}
+    want.update(paged_flash_decode=decodes * L,
+                flash_attention_bhsd=prefills * L,
+                rmsnorm_rows=(decodes + prefills) * norms)
     log(f"launch counts {launches}, expected {want}")
     assert launches == want, "the main path did not run every kernel"
     ttft = reg.histogram("serve_ttft_seconds").quantile(0.5) * 1e3
@@ -428,11 +611,282 @@ def serve(report):
         f"{reg.gauge('serve_kv_pages_shared').get():.0f} at last admission, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"[{nvidia_smi_line()}]")
-    for name, count in launches.items():
-        report[name]["launches"] = count
+    for name in ("paged_flash_decode", "flash_attention_bhsd",
+                 "rmsnorm_rows"):
+        report[name]["launches"] = launches[name]
+
+
+# ------------------------------------------------------------- phase 6 ----
+
+def rel_err(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def train_parity():
+    import dataclasses
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import ForwardOpts, LM
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=2,
+                              dtype="float32")
+    lm = LM(cfg)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=10)
+    rng = np.random.default_rng(8)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    states, metrics = {}, {}
+    for path in ("kernel", "plain"):
+        opts = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
+                           q_chunk=128, kv_chunk=128, xent_impl=path)
+        state = init_train_state(lm, 5, tcfg, device=DEV)
+        step = make_train_step(lm, tcfg, opts, adamw_impl=path)
+        metrics[path] = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            metrics[path].append({k: float(m[k])
+                                  for k in ("loss", "grad_norm")})
+        states[path] = state
+    worst = 0.0
+    for mk, mp in zip(metrics["kernel"], metrics["plain"]):
+        for k in mk:
+            worst = max(worst, abs(mk[k] - mp[k]) / abs(mp[k]))
+    worst_m = worst
+    for tree in ("params", "opt"):
+        for a, b in zip(tree_leaves(states["kernel"][tree]),
+                        tree_leaves(states["plain"][tree])):
+            worst = max(worst, rel_err(a, b))
+    log(f"fp32 2-layer full-width train, 2 steps, kernel path (K4, K5) vs "
+        f"plain: losses {[m['loss'] for m in metrics['kernel']]} vs "
+        f"{[m['loss'] for m in metrics['plain']]}, grad_norm "
+        f"{[m['grad_norm'] for m in metrics['kernel']]}; loss/grad_norm rel "
+        f"err {worst_m:.3e}, worst rel max err over loss, grad_norm, params, "
+        f"m, v {worst:.3e} (limit 1e-3)")
+    assert worst <= 1e-3, "kernel-path training disagrees with plain path"
+    del states, state
+    free()
+    train_grads_bf16()
+
+
+def train_grads_bf16():
+    """The train path's own precision: fp32 parameters, bf16 compute.  The
+    loss and every gradient leaf through K4 (bf16 logits in, bf16 dlogits
+    out) against the plain loss that autograd differentiates, on the same
+    parameters and batch; relative max error per leaf within the bf16
+    tolerance 2e-2 (the dlogits of the two paths round to bf16 apart by at
+    most one unit in some elements, and the bf16 matmuls that follow round
+    again)."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import ForwardOpts, LM
+    from repro_torch.core.checkpoint import _flatten_with_paths
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=2)
+    assert cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
+    lm = LM(cfg)
+    z_loss = TrainConfig().z_loss
+    rng = np.random.default_rng(9)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 256)),
+                                device=DEV, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    params = lm.init(5, device=DEV, dtype=torch.float32)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    losses, grads = {}, {}
+    for path in ("kernel", "plain"):
+        opts = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
+                           q_chunk=256, kv_chunk=256, xent_impl=path)
+        loss, _ = lm.loss(params, batch, opts, z_loss=z_loss)
+        grads[path] = torch.autograd.grad(loss, leaves)
+        losses[path] = float(loss.detach())
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+               for g in grads["kernel"])
+    loss_rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    names = [name for name, _ in _flatten_with_paths(params)]
+    worst, name = max((rel_err(a, b), n) for a, b, n in
+                      zip(grads["kernel"], grads["plain"], names))
+    log(f"bf16-compute 2-layer full-width loss and gradients, batch 8 x 256, "
+        f"K4 vs plain loss: loss {losses['kernel']:.6f} vs "
+        f"{losses['plain']:.6f} (rel {loss_rel:.3e}), worst rel max err over "
+        f"{len(leaves)} gradient leaves {worst:.3e} ({name}; limit 2e-2)")
+    assert loss_rel <= 1e-5, "bf16 kernel-path loss disagrees with plain"
+    assert worst <= 2e-2, "bf16 kernel-path gradients disagree with plain"
+
+
+# ------------------------------------------------------------- phase 7 ----
+
+def train_run(report, steps: int = 10):
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import FTTrainLoop
+    from repro_torch.data import (DeterministicLoader, LoaderConfig,
+                                  TokenDataset, synthetic_corpus,
+                                  write_token_shards)
+    from repro_torch.kernels import ops
+    from repro_torch.models import ForwardOpts, LM
+    from repro_torch.telemetry import MetricsRegistry
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=12)
+    lm = LM(cfg)
+    b, s, microbatches = 8, 256, 1
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=steps)
+    opts = ForwardOpts(attn_impl="blockwise", norm_impl="plain", q_chunk=s,
+                       kv_chunk=s)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        toks = synthetic_corpus(max(2_000_000, b * s * 20), cfg.vocab_size,
+                                seed=0)
+        write_token_shards(f"{tmp}/data", toks)
+        loader = DeterministicLoader(TokenDataset(f"{tmp}/data"),
+                                     LoaderConfig(b, s))
+        batch = loader.batch_at(0)                 # one fixed batch
+        reg = MetricsRegistry()
+        # checkpoints every steps + 1: none of 25 GB is written here
+        loop = FTTrainLoop(make_train_step(lm, tcfg, opts, microbatches),
+                           lambda: init_train_state(lm, 0, tcfg, device=DEV),
+                           f"{tmp}/ckpt", ckpt_every=steps + 1, registry=reg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() / 2**30
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        final = loop.run(lambda step: batch, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    leaves = tree_leaves(final["params"])
+    n_params = sum(t.numel() for t in leaves)
+    want = {name: 0 for name in launches}
+    want.update(softmax_xent_fwd=steps * microbatches,
+                softmax_xent_bwd=steps * microbatches,
+                adamw_fused=steps * len(leaves))
+    loop_log = loop.metrics_log
+    losses = [m["loss"] for m in loop_log]
+    step_s = reg.histogram("train_step_seconds").recent(steps)
+    steady = float(np.mean(step_s[2:]))
+    flops = cfg.flops_per_token(s, "train") * b * s
+    log(f"train losses {[round(x, 4) for x in losses]}, grad_norm "
+        f"{[round(m['grad_norm'], 3) for m in loop.metrics_log]}")
+    log(f"launch counts {launches}, expected {want}")
+    assert len(losses) == steps and all(np.isfinite(losses)), "loss not finite"
+    assert losses[-1] < losses[0], "loss did not fall on a fixed batch"
+    assert launches == want, "the train path did not run K4 and K5 as counted"
+    log(f"trained full-width qwen3-4b cut to {cfg.num_layers} layers "
+        f"({n_params / 1e9:.3f} B fp32 parameters, bf16 compute), batch {b} "
+        f"x seq {s}, {steps} steps in {wall:.3f}s: first step "
+        f"{step_s[0] * 1e3:.1f} ms, mean step {steady * 1e3:.2f} ms over "
+        f"steps 2..{steps - 1} ({b * s / steady:.1f} tok/s), peak memory "
+        f"{peak:.2f} GiB ({before:.2f} GiB allocated before the run), MFU "
+        f"{flops / steady / 989e12 * 100:.2f}% of 989 TFLOP/s "
+        f"({flops / 1e12:.2f} TFLOP per step) [{nvidia_smi_line()}]")
+    for name in ("softmax_xent_fwd", "softmax_xent_bwd", "adamw_fused"):
+        report[name]["launches"] = launches[name]
+    profile_step(loop.train_step, final, batch)
+    del final, loop
+    free()
+    # the same run through the plain loss and plain AdamW, from the same
+    # seed: does the kernel path's loss trajectory belong to the model?
+    plain_step = make_train_step(
+        lm, tcfg, dataclasses.replace(opts, xent_impl="plain"), microbatches,
+        adamw_impl="plain")
+    state = init_train_state(lm, 0, tcfg, device=DEV)
+    plain = []
+    for _ in range(steps):
+        state, m = plain_step(state, batch)
+        plain.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    del state
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k])
+               for a, b in zip(loop_log, plain)]
+           for k in ("loss", "grad_norm")}
+    log(f"plain-path replay (plain loss, plain AdamW, same seed and batch): "
+        f"losses {[round(m['loss'], 4) for m in plain]}, grad_norm "
+        f"{[round(m['grad_norm'], 3) for m in plain]}; kernel vs plain "
+        f"worst rel err loss {max(rel['loss']):.3e} (limit 2e-2), grad_norm "
+        f"{max(rel['grad_norm']):.3e}")
+    assert max(rel["loss"]) <= 2e-2, \
+        "the kernel path's loss trajectory leaves the plain path's"
+
+
+KERNEL_GROUPS = (("K4 softmax_xent", ("softmax_xent",)),
+                 ("K5 adamw", ("adamw_kernel",)),
+                 ("matmul", ("gemm", "sm90_", "cutlass", "cublas", "xmma",
+                             "nvjet")),
+                 ("indexing", ("index", "scatter", "gather", "embedding")),
+                 ("reductions", ("reduce", "Reduce")),
+                 ("elementwise and copies", ("elementwise", "Elementwise",
+                                             "copy", "Copy", "CatArray",
+                                             "fill")))
+
+
+def profile_step(train_step, state, batch) -> None:
+    """Where the time of one more train step goes: device time by kernel
+    group (torch.profiler, CUPTI), the device's busy and idle share of the
+    step's wall time, and the largest kernels.  It runs after the counted
+    run, on its final state; its launches are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = train_step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernel rows only: an operator's row repeats its kernels' time
+    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    if not busy:
+        log(f"profiled train step: wall {wall_ms:.2f} ms; the profiler "
+            "recorded no device time (device breakdown not measured)")
+        return
+    log(f"profiled train step: wall {wall_ms:.2f} ms, device busy "
+        f"{busy:.2f} ms, device idle share {1 - busy / wall_ms:.3f}")
+    groups = {}
+    for key, ms, _ in rows:
+        group = next((g for g, subs in KERNEL_GROUPS
+                      if any(x in key for x in subs)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {group:24s} {ms:9.3f} ms  {ms / busy * 100:5.1f}% of busy")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}")
 
 
 # ----------------------------------------------------------------- main ----
+
+def free() -> None:
+    """Drop what a finished phase left, so the next one has the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def triton_adamw_build() -> None:
+    """Compile K5 for fp32 and bf16 gradients by launching it once on a
+    small tensor (outside any counted path), and print what the compiler
+    reports of it (registers, spills, shared memory), where this Triton
+    version exposes it."""
+    from repro_torch.kernels import adamw_update as aw
+    triton, kernel = aw._kernel()
+    for gdtype in (torch.float32, torch.bfloat16):
+        z = torch.zeros(aw.BLOCK, device=DEV)
+        compiled = kernel[(1,)](z.to(gdtype), z.clone(), z.clone(), z.clone(),
+                                torch.ones((), device=DEV), aw.BLOCK,
+                                1e-3, 0.9, 0.95, 1e-8, 0.1, 0.1, 0.05,
+                                BLOCK=aw.BLOCK, num_warps=8)
+        torch.cuda.synchronize()
+        info = {k: getattr(compiled, k, None)
+                for k in ("n_regs", "n_spills")}
+        shared = getattr(getattr(compiled, "metadata", None), "shared", None)
+        log(f"  adamw_kernel grad {str(gdtype)[6:]}: registers "
+            f"{info['n_regs']}, spills {info['n_spills']}, shared {shared}")
 
 def main() -> int:
     phase("1 card")
@@ -467,28 +921,51 @@ def main() -> int:
             rmsnorm.rmsnorm_rows(x, torch.ones(d, device=DEV))
     torch.cuda.synchronize()
     log(f"triton rmsnorm compiled in {time.perf_counter()-t0:.1f}s")
+    t0 = time.perf_counter()
+    triton_adamw_build()
+    log(f"triton adamw compiled in {time.perf_counter()-t0:.1f}s")
 
     phase("3 kernels against their plain versions")
     report = {}
     check_k1(report)
     check_k2(report)
     check_k3(report)
+    check_k4(report)
+    check_k5(report)
+    free()
 
     phase("4 full-width qwen3-4b fp32: kernel path vs plain path")
     model_check()
-    torch.cuda.empty_cache()
+    free()
 
     phase("5 serve full-width qwen3-4b bf16")
     serve(report)
+    free()
 
-    meta = {"paged_flash_decode": ("cuda", "src/repro_torch/csrc/"
-                                   "paged_decode.cu",
+    phase("6 training parity: 2-layer full-width qwen3-4b fp32, K4/K5 vs "
+          "plain")
+    train_parity()
+    free()
+
+    phase("7 train full-width qwen3-4b, 12 layers, bf16 compute")
+    train_run(report)
+
+    csrc = "src/repro_torch/csrc/"
+    meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",
                                    "src/repro/kernels/paged_decode.py:142"),
-            "flash_attention_bhsd": ("cuda", "src/repro_torch/csrc/"
-                                     "flash_attention.cu",
-                                     "src/repro/kernels/flash_attention.py:60"),
+            "flash_attention_bhsd": ("cuda", csrc + "flash_attention.cu",
+                                     "src/repro/kernels/"
+                                     "flash_attention.py:60"),
             "rmsnorm_rows": ("triton", "src/repro_torch/kernels/rmsnorm.py",
-                             "src/repro/kernels/rmsnorm.py:19")}
+                             "src/repro/kernels/rmsnorm.py:19"),
+            "softmax_xent_fwd": ("cuda", csrc + "softmax_xent.cu",
+                                 "src/repro/kernels/softmax_xent.py:32"),
+            # the TPU kernel has no backward: JAX differentiates the loss
+            "softmax_xent_bwd": ("cuda", csrc + "softmax_xent.cu",
+                                 "src/repro/kernels/softmax_xent.py:32"),
+            "adamw_fused": ("triton", "src/repro_torch/kernels/"
+                            "adamw_update.py",
+                            "src/repro/kernels/adamw_update.py:34")}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         r = report[name]

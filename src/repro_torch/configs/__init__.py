@@ -3,7 +3,7 @@
 Only the dense decoder configs the port serves are registered.  Their files
 are copies of the JAX package's, values unchanged (the port is held to the
 JAX package, not to the hub configs the files cite)."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.configs.llama3_2_3b import CONFIG as _llama32
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
 
@@ -16,4 +16,4 @@ def get_config(name: str) -> ModelConfig:
     return CONFIGS[name]
 
 
-__all__ = ["CONFIGS", "ModelConfig", "get_config"]
+__all__ = ["CONFIGS", "ModelConfig", "TrainConfig", "get_config"]

@@ -1,6 +1,7 @@
-"""Model configuration for the PyTorch port: a copy of ``ModelConfig`` (and
-its ``reduced()``) from the JAX package's ``configs/base.py``, kept verbatim
-so both packages describe a model with the same numbers.  The port imports
+"""Model and training configuration for the PyTorch port: copies of
+``ModelConfig`` (and its ``reduced()``) and ``TrainConfig`` from the JAX
+package's ``configs/base.py``, kept verbatim so both packages describe a
+model and its optimizer with the same numbers.  The port imports
 nothing of the JAX package, so it carries its own copy.
 
 One ``ModelConfig`` dataclass covers every architecture family
@@ -260,3 +261,19 @@ class ModelConfig:
         if self.family == "vlm":
             changes.update(num_image_tokens=8)
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    min_lr_ratio: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    z_loss: float = 1e-4            # logit z-loss (stability at scale)
+    moe_aux_loss: float = 1e-2      # load-balance loss weight

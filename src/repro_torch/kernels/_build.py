@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("paged_decode", "flash_attention")
+SOURCES = ("paged_decode", "flash_attention", "softmax_xent")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +34,10 @@ ENTRIES = {
     "paged_decode_launch": ("paged_decode", [_I] + [_P] * 6 + [_I] * 6 + [_P]),
     "flash_attention_launch": ("flash_attention",
                                [_I] + [_P] * 4 + [_I] * 5 + [_P]),
+    "softmax_xent_fwd_launch": ("softmax_xent",
+                                [_I] + [_P] * 4 + [_I] * 3 + [_P]),
+    "softmax_xent_bwd_launch": ("softmax_xent",
+                                [_I] + [_P] * 6 + [_I] * 3 + [_P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -106,6 +110,17 @@ def on_device(device):
     if device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise if a CUDA input of a forward-only kernel needs a gradient: the
+    kernel's output would carry no graph and silently cut the gradient to
+    everything upstream.  Such callers use the plain version (or
+    ``torch.no_grad()``) until the kernel has a backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires a gradient, but this kernel has no "
+            "backward; call it under torch.no_grad() or use the plain path")
 
 
 def check(rc: int, what: str) -> None:

@@ -9,6 +9,8 @@ is taken: ragged tails are masked inside the kernel.
 
 ``flash_attention_bhsd`` launches the kernel for CUDA tensors and runs the
 plain version, ``flash_attention_ref``, for CPU tensors; it never falls back.
+The kernel has no backward, so it raises on a CUDA input that requires a
+gradient rather than return a tensor that cuts the graph.
 
 Layouts: q (B*KV*G, S, D); k, v (B*KV, S, D); out like q.
 """
@@ -46,6 +48,7 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True):
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bhsd: no kernel for {q.device}")
+    _build.refuse_autograd("flash_attention_bhsd", q, k, v)
     bhg, s, d = q.shape
     bkv = k.shape[0]
     if q.dtype not in _DTYPES:

@@ -3,21 +3,27 @@
 Model code calls these; each reshapes to its kernel's layout and back.  On a
 CPU tensor the kernel module runs its plain version, on a CUDA tensor it
 launches the kernel (``repro_torch.kernels.{flash_attention,paged_decode,
-rmsnorm}``).  ``launch_counts()`` reads how often each kernel was launched;
-a launch is counted only where a kernel actually runs, never for a plain
-version.
+rmsnorm,softmax_xent,adamw_update}``).  ``launch_counts()`` reads how often
+each kernel was launched; a launch is counted only where a kernel actually
+runs, never for a plain version.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels.adamw_update import adamw_fused
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.paged_decode import paged_flash_decode
 from repro_torch.kernels.rmsnorm import rmsnorm_rows
+from repro_torch.kernels.softmax_xent import (SoftmaxXent, softmax_xent_bwd,
+                                              softmax_xent_fwd)
 
 KERNELS = {"paged_flash_decode": paged_flash_decode,
            "flash_attention_bhsd": flash_attention_bhsd,
-           "rmsnorm_rows": rmsnorm_rows}
+           "rmsnorm_rows": rmsnorm_rows,
+           "softmax_xent_fwd": softmax_xent_fwd,
+           "softmax_xent_bwd": softmax_xent_bwd,
+           "adamw_fused": adamw_fused}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -52,3 +58,12 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
     """x: (..., d) normalized over its last dim."""
     shape = x.shape
     return rmsnorm_rows(x.reshape(-1, shape[-1]), scale, eps=eps).reshape(shape)
+
+
+def softmax_xent(logits, labels, vocab: int):
+    """logits (..., Vp); labels (...,) < vocab.  Returns (nll, lse), each
+    (...,) fp32, differentiable in logits through K4's backward."""
+    lead = logits.shape[:-1]
+    nll, lse = SoftmaxXent.apply(logits.reshape(-1, logits.shape[-1]),
+                                 labels.reshape(-1), vocab)
+    return nll.reshape(lead), lse.reshape(lead)

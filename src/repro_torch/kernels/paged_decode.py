@@ -9,6 +9,8 @@ design does about that.  Its int8 pools and ``partials`` mode are later work.
 
 ``paged_flash_decode`` launches the kernel for CUDA tensors and runs the
 plain version, ``paged_decode_ref``, for CPU tensors; it never falls back.
+The kernel has no backward, so it raises on a CUDA input that requires a
+gradient rather than return a tensor that cuts the graph.
 
 Layouts: q (B, KV, G, D); pools (P, page, KV, D), page 0 the scratch page;
 page_table (B, M) int32; positions (B,) int32; out (B, KV, G, D) like q.
@@ -50,6 +52,7 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, positions):
         return paged_decode_ref(q, k_pool, v_pool, page_table, positions)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: no kernel for {q.device}")
+    _build.refuse_autograd("paged_flash_decode", q, k_pool, v_pool)
     b, kv, g, d = q.shape
     n_pages, page = k_pool.shape[:2]
     m = page_table.shape[1]

@@ -10,8 +10,10 @@ It is bound by memory: 2 bytes read and 2 written per bf16 element against
 norm) and the D=128 head rows of qwen3's q/k norms.
 
 ``rmsnorm_rows`` launches the kernel for CUDA tensors and runs the plain
-version, ``rmsnorm_ref``, for CPU tensors; it never falls back.  Triton is
-imported, and the kernel compiled, only where it is launched.
+version, ``rmsnorm_ref``, for CPU tensors; it never falls back.  The kernel
+has no backward, so it raises on a CUDA input that requires a gradient
+rather than return a tensor that cuts the graph.  Triton is imported, and
+the kernel compiled, only where it is launched.
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ def rmsnorm_rows(x, scale, *, eps: float = 1e-5):
         return rmsnorm_ref(x, scale, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_rows: no kernel for {x.device}")
+    _build.refuse_autograd("rmsnorm_rows", x, scale)
     n, d = x.shape
     if (scale.device != x.device or scale.dtype != torch.float32
             or tuple(scale.shape) != (d,)):

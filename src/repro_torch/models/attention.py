@@ -3,7 +3,12 @@ a paged KV cache (counterpart of the dense and decode pieces of the JAX
 ``repro.models.attention``).
 
 Prefill (``attention_block``) runs ``impl="flash"`` (K2) or ``"dense"`` (the
-JAX engine's default, kept as the reference).  Decode
+JAX engine's default, kept as the reference); training runs
+``impl="blockwise"``, the JAX trainer's online-softmax attention in plain
+torch, which autograd differentiates (K2 has no backward).  Weights are
+cast to the activations' dtype at each use, as JAX does, so fp32 master
+weights train in bf16 compute and bf16 serving weights are used as they
+are.  Decode
 (``attention_decode_block``) writes the new token's K/V into the
 (P, page, KV, D) pools in place, then attends through the (B, M) page table
 with ``impl="kernel"`` (K1) or ``"gather"`` (dense gathered view, the JAX
@@ -38,8 +43,9 @@ def attention_spec(cfg):
 
 
 def _proj(w, x):
-    """x (B, S, d) @ w (d, H, D) -> (B, S, H, D)."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:2], *w.shape[1:])
+    """x (B, S, d) @ w (d, H, D) -> (B, S, H, D), in x's dtype."""
+    w2 = w.reshape(w.shape[0], -1).to(x.dtype)
+    return (x @ w2).reshape(*x.shape[:2], *w.shape[1:])
 
 
 def project_qkv(p, cfg, x, positions, norm_impl: str = "kernel"):
@@ -62,7 +68,7 @@ def output_proj(p, cfg, y):
     """y (B, S, KV, G, D) -> (B, S, d)."""
     b, s = y.shape[:2]
     wo = p["wo"]["kernel"]
-    return y.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    return y.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1]).to(y.dtype)
 
 
 def dense_attention(q, k, v, causal: bool):
@@ -79,9 +85,56 @@ def dense_attention(q, k, v, causal: bool):
     return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
 
 
+def blockwise_attention(q, k, v, causal: bool, q_chunk: int = 1024,
+                        kv_chunk: int = 1024):
+    """Flash attention in plain torch (counterpart of the JAX
+    ``blockwise_attention``): a loop over query chunks and, inside, over the
+    KV chunks the causal mask needs, with an fp32 online softmax.  The
+    softmax scale is folded into q, masking is an additive bias on the
+    diagonal chunks only, and probabilities are cast to v's dtype before
+    PV.  q (B, Sq, KV, G, D); k, v (B, Skv, KV, D); returns like q."""
+    b, sq, kvh, g, hd = q.shape
+    skv = k.shape[1]
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    if sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"blockwise_attention: chunks ({q_chunk}, "
+                         f"{kv_chunk}) do not divide ({sq}, {skv})")
+    q = q * (1.0 / math.sqrt(hd))
+    outs = []
+    for i in range(sq // q_chunk):
+        q_blk = q[:, i * q_chunk:(i + 1) * q_chunk]
+        q_end = (i + 1) * q_chunk if causal else skv
+        n_kv = -(-min(q_end, skv) // kv_chunk)
+        qpos = i * q_chunk + torch.arange(q_chunk, device=q.device)
+        m = torch.full((b, kvh, g, q_chunk), NEG_INF, device=q.device)
+        l = torch.zeros((b, kvh, g, q_chunk), device=q.device)
+        acc = torch.zeros((b, kvh, g, q_chunk, hd), device=q.device)
+        for j in range(n_kv):
+            k_blk = k[:, j * kv_chunk:(j + 1) * kv_chunk]
+            v_blk = v[:, j * kv_chunk:(j + 1) * kv_chunk]
+            s = torch.einsum("bqkgd,bskd->bkgqs", q_blk, k_blk).float()
+            if causal and (j + 1) * kv_chunk - 1 > i * q_chunk:
+                kpos = j * kv_chunk + torch.arange(kv_chunk, device=q.device)
+                s = s + torch.where(qpos[:, None] >= kpos[None, :], 0.0,
+                                    NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(v_blk.dtype), v_blk)
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
 def attention_block(p, cfg, x, *, impl: str = "flash", causal: bool = True,
-                    norm_impl: str = "kernel"):
-    """Self-attention over a full sequence (prefill).  Returns (y, (k, v))."""
+                    norm_impl: str = "kernel", q_chunk: int = 1024,
+                    kv_chunk: int = 1024):
+    """Self-attention over a full sequence (prefill, or training with
+    ``impl="blockwise"``).  Returns (y, (k, v))."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = project_qkv(p, cfg, x, positions, norm_impl)
@@ -89,6 +142,8 @@ def attention_block(p, cfg, x, *, impl: str = "flash", causal: bool = True,
         y = ops.flash_attention(q, k, v, causal=causal)
     elif impl == "dense":
         y = dense_attention(q, k, v, causal)
+    elif impl == "blockwise":
+        y = blockwise_attention(q, k, v, causal, q_chunk, kv_chunk)
     else:
         raise ValueError(impl)
     return output_proj(p, cfg, y), (k, v)

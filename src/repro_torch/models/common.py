@@ -1,12 +1,13 @@
 """Shared model pieces of the port: the device rule, parameter specs and their
-initializer, RMSNorm, RoPE and activations (counterpart of the JAX
-``repro.models.common``).
+initializer, RMSNorm, RoPE, activations and the cross-entropy loss
+(counterpart of the JAX ``repro.models.common``).
 
-A parameter tree is nested dicts of tensors in the JAX layouts.  Matrix
-weights are stored in the compute dtype (``cfg.dtype``): the JAX model keeps
-fp32 masters and casts them at every use, which gives the same numbers as
-casting once at load.  Norm scales stay fp32, because the norm multiplies
-in fp32.
+A parameter tree is nested dicts of tensors in the JAX layouts.  For serving,
+matrix weights are stored in the compute dtype (``cfg.dtype``): the JAX
+model keeps fp32 masters and casts them at every use, which gives the same
+numbers as casting once at load.  For training they stay fp32
+(``cfg.param_dtype``) and the model casts them at every use, as JAX does.
+Norm scales stay fp32, because the norm multiplies in fp32.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.rmsnorm import rmsnorm_ref
+from repro_torch.kernels.softmax_xent import softmax_xent_ref
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -123,3 +125,24 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- losses --
+
+def cross_entropy(logits, labels, vocab_size: int, z_loss: float = 0.0,
+                  impl: str = "kernel"):
+    """CE over a (possibly vocab-padded) logits tensor; labels < vocab_size.
+    Returns (loss, {"nll", "z_loss"}), the JAX ``cross_entropy`` (without
+    its token mask, which no caller of the port passes).
+    ``impl="kernel"`` reaches K4 (forward and backward; its plain versions
+    on CPU tensors); ``"plain"`` is the plain forward, which autograd
+    differentiates."""
+    if impl == "kernel":
+        nll, lse = ops.softmax_xent(logits, labels, vocab_size)
+    else:
+        assert impl == "plain", impl
+        nll, lse = softmax_xent_ref(logits, labels, vocab_size)
+    zl = z_loss * lse.square()
+    denom = float(labels.numel())
+    loss = (nll + zl).sum() / denom
+    return loss, {"nll": nll.sum() / denom, "z_loss": zl.sum() / denom}

@@ -9,7 +9,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
-from repro_torch.models.common import DTYPES, init_params, resolve_device
+from repro_torch.models.common import (DTYPES, cross_entropy, init_params,
+                                       resolve_device)
 from repro_torch.models.transformer import ForwardOpts
 
 
@@ -33,6 +34,18 @@ class LM:
                 collect_cache: bool = False):
         return transformer.forward(params, self.cfg, tokens, opts,
                                    collect_cache)
+
+    def loss(self, params, batch, opts: ForwardOpts = ForwardOpts(),
+             moe_aux_weight: float = 1e-2, z_loss: float = 1e-4):
+        """Next-token loss of ``batch`` = {"tokens", "labels"}, both (B, S)
+        int tensors.  Returns (loss, {"loss", "nll", "z_loss", "moe_aux"}),
+        the JAX ``LM.loss`` for the dense family, whose ``moe_aux`` is 0,
+        so ``moe_aux_weight`` adds nothing."""
+        logits, _ = self.forward(params, batch["tokens"], opts)
+        loss, ce = cross_entropy(logits, batch["labels"], self.cfg.vocab_size,
+                                 z_loss=z_loss, impl=opts.xent_impl)
+        return loss, {"loss": loss, "nll": ce["nll"], "z_loss": ce["z_loss"],
+                      "moe_aux": torch.zeros((), device=loss.device)}
 
     def decode_step(self, params, tokens, cache, positions,
                     decode_impl: str = "kernel", norm_impl: str = "kernel"):

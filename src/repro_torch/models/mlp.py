@@ -16,7 +16,9 @@ def mlp_spec(cfg):
 
 
 def mlp(p, cfg, x):
+    """Weights are cast to x's dtype at each use (a no-op for weights stored
+    in it), as JAX casts its fp32 masters."""
     act = activation(cfg.act)
-    h = x @ p["wi"]["kernel"]
-    h = act(x @ p["wg"]["kernel"]) * h if "wg" in p else act(h)
-    return h @ p["wo"]["kernel"]
+    h = x @ p["wi"]["kernel"].to(x.dtype)
+    h = act(x @ p["wg"]["kernel"].to(x.dtype)) * h if "wg" in p else act(h)
+    return h @ p["wo"]["kernel"].to(x.dtype)

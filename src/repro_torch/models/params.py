@@ -2,10 +2,12 @@
 into the port's parameters.
 
 ``from_jax`` takes what ``jax.tree.map(np.asarray, params)`` gives for a
-dense ``LM`` and returns torch tensors in the same layouts.  Matrix weights
-are cast once, to the compute dtype: the JAX model casts its fp32 masters at
-every use, which is numerically the same.  Norm scales stay fp32, as the
-norm multiplies in fp32.  No JAX is imported here.
+dense ``LM`` and returns torch tensors in the same layouts.  For serving,
+matrix weights are cast once, to the compute dtype: the JAX model casts its
+fp32 masters at every use, which is numerically the same.  For training,
+``dtype=torch.float32`` keeps them fp32.  Norm scales stay fp32, as the
+norm multiplies in fp32.  ``train_state_from_jax`` carries a whole JAX train
+state across.  No JAX is imported here.
 """
 from __future__ import annotations
 
@@ -36,3 +38,18 @@ def from_jax(tree, cfg, device="cuda", dtype=None):
                 for k, v in spec.items()}
 
     return convert(build_spec(cfg), tree, "params")
+
+
+def train_state_from_jax(state, cfg, device="cuda"):
+    """The JAX train state ``{"params", "opt": {"m", "v"[, "master"]},
+    "step"}``, as numpy arrays, into the port's: parameters in
+    ``cfg.param_dtype``, moments (and masters) fp32, the step a host int.
+    A JAX run can then go on in the port."""
+    unknown = set(state["opt"]) - {"m", "v", "master"}
+    if unknown:
+        raise KeyError(f"opt: unexpected {sorted(unknown)}")
+    return {"params": from_jax(state["params"], cfg, device,
+                               DTYPES[cfg.param_dtype]),
+            "opt": {k: from_jax(tree, cfg, device, torch.float32)
+                    for k, tree in state["opt"].items()},
+            "step": int(np.asarray(state["step"]))}

@@ -4,7 +4,7 @@ family of the JAX ``repro.models.transformer``).
 Layers are stacked along a leading dim of every parameter and applied in a
 Python loop.  Two entry points share the weights:
 
-* ``forward``     — full sequence (prefill when ``collect_cache``)
+* ``forward``     — full sequence (training; prefill when ``collect_cache``)
 * ``decode_step`` — one token per slot at (B,) positions over a paged cache,
   whose pools it updates in place
 """
@@ -16,13 +16,23 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import P, norm_spec, rms_norm, stack_spec
+from repro_torch.models.common import (DTYPES, P, norm_spec, rms_norm,
+                                       stack_spec)
 
 
 @dataclass(frozen=True)
 class ForwardOpts:
-    attn_impl: str = "flash"      # flash (K2) | dense (reference)
+    attn_impl: str = "flash"      # flash (K2) | dense (reference) | blockwise
     norm_impl: str = "kernel"     # kernel (K3) | plain (reference)
+    q_chunk: int = 1024           # blockwise attention chunks
+    kv_chunk: int = 1024
+    remat: str = "none"           # the JAX trainer's "none"; nothing else
+    xent_impl: str = "kernel"     # loss: kernel (K4) | plain (reference)
+
+    def __post_init__(self):
+        if self.remat != "none":
+            raise ValueError(f"remat={self.remat!r}: the port keeps every "
+                             "activation (remat 'none' only)")
 
 
 def layer_spec(cfg):
@@ -50,25 +60,32 @@ def layer_params(params, i: int):
     return pick(params["layers"])
 
 
+def embed(params, cfg, tokens):
+    """Token embedding in the compute dtype (``cfg.dtype``)."""
+    return params["embed"]["table"][tokens].to(DTYPES[cfg.dtype])
+
+
 def unembed(params, cfg, h, norm_impl: str = "kernel"):
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps, norm_impl)
     if cfg.tie_embeddings:
-        return h @ params["embed"]["table"].T
-    return h @ params["lm_head"]["kernel"]
+        return h @ params["embed"]["table"].to(h.dtype).T
+    return h @ params["lm_head"]["kernel"].to(h.dtype)
 
 
 def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
             collect_cache: bool = False):
     """tokens (B, S).  Returns (logits (B, S, Vp), cache | None) where cache
     is ``{"layers": {"k": (L, B, S, KV, D), "v": ...}}``."""
-    h = params["embed"]["table"][tokens]
+    h = embed(params, cfg, tokens)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         a_in = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps, opts.norm_impl)
         a, (k, v) = attn.attention_block(lp["attn"], cfg, a_in,
                                          impl=opts.attn_impl,
-                                         norm_impl=opts.norm_impl)
+                                         norm_impl=opts.norm_impl,
+                                         q_chunk=opts.q_chunk,
+                                         kv_chunk=opts.kv_chunk)
         h = h + a
         f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, opts.norm_impl)
         h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
@@ -89,7 +106,7 @@ def decode_step(params, cfg, tokens, cache, positions,
     Returns (logits (B, 1, Vp), cache)."""
     page_table = cache["page_table"]
     pools = cache["layers"]
-    h = params["embed"]["table"][tokens]
+    h = embed(params, cfg, tokens)
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         a_in = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps, norm_impl)

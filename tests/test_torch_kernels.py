@@ -1,17 +1,23 @@
 """The port's kernels: each plain PyTorch version against the JAX Pallas
 kernel (interpret mode on CPU) and the JAX ``repro.kernels.ref`` oracle, on
-the same numpy inputs.  The kernels themselves run only on a card and are
-tested in ``test_torch_gpu.py``."""
+the same numpy inputs; K4's backward against ``jax.grad`` of the JAX loss.
+The kernels themselves run only on a card and are tested in
+``test_torch_gpu.py``."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import adamw_update as jaw
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import common as jcommon
+from repro_torch.kernels import adamw_update as taw
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_decode as tpd
+from repro_torch.kernels import softmax_xent as tsx
 
 RNG = np.random.default_rng(7)
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -155,4 +161,86 @@ def test_plain_versions_on_cpu_count_no_launch():
     tops.rmsnorm(tq, torch.ones(tq.shape[-1]))
     x = torch.randn(4, 8, 16)
     tfa.flash_attention_bhsd(x, x[:2], x[:2])
+    logits = torch.randn(3, 5, 128, requires_grad=True)
+    nll, lse = tops.softmax_xent(logits, torch.zeros(3, 5, dtype=torch.int32),
+                                 100)
+    (nll.sum() + lse.sum()).backward()
+    z = torch.zeros(10)
+    taw.adamw_fused(z, z.clone(), z.clone(), z.clone(), torch.ones(()),
+                    lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8,
+                    weight_decay=0.1, bias_corr1=0.1, bias_corr2=0.05)
     assert tops.launch_counts() == {name: 0 for name in tops.KERNELS}
+
+
+# ------------------------------------------------------------------ K4 ----
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,vp,vocab", [(16, 256, 256), (24, 384, 300),
+                                        (8, 1024, 1000)])
+def test_softmax_xent_matches_pallas_and_ref(n, vp, vocab, dtype):
+    """nll against the Pallas kernel (interpret) and the JAX oracle, lse
+    against ``logsumexp`` over the live columns, with and without a padded
+    vocab tail."""
+    jx, tx = _both(RNG.normal(0, 4, (n, vp)), dtype)
+    y = RNG.integers(0, vocab, (n,)).astype(np.int32)
+    nll, lse = tsx.softmax_xent_fwd(tx, torch.from_numpy(y), vocab)
+    assert nll.dtype == lse.dtype == torch.float32
+    jy = jnp.asarray(y)
+    np.testing.assert_allclose(_np(nll), _np(jops.softmax_xent(
+        jx, jy, vocab=vocab)), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np(nll), _np(jref.softmax_xent_ref(
+        jx, jy, vocab=vocab)), rtol=2e-5, atol=2e-5)
+    exp = jax.scipy.special.logsumexp(jx[:, :vocab].astype(jnp.float32),
+                                      axis=-1)
+    np.testing.assert_allclose(_np(lse), _np(exp), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softmax_xent_backward_matches_jax_grad(dtype):
+    """K4's backward formula (its plain version here) against ``jax.grad``
+    of the JAX ``cross_entropy`` with z-loss on the same logits; columns
+    past the vocab get exactly zero."""
+    jx, tx = _both(RNG.normal(0, 3, (4, 5, 384)), dtype)
+    y = RNG.integers(0, 300, (4, 5)).astype(np.int32)
+
+    def loss(x):
+        return jcommon.cross_entropy(x, jnp.asarray(y), 300, z_loss=1e-3)[0]
+
+    exp = jax.grad(loss)(jx)
+    tx.requires_grad_(True)
+    nll, lse = tops.softmax_xent(tx, torch.from_numpy(y), 300)
+    (got,) = torch.autograd.grad((nll + 1e-3 * lse.square()).mean(), tx)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(_np(got), _np(exp), **(
+        _tol(dtype) if dtype == "bfloat16" else dict(rtol=1e-4, atol=1e-7)))
+    assert float(got[..., 300:].abs().max()) == 0.0
+
+
+# ------------------------------------------------------------------ K5 ----
+
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,scale,wd,step", [(5000, 0.5, 0.1, 3),
+                                             (4096, 1.0, 0.0, 1),
+                                             (1000, 0.25, 0.05, 10)])
+def test_adamw_matches_pallas_and_ref(n, scale, wd, step, gdtype):
+    """Sizes that are and are not a multiple of the Pallas block, clip
+    scales below 1 and non-zero weight decay; the port updates in place."""
+    jg, tg = _both(RNG.normal(0, 1, (n,)), gdtype)
+    m = RNG.normal(0, 0.1, (n,)).astype(np.float32)
+    v = RNG.uniform(0, 0.1, (n,)).astype(np.float32)
+    p = RNG.normal(0, 0.02, (n,)).astype(np.float32)
+    hyper = dict(lr=3e-3, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=wd)
+    tm, tv, tp = (torch.from_numpy(a.copy()) for a in (m, v, p))
+    taw.adamw_fused(tg, tm, tv, tp, torch.tensor(scale), **hyper,
+                    bias_corr1=1.0 - 0.9 ** step,
+                    bias_corr2=1.0 - 0.95 ** step)
+    pallas = jaw.adamw_fused(jg, jnp.asarray(m), jnp.asarray(v),
+                             jnp.asarray(p), **hyper, step=step,
+                             grad_scale=scale, interpret=True)
+    oracle = jref.adamw_ref(jg.astype(jnp.float32) * scale, jnp.asarray(m),
+                            jnp.asarray(v), jnp.asarray(p), **hyper,
+                            step=step)
+    for exp in (pallas, oracle):
+        for got, e in zip((tm, tv, tp), exp):
+            np.testing.assert_allclose(_np(got), _np(e), rtol=1e-5,
+                                       atol=1e-7)
