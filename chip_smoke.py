@@ -12,7 +12,9 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    one process per source) and the Triton RMSNorm and AdamW, with the
    ptxas register/shared/spill lines;
 3. kernels against their plain versions on the card, bf16 and fp32, at the
-   shapes the serve and train paths give them (fp32 1e-4, bf16 2e-2
+   shapes the serve and train paths give them, K1 also in its int8 mode
+   over pools quantized by ``quantize_kv`` (where a D that is not a
+   multiple of 16 is refused) (fp32 1e-4, bf16 2e-2
    absolute; AdamW 1e-6; the softmax-xent backward elementwise, each
    element to 1e-5 (fp32) or 1e-2 (bf16) of its own size, since its
    elements span ten orders of magnitude; a row pitch that is not 16-byte
@@ -21,13 +23,18 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32);
 4. full-width qwen3-4b in fp32: one batched prefill and 16 decode steps
    through the kernels and through the plain path (dense prefill, gathered
-   decode, plain RMSNorm); logits agree to a relative max error of 1e-3 and
-   greedy tokens agree wherever the plain top-2 gap exceeds the error;
+   decode, plain RMSNorm), over native pages and over int8 pages; on each
+   page format logits agree to a relative max error of 1e-3 and greedy
+   tokens agree wherever the plain top-2 gap exceeds the error; the largest
+   int8-vs-native logit difference and their greedy agreement are printed;
 5. serve: full-width qwen3-4b in bf16 through ``ServeEngine`` (16 requests,
    prompts of 16-200 tokens, some sharing a prefix, 32 new tokens each,
-   max_batch 8, max_seq 512, page 16); every request completes, one decode
-   dispatch per iteration, and the kernel launch counts match the decode
-   steps, prefill dispatches and norms of that run;
+   max_batch 8, max_seq 512, page 16), over native pages and then over int8
+   pages; in each run every request completes, one decode dispatch per
+   iteration, and the kernel launch counts match the decode steps, prefill
+   dispatches and norms of that run (the int8 run launches K1's int8 mode,
+   never the native one); the pools' bytes from ``memory_stats()`` and as
+   allocated on the card; one fused decode step of each run profiled;
 6. training parity: full-width qwen3-4b cut to 2 layers, fp32, two train
    steps through K4 and K5 and through their plain versions; loss,
    grad_norm and every parameter agree to a relative max error of 1e-3;
@@ -215,6 +222,85 @@ def check_k1(report):
         f"plain {plain_ms:.4f} ms, SDPA on gathered view {lib_ms:.4f} ms, "
         f"bound {bms:.5f} ms ({by})")
     report["paged_flash_decode"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms)
+
+
+def check_k1_int8(report):
+    """K1's int8 mode: the pools of ``k1_inputs`` quantized by the port's
+    ``quantize_kv`` (each dead page's NaN rows give NaN scales), with fp32
+    and bf16 q, against the plain version."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.quant import dequantize_kv, quantize_kv
+    gen = torch.Generator().manual_seed(4)
+
+    def quantized(dtype):
+        q, k, v, table, pos = k1_inputs(dtype, gen)
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        return q, kq, vq, ks, vs, table, pos
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kq, vq, ks, vs, table, pos = quantized(dtype)
+        out = pd.paged_flash_decode_int8(q, kq, vq, ks, vs, table, pos)
+        ref = pd.paged_decode_ref(q, kq, vq, table, pos, ks, vs)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        finite = bool(torch.isfinite(out.float()).all())
+        log(f"K1 int8 paged_flash_decode_int8 q {str(dtype)[6:]:8s} B=8 KV=8 "
+            f"G=4 D=128 page=16 M=32: max_abs_err {err:.3e} (tol "
+            f"{TOL[dtype]}), finite={finite}")
+        assert finite and err <= TOL[dtype], \
+            "K1 int8 disagrees with its plain version"
+    cut = [t[..., :120].contiguous() for t in (q, kq, vq)]
+    try:
+        pd.paged_flash_decode_int8(cut[0], cut[1], cut[2], ks, vs, table, pos)
+    except ValueError as e:
+        assert "16-byte" in str(e), e
+    else:
+        raise AssertionError("K1 int8 took D=120, not a multiple of 16")
+    log("K1 int8 refuses D=120 (not a multiple of 16)")
+    # timing at the serve shapes, bf16 q, no NaN pages
+    b, kv, g, d, page, m = 8, 8, 4, 128, 16, 32
+    q, k, v, table, _ = k1_inputs(torch.bfloat16, gen)
+    (kq, ks), (vq, vs) = (quantize_kv(torch.nan_to_num(t)) for t in (k, v))
+    pos = torch.tensor([40, 75, 110, 140, 170, 200, 231, 0], dtype=torch.int32,
+                       device=DEV)
+    args = (q, kq, vq, ks, vs, table, pos)
+    err = max_err(pd.paged_flash_decode_int8(*args),
+                  pd.paged_decode_ref(q, kq, vq, table, pos, ks, vs))
+    ms = time_ms(lambda: pd.paged_flash_decode_int8(*args))
+    host_ms = eager_ms(lambda: pd.paged_flash_decode_int8(*args))
+    plain_ms = time_ms(lambda: pd.paged_decode_ref(q, kq, vq, table, pos, ks,
+                                                   vs))
+    # yardstick, two calls: dequantize_kv of the gathered (dead-page-
+    # redirected) int8 K and V, laid out (B, KV, S, D) beforehand, then SDPA
+    # with enable_gqa
+    live = torch.arange(m, device=DEV)[None] <= (pos.long() // page)[:, None]
+    tbl = torch.where(live, table.long(), 0)
+
+    def gathered(pool):
+        x = pool[tbl].reshape(b, m * page, kv, *pool.shape[3:])
+        return x.transpose(1, 2).contiguous()
+
+    kg, vg, ksg, vsg = (gathered(t) for t in (kq, vq, ks, vs))
+    qh = q.reshape(b, kv * g, 1, d)
+    mask = (torch.arange(m * page, device=DEV)[None]
+            <= pos.long()[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(
+        qh, dequantize_kv(kg, ksg, torch.bfloat16),
+        dequantize_kv(vg, vsg, torch.bfloat16), attn_mask=mask,
+        enable_gqa=True))
+    rows = int((pos.long() + 1).sum())
+    nbytes = 2 * rows * kv * (d + 4) + 2 * q.numel() * 2 \
+        + 4 * (table.numel() + b)
+    flops = 4 * kv * g * d * rows + 2 * rows * kv * d   # dequant in fp32
+    bms, by = bound(nbytes, flops, torch.float32)
+    log(f"K1 int8 timing bf16 q, positions {pos.tolist()}: kernel {ms:.4f} ms "
+        f"(eager back-to-back {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"dequantize_kv + SDPA (enable_gqa) on the gathered view, two calls, "
+        f"{lib_ms:.4f} ms, bound {bms:.5f} ms ({by}; {nbytes} bytes)")
+    report["paged_flash_decode_int8"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=lib_ms)
 
@@ -470,28 +556,48 @@ def model_check():
     tokens = np.zeros((n, bucket), np.int64)
     for j, plen in enumerate(lens):
         tokens[j, :plen] = rng.integers(0, cfg.vocab_size, plen)
-    paths = {"kernel": (ForwardOpts("flash", "kernel"), "kernel", "kernel"),
-             "plain": (ForwardOpts("dense", "plain"), "gather", "plain")}
+    opts = {"kernel": ForwardOpts("flash", "kernel"),
+            "plain": ForwardOpts("dense", "plain")}
+    # path -> (prefill opts, decode impl, norm impl, page format)
+    paths = {"kernel": ("kernel", "kernel", "kernel", "native"),
+             "plain": ("plain", "gather", "plain", "native"),
+             "kernel-int8": ("kernel", "kernel", "kernel", "int8"),
+             "plain-int8": ("plain", "gather", "plain", "int8")}
     caches, logits = {}, {}
     tok_dev = torch.as_tensor(tokens, device=DEV)
     last = torch.as_tensor(np.array(lens) - 1, device=DEV)
-    for name, (opts, _, _) in paths.items():
-        kv = PagedCache(cfg, n, 256, page_size=16, device=DEV,
-                        dtype=torch.float32)
-        dest = np.zeros((n, bucket), np.int32)
-        for j, plen in enumerate(lens):
-            assert kv.alloc(j, plen + steps) == 0
-            dest[j] = kv.prefill_dest(j, bucket, plen)
-        lg, cache = lm.forward(params, tok_dev, opts, collect_cache=True)
-        kv.staged_write_prefill(cache["layers"],
-                                torch.as_tensor(dest, device=DEV))
-        caches[name] = kv
-        logits[name] = [lg[torch.arange(n, device=DEV), last]]
+    for oname, o in opts.items():
+        lg, cache = lm.forward(params, tok_dev, o, collect_cache=True)
+        for name, (pre, _, _, kv_dtype) in paths.items():
+            if pre != oname:
+                continue
+            kv = PagedCache(cfg, n, 256, page_size=16, device=DEV,
+                            dtype=torch.float32, kv_dtype=kv_dtype)
+            dest = np.zeros((n, bucket), np.int32)
+            for j, plen in enumerate(lens):
+                assert kv.alloc(j, plen + steps) == 0
+                dest[j] = kv.prefill_dest(j, bucket, plen)
+            kv.staged_write_prefill(kv.quantize_block(cache["layers"]),
+                                    torch.as_tensor(dest, device=DEV))
+            caches[name] = kv
+            logits[name] = [lg[torch.arange(n, device=DEV), last]]
         del lg, cache
+    # the two paths' prefill K/V differ in fp32 rounding; where a value
+    # sits near a rounding boundary its int8 level differs by one (page 0,
+    # the scratch page, takes the padding rows' racing writes: left out)
+    moved = [(caches["kernel-int8"].state["layers"][k][:, 1:].int()
+              - caches["plain-int8"].state["layers"][k][:, 1:].int()).abs()
+             for k in ("k", "v")]
+    log(f"int8 pools after prefill, kernel vs plain path: "
+        f"{sum(int((d > 0).sum()) for d in moved)} of "
+        f"{2 * sum(lens) * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim}"
+        f" written elements differ, by at most "
+        f"{max(int(d.max()) for d in moved)} level")
+    del moved
     pos = np.array(lens, np.int32)
     nxt = logits["plain"][0].argmax(-1)
     for t in range(steps):
-        for name, (_, decode_impl, norm_impl) in paths.items():
+        for name, (_, decode_impl, norm_impl, _) in paths.items():
             lg, _ = lm.decode_step(params, nxt[:, None],
                                    caches[name].decode_view(),
                                    torch.as_tensor(pos + t, device=DEV),
@@ -499,24 +605,37 @@ def model_check():
                                    norm_impl=norm_impl)
             logits[name].append(lg[:, -1])
         nxt = logits["plain"][-1].argmax(-1)
-    worst_rel, agree, checked = 0.0, 0, 0
-    for a, b in zip(logits["kernel"], logits["plain"]):
-        a, b = a[:, :cfg.vocab_size].float(), b[:, :cfg.vocab_size].float()
-        assert a.shape == (n, cfg.vocab_size) and bool(torch.isfinite(a).all())
-        rel = float((a - b).abs().max() / b.abs().max())
-        worst_rel = max(worst_rel, rel)
-        top2 = b.topk(2, dim=-1).values
-        gap = top2[:, 0] - top2[:, 1]
-        err_row = (a - b).abs().max(dim=-1).values
-        decided = gap > err_row
-        same = a.argmax(-1) == b.argmax(-1)
-        assert bool((same | ~decided).all()), "greedy tokens disagree"
-        agree += int(same.sum())
-        checked += n
-    log(f"fp32 kernel vs plain path: prefill + {steps} decode steps, logits "
-        f"rel max err {worst_rel:.3e} (limit 1e-3), greedy agree "
-        f"{agree}/{checked}")
-    assert worst_rel <= 1e-3, "kernel path logits disagree with plain path"
+
+    def compare(kernel, plain, gate):
+        worst_rel, agree, checked, worst_abs = 0.0, 0, 0, 0.0
+        for a, b in zip(logits[kernel], logits[plain]):
+            a, b = a[:, :cfg.vocab_size].float(), b[:, :cfg.vocab_size].float()
+            assert a.shape == (n, cfg.vocab_size) \
+                and bool(torch.isfinite(a).all())
+            worst_abs = max(worst_abs, float((a - b).abs().max()))
+            worst_rel = max(worst_rel,
+                            float((a - b).abs().max() / b.abs().max()))
+            top2 = b.topk(2, dim=-1).values
+            decided = top2[:, 0] - top2[:, 1] > (a - b).abs().max(-1).values
+            same = a.argmax(-1) == b.argmax(-1)
+            agree += int(same.sum())
+            checked += n
+            if gate:
+                assert bool((same | ~decided).all()), "greedy tokens disagree"
+        return worst_rel, worst_abs, agree, checked
+
+    for kernel, plain in (("kernel", "plain"), ("kernel-int8", "plain-int8")):
+        worst_rel, _, agree, checked = compare(kernel, plain, True)
+        log(f"fp32 {kernel} vs {plain} path: prefill + {steps} decode steps, "
+            f"logits rel max err {worst_rel:.3e} (limit 1e-3), greedy agree "
+            f"{agree}/{checked}")
+        assert worst_rel <= 1e-3, \
+            f"{kernel} path logits disagree with the {plain} path"
+    worst_rel, worst_abs, agree, checked = compare("plain-int8", "plain",
+                                                   False)
+    log(f"fp32 int8 pages vs native pages (plain paths, same tokens): largest "
+        f"|logit difference| {worst_abs:.4e} (rel max err {worst_rel:.3e}), "
+        f"greedy agree {agree}/{checked} (reported, not a gate)")
 
 
 def _leaves(tree):
@@ -530,6 +649,8 @@ def _leaves(tree):
 # ------------------------------------------------------------- phase 5 ----
 
 def serve(report):
+    """The same 16 requests served over native bf16 pages, then over int8
+    pages; each run is gated on its own launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import LM
@@ -539,81 +660,110 @@ def serve(report):
     params = lm.init(7, device=DEV)
     rng = np.random.default_rng(5)
     shared = rng.integers(0, cfg.vocab_size, 64)
+    prompts = []
+    for i in range(16):
+        plen = int(rng.integers(16, 201))
+        prompt = rng.integers(0, cfg.vocab_size, plen)
+        if i % 4 == 0:                        # 4 prompts share a prefix
+            prompt = np.concatenate([shared, prompt[:max(plen - 64, 8)]])
+        prompts.append(prompt.astype(np.int32))
 
     def requests():
-        out = []
-        for i in range(16):
-            plen = int(rng.integers(16, 201))
-            prompt = rng.integers(0, cfg.vocab_size, plen)
-            if i % 4 == 0:                    # 4 prompts share a prefix
-                prompt = np.concatenate([shared, prompt[:max(plen - 64, 8)]])
-            out.append(Request(i, prompt.astype(np.int32),
-                               max_new_tokens=32))
-        return out
+        return [Request(i, p, max_new_tokens=32) for i, p in enumerate(prompts)]
 
-    def engine():
+    def engine(kv_dtype):
         return ServeEngine(lm, params, max_batch=8, max_seq=512,
-                           page_size=16, device=DEV)
+                           page_size=16, device=DEV, kv_dtype=kv_dtype)
 
-    warm = engine()                           # cuBLAS and allocator warm-up
+    warm = engine("native")                   # cuBLAS and allocator warm-up
     for r in requests()[:2]:
         warm.submit(r)
     warm.run_until_drained()
     del warm
-    eng = engine()
-    decode_ms, prefill_ms = [], []
+    streams = {}
+    for kv_dtype in ("native", "int8"):
+        free()
+        before = torch.cuda.memory_allocated()
+        eng = engine(kv_dtype)
+        torch.cuda.synchronize()
+        pool_bytes = torch.cuda.memory_allocated() - before
+        decode_ms, prefill_ms = [], []
 
-    def timed(fn, sink):
-        def run(*a):
-            t0 = time.perf_counter()
-            out = fn(*a)
-            torch.cuda.synchronize()
-            sink.append((time.perf_counter() - t0) * 1e3)
-            return out
-        return run
+        def timed(fn, sink):
+            def run(*a):
+                t0 = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                sink.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
 
-    eng._fused = timed(eng._fused, decode_ms)
-    eng._prefill_group = timed(eng._prefill_group, prefill_ms)
-    reqs = requests()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    done = eng.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    reg = eng.reg
-    iters = reg.counter("serve_iterations_total").get()
-    decodes = reg.counter("serve_decode_dispatches_total").get()
-    prefills = reg.counter("serve_prefill_dispatches_total").get()
-    tokens = sum(len(r.out_tokens) for r in done)
-    assert len(done) == 16 and all(r.status == "completed" and
-                                   len(r.out_tokens) == 32 for r in done)
-    assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
-    assert decodes == iters, (decodes, iters)
-    L = cfg.num_layers
-    norms = L * (2 + 2 * cfg.qk_norm) + 1
-    want = {name: 0 for name in launches}
-    want.update(paged_flash_decode=decodes * L,
-                flash_attention_bhsd=prefills * L,
-                rmsnorm_rows=(decodes + prefills) * norms)
-    log(f"launch counts {launches}, expected {want}")
-    assert launches == want, "the main path did not run every kernel"
-    ttft = reg.histogram("serve_ttft_seconds").quantile(0.5) * 1e3
-    log(f"served 16 requests, {tokens} tokens in {wall:.3f}s: "
-        f"{tokens / wall:.1f} tok/s, TTFT p50 {ttft:.1f} ms, "
-        f"{iters:.0f} iterations, {prefills:.0f} prefill dispatches, mean "
-        f"decode step {np.mean(decode_ms):.2f} ms, mean prefill dispatch "
-        f"{np.mean(prefill_ms):.2f} ms, pages shared "
-        f"{reg.gauge('serve_kv_pages_shared').get():.0f} at last admission, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"[{nvidia_smi_line()}]")
-    for name in ("paged_flash_decode", "flash_attention_bhsd",
-                 "rmsnorm_rows"):
-        report[name]["launches"] = launches[name]
+        eng._fused = timed(eng._fused, decode_ms)
+        eng._prefill_group = timed(eng._prefill_group, prefill_ms)
+        reqs = requests()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        reg = eng.reg
+        iters = reg.counter("serve_iterations_total").get()
+        decodes = reg.counter("serve_decode_dispatches_total").get()
+        prefills = reg.counter("serve_prefill_dispatches_total").get()
+        tokens = sum(len(r.out_tokens) for r in done)
+        assert len(done) == 16 and all(r.status == "completed" and
+                                       len(r.out_tokens) == 32 for r in done)
+        assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
+        assert decodes == iters, (decodes, iters)
+        L = cfg.num_layers
+        norms = L * (2 + 2 * cfg.qk_norm) + 1
+        k1 = "paged_flash_decode" if kv_dtype == "native" \
+            else "paged_flash_decode_int8"
+        want = {name: 0 for name in launches}
+        want.update({k1: decodes * L,
+                     "flash_attention_bhsd": prefills * L,
+                     "rmsnorm_rows": (decodes + prefills) * norms})
+        log(f"[{kv_dtype}] launch counts {launches}, expected {want}")
+        assert launches == want, "the main path did not run every kernel"
+        ttft = reg.histogram("serve_ttft_seconds").quantile(0.5) * 1e3
+        st = eng.kv.memory_stats()
+        log(f"[{kv_dtype}] served 16 requests, {tokens} tokens in {wall:.3f}s: "
+            f"{tokens / wall:.1f} tok/s, TTFT p50 {ttft:.1f} ms, "
+            f"{iters:.0f} iterations, {prefills:.0f} prefill dispatches, mean "
+            f"decode step {np.mean(decode_ms):.2f} ms, mean prefill dispatch "
+            f"{np.mean(prefill_ms):.2f} ms, pages shared "
+            f"{reg.gauge('serve_kv_pages_shared').get():.0f} at last "
+            f"admission, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"[{nvidia_smi_line()}]")
+        log(f"[{kv_dtype}] KV pool: memory_stats {st.bytes_total} B "
+            f"({st.pages_total + 1} pages of {st.page_size}, scales "
+            f"{st.bytes_scales} B), allocated on the card at construction "
+            f"{pool_bytes} B; saved vs bf16 pages "
+            f"{reg.gauge('serve_kv_quant_bytes_saved').get():.0f} B")
+        # one more fused step, all slots parked on the scratch page: the
+        # same launches and host work as a step of the run
+        zeros = np.zeros(8, np.int64)
+        profile_call(f"[{kv_dtype}] fused decode step (B=8)",
+                     lambda: ServeEngine._fused(eng, zeros, zeros).cpu(),
+                     top=6)
+        streams[kv_dtype] = {r.id: r.out_tokens for r in done}
+        names = (k1,) if kv_dtype == "int8" else (
+            k1, "flash_attention_bhsd", "rmsnorm_rows")
+        for name in names:
+            report[name]["launches"] = launches[name]
+        del eng, done, reqs
+    same = sum(a == b for i in streams["native"]
+               for a, b in zip(streams["native"][i], streams["int8"][i]))
+    first = sum(streams["native"][i][0] == streams["int8"][i][0]
+                for i in streams["native"])
+    log(f"int8 vs native streams (bf16, random weights): {same}/512 tokens "
+        f"equal, first tokens equal {first}/16 (reported, not a gate)")
 
 
 # ------------------------------------------------------------- phase 6 ----
@@ -786,7 +936,8 @@ def train_run(report, steps: int = 10):
         f"({flops / 1e12:.2f} TFLOP per step) [{nvidia_smi_line()}]")
     for name in ("softmax_xent_fwd", "softmax_xent_bwd", "adamw_fused"):
         report[name]["launches"] = launches[name]
-    profile_step(loop.train_step, final, batch)
+    profile_call("train step",
+                 lambda: float(loop.train_step(final, batch)[1]["loss"]))
     del final, loop
     free()
     # the same run through the plain loss and plain AdamW, from the same
@@ -812,7 +963,9 @@ def train_run(report, steps: int = 10):
         "the kernel path's loss trajectory leaves the plain path's"
 
 
-KERNEL_GROUPS = (("K4 softmax_xent", ("softmax_xent",)),
+KERNEL_GROUPS = (("K1 paged_decode", ("paged_decode_kernel",)),
+                 ("K3 rmsnorm", ("rmsnorm",)),
+                 ("K4 softmax_xent", ("softmax_xent",)),
                  ("K5 adamw", ("adamw_kernel",)),
                  ("matmul", ("gemm", "sm90_", "cutlass", "cublas", "xmma",
                              "nvjet")),
@@ -823,18 +976,17 @@ KERNEL_GROUPS = (("K4 softmax_xent", ("softmax_xent",)),
                                              "fill")))
 
 
-def profile_step(train_step, state, batch) -> None:
-    """Where the time of one more train step goes: device time by kernel
-    group (torch.profiler, CUPTI), the device's busy and idle share of the
-    step's wall time, and the largest kernels.  It runs after the counted
-    run, on its final state; its launches are not counted."""
+def profile_call(what: str, fn, top: int = 10) -> None:
+    """Where the time of one call of ``fn`` goes: device time by kernel
+    group (torch.profiler, CUPTI), the number of kernels it launched, the
+    device's busy and idle share of the call's wall time, and the largest
+    kernels.  It runs after a counted run; its launches are not counted."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, metrics = train_step(state, batch)
-        float(metrics["loss"])
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernel rows only: an operator's row repeats its kernels' time
@@ -844,11 +996,12 @@ def profile_step(train_step, state, batch) -> None:
             and ev.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
     if not busy:
-        log(f"profiled train step: wall {wall_ms:.2f} ms; the profiler "
+        log(f"profiled {what}: wall {wall_ms:.2f} ms; the profiler "
             "recorded no device time (device breakdown not measured)")
         return
-    log(f"profiled train step: wall {wall_ms:.2f} ms, device busy "
-        f"{busy:.2f} ms, device idle share {1 - busy / wall_ms:.3f}")
+    log(f"profiled {what}: wall {wall_ms:.2f} ms, device busy "
+        f"{busy:.2f} ms, device idle share {1 - busy / wall_ms:.3f}, "
+        f"{sum(n for _, _, n in rows)} device kernels")
     groups = {}
     for key, ms, _ in rows:
         group = next((g for g, subs in KERNEL_GROUPS
@@ -856,7 +1009,7 @@ def profile_step(train_step, state, batch) -> None:
         groups[group] = groups.get(group, 0.0) + ms
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"  {group:24s} {ms:9.3f} ms  {ms / busy * 100:5.1f}% of busy")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}")
 
 
@@ -928,17 +1081,19 @@ def main() -> int:
     phase("3 kernels against their plain versions")
     report = {}
     check_k1(report)
+    check_k1_int8(report)
     check_k2(report)
     check_k3(report)
     check_k4(report)
     check_k5(report)
     free()
 
-    phase("4 full-width qwen3-4b fp32: kernel path vs plain path")
+    phase("4 full-width qwen3-4b fp32: kernel path vs plain path, native "
+          "and int8 pages")
     model_check()
     free()
 
-    phase("5 serve full-width qwen3-4b bf16")
+    phase("5 serve full-width qwen3-4b bf16, native and int8 pages")
     serve(report)
     free()
 
@@ -953,6 +1108,9 @@ def main() -> int:
     csrc = "src/repro_torch/csrc/"
     meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",
                                    "src/repro/kernels/paged_decode.py:142"),
+            "paged_flash_decode_int8": ("cuda", csrc + "paged_decode.cu",
+                                        "src/repro/kernels/"
+                                        "paged_decode.py:142"),
             "flash_attention_bhsd": ("cuda", csrc + "flash_attention.cu",
                                      "src/repro/kernels/"
                                      "flash_attention.py:60"),

@@ -13,12 +13,14 @@ from typing import Dict
 
 from repro_torch.kernels.adamw_update import adamw_fused
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
-from repro_torch.kernels.paged_decode import paged_flash_decode
+from repro_torch.kernels.paged_decode import (paged_flash_decode,
+                                              paged_flash_decode_int8)
 from repro_torch.kernels.rmsnorm import rmsnorm_rows
 from repro_torch.kernels.softmax_xent import (SoftmaxXent, softmax_xent_bwd,
                                               softmax_xent_fwd)
 
 KERNELS = {"paged_flash_decode": paged_flash_decode,
+           "paged_flash_decode_int8": paged_flash_decode_int8,
            "flash_attention_bhsd": flash_attention_bhsd,
            "rmsnorm_rows": rmsnorm_rows,
            "softmax_xent_fwd": softmax_xent_fwd,
@@ -45,12 +47,21 @@ def flash_attention(q, k, v, *, causal: bool = True):
     return o.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)
 
 
-def paged_decode_attention(q, k_pool, v_pool, page_table, positions):
+def paged_decode_attention(q, k_pool, v_pool, page_table, positions,
+                           k_scale=None, v_scale=None):
     """q: (B, 1, KV, G, D); pools (P, page, KV, D); page_table (B, M) int32;
-    positions (B,) int32.  Returns (B, 1, KV, G, D)."""
+    positions (B,) int32; with int8 pools, ``k_scale``/``v_scale``
+    (P, page, KV) fp32.  Returns (B, 1, KV, G, D)."""
     assert q.shape[1] == 1, q.shape
-    o = paged_flash_decode(q[:, 0].contiguous(), k_pool, v_pool, page_table,
-                           positions)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_decode_attention: k_scale and v_scale go "
+                         "together")
+    q = q[:, 0].contiguous()
+    if k_scale is None:
+        o = paged_flash_decode(q, k_pool, v_pool, page_table, positions)
+    else:
+        o = paged_flash_decode_int8(q, k_pool, v_pool, k_scale, v_scale,
+                                    page_table, positions)
     return o[:, None]
 
 

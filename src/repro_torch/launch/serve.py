@@ -2,6 +2,7 @@
 over the paged KV cache, on the card unless ``--device cpu``.
 
     python -m repro_torch.launch.serve --no-reduced          # full width
+    python -m repro_torch.launch.serve --no-reduced --kv-dtype int8
     python -m repro_torch.launch.serve --device cpu --reduced
 
 It prints the same summary lines as ``repro.launch.serve``.  ``--reduced``
@@ -44,6 +45,15 @@ def main(argv=None):
                     help="physical page pool size (default: dense-equivalent"
                          " capacity); smaller pools defer admissions")
     ap.add_argument("--no-prefix-sharing", action="store_true")
+    ap.add_argument("--kv-dtype", default="native",
+                    choices=["native", "int8"],
+                    help="page-pool storage format: 'native' (the model "
+                         "dtype) or 'int8' (int8 rows with per-row fp32 "
+                         "scales, quantized on write, dequantized on read)")
+    ap.add_argument("--decode-impl", default="kernel",
+                    choices=["kernel", "gather"],
+                    help="paged decode read path: 'kernel' (K1, walks the "
+                         "page table) or 'gather' (dense gathered view)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -54,7 +64,8 @@ def main(argv=None):
     eng = ServeEngine(lm, params, args.max_batch, args.max_seq,
                       page_size=args.page_size, num_pages=args.num_pages,
                       prefix_sharing=not args.no_prefix_sharing,
-                      device=args.device)
+                      device=args.device, kv_dtype=args.kv_dtype,
+                      decode_impl=args.decode_impl)
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     for i in range(args.requests):
@@ -89,8 +100,15 @@ def main(argv=None):
           f"deferred={deferred:.0f}; prefill batch p50="
           f"{pf_h.quantile(0.5):.0f}")
     transient = reg.gauge("serve_decode_transient_bytes").get()
-    print(f"decode impl [kernel]: per-step KV read "
+    print(f"decode impl [{eng.decode_impl}]: per-step KV read "
           f"transient {transient/1e3:.1f} kB/layer")
+    if st.kv_dtype == "int8":
+        saved = reg.gauge("serve_kv_quant_bytes_saved").get()
+        dense = str(eng.kv.dtype).removeprefix("torch.")
+        print(f"kv quant [int8]: {st.bytes_scales/1e3:.1f} kB scales, "
+              f"{saved/1e6:.2f} MB saved vs {dense} pages "
+              f"({(st.bytes_total + saved)/max(st.bytes_total, 1):.2f}x "
+              f"positions per byte)")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ are.  Decode
 (P, page, KV, D) pools in place, then attends through the (B, M) page table
 with ``impl="kernel"`` (K1) or ``"gather"`` (dense gathered view, the JAX
 engine's default).  Physical page 0 is the scratch page: freed slots' table
-rows point at it, so masked writes of inactive slots land there.
+rows point at it, so masked writes of inactive slots land there.  Over int8
+pools the new row is quantized before it is written, its scale lands
+through the same table index, and the read dequantizes: in registers in K1's
+int8 mode, or the gathered view under ``"gather"``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import math
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.quant import (check_pool_write, dequantize_kv,
+                                       quantize_kv)
 from repro_torch.models.common import P, apply_rope, depth_scale, norm_spec, \
     rms_norm
 
@@ -151,6 +156,16 @@ def attention_block(p, cfg, x, *, impl: str = "flash", causal: bool = True,
 
 # ----------------------------------------------------------------- decode ----
 
+def live_table(page_table, positions, page: int):
+    """The (B, M) table with entries past each slot's live pages redirected
+    to the scratch page 0."""
+    m = page_table.shape[1]
+    live = (torch.arange(m, device=page_table.device)[None, :]
+            <= (positions.long() // page)[:, None])
+    pt = page_table.long()
+    return torch.where(live, pt, torch.zeros_like(pt))
+
+
 def gather_pages(pool, page_table, positions=None):
     """(P, page, KV, D) pool -> (B, M*page, KV, D) per-slot logical rows.
     With ``positions``, table entries past each slot's live pages are
@@ -158,25 +173,37 @@ def gather_pages(pool, page_table, positions=None):
     redirect keeps a dead page's content (even NaN) out of the result."""
     b, m = page_table.shape
     page = pool.shape[1]
-    pt = page_table.long()
-    if positions is not None:
-        live = (torch.arange(m, device=pool.device)[None, :]
-                <= (positions.long() // page)[:, None])
-        pt = torch.where(live, pt, torch.zeros_like(pt))
+    pt = (page_table.long() if positions is None
+          else live_table(page_table, positions, page))
     return pool[pt].reshape(b, m * page, *pool.shape[2:])
 
 
+def dequant_gathered(gathered, scale_pool, table, dtype):
+    """Dequantize a gathered int8 view: ``gathered`` (B, S, KV, D) int8,
+    ``scale_pool`` (P, page, KV) fp32, ``table`` the (B, M) table the view
+    was gathered through; the scales resolve through the same table, so a
+    row and its scale never come from different pages."""
+    sg = scale_pool[table.long()].reshape(gathered.shape[:3])
+    return dequantize_kv(gathered, sg, dtype)
+
+
 def decode_attention(q, k_pool, v_pool, positions, page_table,
-                     impl: str = "kernel"):
+                     impl: str = "kernel", k_scale=None, v_scale=None):
     """q (B, 1, KV, G, D) attends to each slot's rows 0..pos through the
     page table: ``"kernel"`` walks the table in K1, ``"gather"`` builds the
-    dense gathered view (the JAX engine's default path)."""
+    dense gathered view (the JAX engine's default path).  ``k_scale``/
+    ``v_scale`` (P, page, KV) fp32 go with int8 pools."""
     if impl == "kernel":
         return ops.paged_decode_attention(q, k_pool, v_pool, page_table,
-                                          positions)
+                                          positions, k_scale=k_scale,
+                                          v_scale=v_scale)
     assert impl == "gather", impl
     kg = gather_pages(k_pool, page_table, positions)
     vg = gather_pages(v_pool, page_table, positions)
+    if k_scale is not None:
+        lt = live_table(page_table, positions, k_pool.shape[1])
+        kg = dequant_gathered(kg, k_scale, lt, q.dtype)
+        vg = dequant_gathered(vg, v_scale, lt, q.dtype)
     s = torch.einsum("bqkgd,bskd->bkgqs", q, kg).float() / math.sqrt(
         q.shape[-1])
     valid = (torch.arange(kg.shape[1], device=q.device)[None, :]
@@ -189,10 +216,12 @@ def decode_attention(q, k_pool, v_pool, positions, page_table,
 
 def _scatter_paged_kv(pool, new, page_table, positions):
     """In-place paged write: slot b's token (B, 1, KV, D) lands at
-    ``pool[page_table[b, pos // page], pos % page]``.  Inactive slots (all
+    ``pool[page_table[b, pos // page], pos % page]`` (a scale row (B, 1, KV)
+    into a (P, page, KV) scale pool the same way).  Inactive slots (all
     at position 0 behind all-zero table rows) all write row 0 of scratch
     page 0; on CUDA those duplicate writes race, which is harmless because
-    no live slot ever maps page 0."""
+    no live slot ever maps page 0.  An int8 pool takes int8 rows only."""
+    check_pool_write(pool, new, "_scatter_paged_kv")
     n_pages, page = pool.shape[:2]
     flat = pool.view(n_pages * page, *pool.shape[2:])
     pos = positions.long()
@@ -202,13 +231,22 @@ def _scatter_paged_kv(pool, new, page_table, positions):
 
 def attention_decode_block(p, cfg, x, k_pool, v_pool, positions, page_table,
                            decode_impl: str = "kernel",
-                           norm_impl: str = "kernel"):
+                           norm_impl: str = "kernel", k_scale=None,
+                           v_scale=None):
     """One-token decode at per-slot (B,) positions.  x (B, 1, d).  The new
     K/V row is written into the pools (in place) before attending, and the
-    slot attends to its own position too."""
+    slot attends to its own position too.  With int8 pools (``k_scale``/
+    ``v_scale`` given) the row is quantized first and its scale written
+    through the same table index, so the slot reads its own new row back
+    from int8, as the JAX model does."""
     q, k, v = project_qkv(p, cfg, x, positions[:, None], norm_impl)
+    if k_scale is not None:
+        k, sk = quantize_kv(k)
+        v, sv = quantize_kv(v)
+        _scatter_paged_kv(k_scale, sk, page_table, positions)
+        _scatter_paged_kv(v_scale, sv, page_table, positions)
     _scatter_paged_kv(k_pool, k, page_table, positions)
     _scatter_paged_kv(v_pool, v, page_table, positions)
     y = decode_attention(q, k_pool, v_pool, positions, page_table,
-                         decode_impl)
+                         decode_impl, k_scale=k_scale, v_scale=v_scale)
     return output_proj(p, cfg, y)

@@ -56,9 +56,11 @@ class LM:
     def init_cache(self, batch_size: int, max_seq: int,
                    backend: str = "paged", page_size: int = 16,
                    num_pages: Optional[int] = None,
-                   prefix_sharing: bool = True, device="cuda", dtype=None):
+                   prefix_sharing: bool = True, device="cuda", dtype=None,
+                   kv_dtype: str = "native"):
         """A managed paged KV cache (``repro_torch.serve.kvcache``); the
-        paged backend is the only one the port has."""
+        paged backend is the only one the port has.  ``kv_dtype="int8"``
+        stores int8 pages with per-row fp32 scales."""
         if backend != "paged":
             raise ValueError(f"the port has the paged cache backend only "
                              f"(got {backend!r})")
@@ -66,4 +68,5 @@ class LM:
         return PagedCache(self.cfg, batch_size, max_seq, page_size=page_size,
                           num_pages=num_pages, prefix_sharing=prefix_sharing,
                           device=device,
-                          dtype=dtype or DTYPES[self.cfg.dtype])
+                          dtype=dtype or DTYPES[self.cfg.dtype],
+                          kv_dtype=kv_dtype)

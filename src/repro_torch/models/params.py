@@ -53,3 +53,22 @@ def train_state_from_jax(state, cfg, device="cuda"):
             "opt": {k: from_jax(tree, cfg, device, torch.float32)
                     for k, tree in state["opt"].items()},
             "step": int(np.asarray(state["step"]))}
+
+
+def cache_from_jax(view, device="cuda"):
+    """A JAX paged cache view ``{"layers": {"k", "v"[, "k_scale",
+    "v_scale"]}, "page_table"}``, as numpy arrays, into the port's decode
+    view.  Every array keeps its dtype (int8 pools, fp32 scales, int32
+    table); a bf16 pool, which numpy holds as an extension type, goes
+    through fp32, exactly."""
+    dev = resolve_device(device)
+
+    def convert(arr):
+        arr = np.asarray(arr)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.astype(np.float32)).to(
+                device=dev, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(arr)).to(dev)
+
+    return {"layers": {k: convert(v) for k, v in view["layers"].items()},
+            "page_table": convert(view["page_table"])}

@@ -102,17 +102,23 @@ def decode_step(params, cfg, tokens, cache, positions,
                 decode_impl: str = "kernel", norm_impl: str = "kernel"):
     """One token per slot.  tokens (B, 1); positions (B,) int32; cache is a
     paged view ``{"layers": {"k": (L, P, page, KV, D), "v": ...},
-    "page_table": (B, M) int32}`` whose pools are written in place.
-    Returns (logits (B, 1, Vp), cache)."""
+    "page_table": (B, M) int32}`` whose pools are written in place; int8
+    pools come with ``"k_scale"``/``"v_scale"`` (L, P, page, KV) fp32,
+    which each layer's attention block is handed.  Returns (logits
+    (B, 1, Vp), cache)."""
     page_table = cache["page_table"]
     pools = cache["layers"]
+    quantized = "k_scale" in pools
     h = embed(params, cfg, tokens)
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         a_in = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps, norm_impl)
+        scales = ({"k_scale": pools["k_scale"][i],
+                   "v_scale": pools["v_scale"][i]} if quantized else {})
         h = h + attn.attention_decode_block(
             lp["attn"], cfg, a_in, pools["k"][i], pools["v"][i], positions,
-            page_table, decode_impl=decode_impl, norm_impl=norm_impl)
+            page_table, decode_impl=decode_impl, norm_impl=norm_impl,
+            **scales)
         f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, norm_impl)
         h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
     return unembed(params, cfg, h, norm_impl), cache

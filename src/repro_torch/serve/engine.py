@@ -21,7 +21,12 @@ engine does).
   recovery is not ported yet, so the engine raises on it.
 
 On CUDA the main path runs the port's kernels: K2 flash prefill, K1 paged
-flash-decode and K3 RMSNorm at every norm.
+flash-decode (its int8 mode with ``kv_dtype="int8"``) and K3 RMSNorm at
+every norm.  ``kv_dtype="int8"`` stores the pages as int8 rows with per-row
+fp32 scales: the prefill block is quantized before it is written and each
+decode row in the attention block; prefill attends over the float K/V, so
+its logits are the native ones.  ``decode_impl`` is ``"kernel"`` (K1) or
+``"gather"`` (the dense gathered view).
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ import torch
 
 from repro_torch.models import LM
 from repro_torch.models.common import resolve_device
-from repro_torch.serve.kvcache import decode_transient_bytes
+from repro_torch.serve.kvcache import decode_transient_bytes, page_kv_bytes
 from repro_torch.serve.sampling import sample_batch
 from repro_torch.telemetry import MetricsRegistry
 
@@ -69,8 +74,12 @@ class NonFiniteLogitsError(RuntimeError):
 class ServeEngine:
     def __init__(self, lm: LM, params, max_batch: int, max_seq: int,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 prefix_sharing: bool = True, device="cuda"):
+                 prefix_sharing: bool = True, device="cuda",
+                 kv_dtype: str = "native", decode_impl: str = "kernel"):
         assert lm.cfg.family == "dense", lm.cfg.family
+        if decode_impl not in ("kernel", "gather"):
+            raise ValueError(f"decode_impl {decode_impl!r} not in "
+                             "('kernel', 'gather')")
         self.device = resolve_device(device)
         first = params["embed"]["table"]
         if first.device != self.device:
@@ -78,13 +87,15 @@ class ServeEngine:
                              f"runs on {self.device}")
         self.lm, self.params = lm, params
         self.B, self.S = max_batch, max_seq
+        self.decode_impl = decode_impl
         self.reg = MetricsRegistry()
         self.finished: List[Request] = []
         dtype = torch.float32 if lm.cfg.dtype == "float32" else torch.bfloat16
         self.kv = lm.init_cache(max_batch, max_seq, page_size=page_size,
                                 num_pages=num_pages,
                                 prefix_sharing=prefix_sharing,
-                                device=self.device, dtype=dtype)
+                                device=self.device, dtype=dtype,
+                                kv_dtype=kv_dtype)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int32)   # next write index
         self.queue: List[Request] = []
@@ -122,6 +133,15 @@ class ServeEngine:
         g("serve_kv_pages_shared", "pages with refcount > 1 (prefix sharing)")
         g("serve_decode_transient_bytes",
           "per-step transient of the paged KV read path, one layer")
+        g("serve_kv_quant_enabled",
+          "1 when the paged pool stores int8-quantized pages "
+          "(kv_dtype=\"int8\"), 0 on native-dtype pools")
+        g("serve_kv_quant_scale_bytes",
+          "pinned bytes of the per-row fp32 scale arrays riding alongside "
+          "the int8 pools (0 when not quantized)")
+        g("serve_kv_quant_bytes_saved",
+          "pinned-pool bytes the int8 format saves vs the same pool in the "
+          "model dtype, scales included (0 when not quantized)")
 
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
@@ -187,7 +207,8 @@ class ServeEngine:
         logits, cache = self.lm.forward(self.params,
                                         self._tensor(tokens, torch.long),
                                         collect_cache=True)
-        self.kv.staged_write_prefill(cache["layers"], self._tensor(dest))
+        self.kv.staged_write_prefill(self.kv.quantize_block(cache["layers"]),
+                                     self._tensor(dest))
         rows = logits[torch.arange(n, device=self.device),
                       self._tensor(last_idx), :self.lm.cfg.vocab_size].float()
         toks = self._sample(rows, [s.temperature for s in sp],
@@ -230,7 +251,8 @@ class ServeEngine:
         sample every slot.  Returns the (B,) ids (0 on inactive slots)."""
         logits, _ = self.lm.decode_step(
             self.params, self._tensor(self.next_token[:, None], torch.long),
-            self.kv.decode_view(), self._tensor(positions, torch.int32))
+            self.kv.decode_view(), self._tensor(positions, torch.int32),
+            decode_impl=self.decode_impl)
         rows = logits[:, -1, :self.lm.cfg.vocab_size].float()
         tok = self._sample(rows, self.temps.tolist(), self.top_ks.tolist(),
                            self.top_ps.tolist(), self.seeds.tolist(),
@@ -302,7 +324,18 @@ class ServeEngine:
         self.reg.gauge("serve_kv_bytes_reserved").set(st.bytes_reserved)
         self.reg.gauge("serve_kv_pages_shared").set(st.pages_shared)
         self.reg.gauge("serve_decode_transient_bytes").set(
-            decode_transient_bytes(self.lm.cfg, self.kv.page, self.kv.dtype))
+            decode_transient_bytes(self.lm.cfg, self.B, self.kv.max_pages,
+                                   st.page_size, self.kv.dtype,
+                                   self.decode_impl, st.kv_dtype))
+        quant = st.kv_dtype == "int8"
+        self.reg.gauge("serve_kv_quant_enabled").set(int(quant))
+        self.reg.gauge("serve_kv_quant_scale_bytes").set(st.bytes_scales)
+        saved = 0
+        if quant:
+            # the same pool (scratch page included) in the compute dtype
+            saved = page_kv_bytes(self.lm.cfg, st.page_size, self.kv.dtype) \
+                * (st.pages_total + 1) - st.bytes_total
+        self.reg.gauge("serve_kv_quant_bytes_saved").set(saved)
 
     def run_until_drained(self, max_iters: int = 10_000) -> List[Request]:
         """Step until every submitted request has completed."""

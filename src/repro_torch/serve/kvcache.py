@@ -1,6 +1,6 @@
 """Paged KV cache of the port (counterpart of ``PagedCache`` in the JAX
 ``repro.serve.kvcache``, without its quotas, eviction, chunked allocation,
-host tier, int8 pages and meshes).
+host tier and meshes).
 
 Storage is a per-layer (L, P, page, KV, D) K and V pool on the device; each
 slot owns a row of a host-side (B, M) int32 page table mapping logical page
@@ -10,6 +10,13 @@ full prompt pages between requests with the same token prefix: pages are
 keyed by the prefix they causally depend on and refcounted.  Physical page 0
 is the scratch page: never allocated, it is where freed slots' table rows
 point, so masked writes of inactive slots land in garbage space.
+
+With ``kv_dtype="int8"`` the pools hold int8 rows and two (L, P, page, KV)
+fp32 pools, ``k_scale`` and ``v_scale``, hold one scale per row
+(``repro_torch.kernels.quant.quantize_kv``): ``2·L·KV·(D + 4)`` bytes per
+position instead of ``2·L·KV·D·itemsize``.  Rows are quantized before they
+are written (``quantize_block`` for a prefill block, the attention block for
+a decode row); the write helpers refuse a float block for an int8 pool.
 
 All bookkeeping is host-side numpy.  Unlike the JAX cache, whose pools are
 immutable values threaded through each dispatch, the pools here are written
@@ -23,23 +30,60 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.quant import check_pool_write, quantize_kv
 from repro_torch.models.common import resolve_device
 
+#: fp32 bytes of the scale stored beside each int8 K/V row.
+SCALE_BYTES = 4
 
-def kv_position_bytes(cfg, dtype: torch.dtype) -> int:
-    """Bytes of K+V cache per token position (all layers)."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim \
-        * itemsize
+KV_DTYPES = ("native", "int8")
 
 
-def decode_transient_bytes(cfg, page_size: int, dtype: torch.dtype) -> int:
-    """Per-decode-step transient of the paged K/V read path, one layer: each
-    (slot, kv-head) block of K1 holds one (page, D) K and V tile plus fp32
-    softmax state (the JAX gather path's dense view never exists)."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    hd = cfg.resolved_head_dim
-    g = cfg.num_heads // cfg.num_kv_heads
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def kv_position_bytes(cfg, dtype: torch.dtype,
+                      kv_dtype: str = "native") -> int:
+    """Bytes of K+V cache per token position (all layers): ``2·L·KV·D`` in
+    ``dtype``, or for int8 pages ``2·L·KV·(D + 4)`` (a row and its
+    scale)."""
+    l, kvh, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    if kv_dtype == "int8":
+        return 2 * l * kvh * (hd + SCALE_BYTES)
+    assert kv_dtype == "native", kv_dtype
+    return 2 * l * kvh * hd * _itemsize(dtype)
+
+
+def page_kv_bytes(cfg, page_size: int, dtype: torch.dtype,
+                  kv_dtype: str = "native") -> int:
+    """Device bytes of one physical page (all layers, K+V, int8 scales
+    included)."""
+    return page_size * kv_position_bytes(cfg, dtype, kv_dtype)
+
+
+def decode_transient_bytes(cfg, batch: int, max_pages: int, page_size: int,
+                           dtype: torch.dtype, decode_impl: str = "kernel",
+                           kv_dtype: str = "native") -> int:
+    """Per-decode-step transient of the paged K/V read path, one layer.
+
+    ``"gather"`` builds two dense (B, M·page, KV, D) views; for int8 pages
+    also the gathered scales and the views dequantized to ``dtype``.
+    ``"kernel"`` (K1): each (slot, kv-head) block stages one (page, D) K and
+    V tile (int8 rows and their scales in the int8 mode) plus fp32 softmax
+    state, independent of B and M.  The JAX function's byte math, whose
+    ``"pallas"`` is this ``"kernel"``."""
+    itemsize = _itemsize(dtype)
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if decode_impl == "gather":
+        rows = 2 * batch * max_pages * page_size * kvh
+        if kv_dtype == "int8":
+            return rows * (hd + SCALE_BYTES) + rows * hd * itemsize
+        return rows * hd * itemsize
+    assert decode_impl == "kernel", decode_impl
+    g = cfg.num_heads // kvh
+    if kv_dtype == "int8":
+        return 2 * page_size * (hd + SCALE_BYTES) + 4 * g * (hd + 2)
     return 2 * page_size * hd * itemsize + 4 * g * (hd + 2)
 
 
@@ -57,6 +101,8 @@ class MemoryStats:
     pages_total: int          # usable pages (scratch excluded)
     pages_in_use: int
     pages_shared: int         # pages with refcount > 1 (prefix sharing)
+    kv_dtype: str = "native"  # page element format ("native" / "int8")
+    bytes_scales: int = 0     # portion of bytes_total pinned by int8 scales
 
 
 class PagedCache:
@@ -64,8 +110,11 @@ class PagedCache:
 
     def __init__(self, cfg, batch: int, max_seq: int, page_size: int = 16,
                  num_pages: Optional[int] = None, prefix_sharing: bool = True,
-                 device="cuda", dtype=torch.bfloat16):
+                 device="cuda", dtype=torch.bfloat16,
+                 kv_dtype: str = "native"):
         assert cfg.family == "dense", cfg.family
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
         self.cfg, self.B, self.S = cfg, batch, max_seq
         self.page = page_size
         self.max_pages = -(-max_seq // page_size)              # M, per slot
@@ -75,13 +124,21 @@ class PagedCache:
         assert num_pages >= 2, "need at least scratch + one usable page"
         self.P = num_pages
         self.device = resolve_device(device)
-        self.dtype = dtype
+        self.dtype = dtype                  # the compute dtype
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype == "int8"
         self.prefix_sharing = prefix_sharing
         shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
-        self.state = {"layers": {
-            "k": torch.zeros(shape, dtype=dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=dtype, device=self.device)}}
+        pool_dtype = torch.int8 if self.quantized else dtype
+        layers = {name: torch.zeros(shape, dtype=pool_dtype,
+                                    device=self.device) for name in "kv"}
+        if self.quantized:
+            # one fp32 scale per (layer, page, row, kv-head)
+            for name in ("k_scale", "v_scale"):
+                layers[name] = torch.zeros(shape[:4], dtype=torch.float32,
+                                           device=self.device)
+        self.state = {"layers": layers}
         self.page_table = np.zeros((batch, self.max_pages), np.int32)
         self._page_table_dev: Optional[torch.Tensor] = None
         # free stack: pop() hands out the lowest id; scratch 0 never listed
@@ -204,16 +261,35 @@ class PagedCache:
         write = (pos >= shared_len) & (pos < end)
         return np.where(write, idx, 0).astype(np.int32)
 
+    def quantize_block(self, kv_block):
+        """A prefill block in the pools' format: as it is for native pools;
+        for int8 pools ``{"k", "v", "k_scale", "v_scale"}``, each row
+        quantized with its own scale (the JAX ``_quantize_block``)."""
+        if not self.quantized:
+            return kv_block
+        block = {}
+        for name in ("k", "v"):
+            block[name], block[name + "_scale"] = quantize_kv(kv_block[name])
+        return block
+
     def staged_write_prefill(self, kv_block, dest) -> None:
         """Scatter a prefill block into the pools in place.  kv_block:
-        ``{"k": (L, n, Sblk, KV, D), "v": ...}``; dest (n, Sblk) flat rows
-        from ``prefill_dest``.  Every scratch-routed position writes flat
-        row 0; those duplicate writes race on CUDA, which is harmless
-        because page 0 is never read by a live slot."""
+        ``{"k": (L, n, Sblk, KV, D), "v": ...}`` in the pools' format (for
+        int8 pools from ``quantize_block``, with ``k_scale``/``v_scale``
+        (L, n, Sblk, KV), which land through the same flat rows); dest
+        (n, Sblk) flat rows from ``prefill_dest``.  Every scratch-routed
+        position writes flat row 0; those duplicate writes race on CUDA,
+        which is harmless because page 0 is never read by a live slot."""
+        pools = self.state["layers"]
+        if set(kv_block) != set(pools):
+            raise ValueError(f"staged_write_prefill: block holds "
+                             f"{sorted(kv_block)}, the pools "
+                             f"{sorted(pools)}")
         idx = dest.reshape(-1).long()
-        for name, pool in self.state["layers"].items():
-            big = pool.view(pool.shape[0], -1, *pool.shape[3:])
+        for name, pool in pools.items():
             small = kv_block[name]
+            check_pool_write(pool, small, f"staged_write_prefill[{name}]")
+            big = pool.view(pool.shape[0], -1, *pool.shape[3:])
             big[:, idx] = small.reshape(small.shape[0], -1,
                                         *small.shape[3:]).to(pool.dtype)
 
@@ -278,20 +354,26 @@ class PagedCache:
             check(self._ref[pid] > 0,
                   f"registered prefix page {pid} has no owner")
         st = self.memory_stats()
-        pb = self.page * kv_position_bytes(self.cfg, self.dtype)
+        pb = page_kv_bytes(self.cfg, self.page, self.dtype, self.kv_dtype)
+        pools = self.state["layers"].values()
         check(st.pages_in_use == st.pages_total - len(free)
               and st.bytes_reserved == st.pages_in_use * pb
-              and st.bytes_total == self.P * pb,
+              and st.bytes_total == self.P * pb
+              == sum(t.numel() * t.element_size() for t in pools),
               "memory_stats byte math inconsistent")
         check(self._safe(len(free), self._banker_items()),
               "pool not banker-safe (a live slot can never complete)")
 
     def memory_stats(self) -> MemoryStats:
-        pb = self.page * kv_position_bytes(self.cfg, self.dtype)
+        pb = page_kv_bytes(self.cfg, self.page, self.dtype, self.kv_dtype)
         usable = self.usable_pages()
         in_use = usable - len(self._free)
+        scale_b = (self.P * self.page * 2 * self.cfg.num_layers
+                   * self.cfg.num_kv_heads * SCALE_BYTES
+                   if self.quantized else 0)
         return MemoryStats(
             backend=self.backend, bytes_total=self.P * pb,
             bytes_reserved=in_use * pb,
             page_size=self.page, pages_total=usable, pages_in_use=in_use,
-            pages_shared=int((self._ref > 1).sum()))
+            pages_shared=int((self._ref > 1).sum()), kv_dtype=self.kv_dtype,
+            bytes_scales=scale_b)

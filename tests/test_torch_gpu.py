@@ -72,6 +72,43 @@ def test_paged_decode_kernel_matches_plain(dtype, d, page):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,page", [(32, 4), (128, 16)])
+def test_paged_decode_int8_kernel_matches_plain(dtype, d, page):
+    """K1's int8 mode: int8 pools made by quantize_kv, boundary positions,
+    a freed slot on scratch page 0, and NaN scales on every dead page."""
+    from repro_torch.kernels.quant import quantize_kv
+    dev = _card()
+    gen = torch.Generator().manual_seed(2)
+    b, kv, g, m = 6, 2, 4, 6
+    n_pages = b * m + 1
+    pos = torch.tensor([0, page - 1, page, page + 1, m * page - 1, 0],
+                       dtype=torch.int32)
+    table = (torch.randperm(n_pages - 1, generator=gen)[: b * m] + 1)
+    table = table.reshape(b, m).to(torch.int32)
+    table[5] = 0
+    k, ks = quantize_kv(torch.randn(n_pages, page, kv, d, generator=gen))
+    v, vs = quantize_kv(torch.randn(n_pages, page, kv, d, generator=gen))
+    for s in range(b - 1):
+        dead = table[s, pos[s] // page + 1:].long()
+        ks[dead] = float("nan")
+        vs[dead] = float("nan")
+    q = torch.randn(b, kv, g, d, generator=gen).to(dev, DTYPES[dtype])
+    k, v, ks, vs, table, pos = (x.to(dev) for x in (k, v, ks, vs, table, pos))
+    before = tpd.paged_flash_decode_int8.launches
+    got = tpd.paged_flash_decode_int8(q, k, v, ks, vs, table, pos)
+    assert tpd.paged_flash_decode_int8.launches == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    ref = tpd.paged_decode_ref(q, k, v, table, pos, ks, vs)
+    assert _err(got, ref) <= TOL[dtype]
+    with pytest.raises(ValueError, match="16-byte"):
+        tpd.paged_flash_decode_int8(q[..., :d - 8],
+                                    k[..., :d - 8].contiguous(),
+                                    v[..., :d - 8].contiguous(), ks, vs,
+                                    table, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s", [16, 200, 512])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(dtype, s, causal):
@@ -184,6 +221,13 @@ def test_forward_only_kernels_refuse_autograd():
                                pool, torch.ones(1, 2, dtype=torch.int32,
                                                 device=dev),
                                torch.zeros(1, dtype=torch.int32, device=dev))
+    pool8 = torch.zeros(3, 16, 2, 128, device=dev, dtype=torch.int8)
+    scale = torch.ones(3, 16, 2, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tpd.paged_flash_decode_int8(
+            torch.randn(1, 2, 4, 128, device=dev), pool8, pool8, scale, scale,
+            torch.ones(1, 2, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
     with torch.no_grad():
         trn.rmsnorm_rows(x, sc)
         tfa.flash_attention_bhsd(q, k, k)
