@@ -9,8 +9,9 @@ code 1, no result line) without one.  Phases, each of which fails the run:
 1. card: name, power limit, torch and CUDA versions; TF32 off for every
    fp32 comparison (``torch.backends.cuda.matmul.allow_tf32 = False``);
 2. build: the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
-   one process per source) and the Triton RMSNorm and AdamW, with the
-   ptxas register/shared/spill lines;
+   one process per source) and the Triton RMSNorm (for every row width the
+   paths use: 128, 2048, 2560, 4096) and AdamW, with the ptxas
+   register/shared/spill lines;
 3. kernels against their plain versions on the card, bf16 and fp32, at the
    shapes the serve and train paths give them, K1 also in its int8 mode
    over pools quantized by ``quantize_kv`` (where a D that is not a
@@ -20,7 +21,11 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    elements span ten orders of magnitude; a row pitch that is not 16-byte
    aligned is refused), and their times (CUDA events) beside the plain
    version, one PyTorch call as a yardstick, and the bound from shapes
-   (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32);
+   (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32); K6 (the Mamba2 SSD scan)
+   and K7 (the RWKV6 WKV recurrence) at the eval shapes of zamba2-1.2b and
+   rwkv6-1.6b (B=4, S=2048) and at a ragged S=2000, fp32 and bf16, on
+   inputs shaped as the models make them (no PyTorch call computes either
+   scan, so they have no yardstick);
 4. full-width qwen3-4b in fp32: one batched prefill and 16 decode steps
    through the kernels and through the plain path (dense prefill, gathered
    decode, plain RMSNorm), over native pages and over int8 pages; on each
@@ -48,15 +53,32 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    parameter tensor per step; tok/s, step ms, peak memory and MFU, then
    one profiled step: device time by kernel group and the idle share;
    then the same run from the same seed through the plain loss and plain
-   AdamW, whose per-step losses the kernel run's match to 2e-2 relative.
+   AdamW, whose per-step losses the kernel run's match to 2e-2 relative;
+8. full-width zamba2-1.2b and rwkv6-1.6b in fp32, random weights from a
+   seed, B=2, S=512: the forward through K6/K7, K2 and K3 against the plain
+   path (the models' chunked mixers, dense attention, plain RMSNorm), both
+   against a float64 forward of the plain path; logits agree to a relative
+   max error of 1e-3 at the full depth or, where the fp32 plain path is
+   more than 1e-4 from float64 there (the random rwkv6 amplifies fp32
+   rounding), at the first halved depth where it is not;
+9. eval: full-width zamba2-1.2b and rwkv6-1.6b in bf16 through
+   ``make_eval_step``, B=4, S=2048 from a synthetic corpus (seed 0); the
+   loss is finite and agrees with the plain path's to 2e-2 relative; one
+   counted eval launches exactly K6 38 times (zamba2) or K7 24 times
+   (rwkv6), K2 6 times and K3 89 times (zamba2: ln1 and the gated norm of
+   38 Mamba2 layers, ln1 and ln2 of 6 shared-block calls, the final norm),
+   and K4 once, and the plain path launches nothing; eval tok/s, forward
+   ms, peak memory, and one profiled forward.
 
 It then prints a ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -536,6 +558,98 @@ def check_k5(report):
         library_ms=lib_ms)
 
 
+def k6_inputs(b, s, h, p, n, dtype, gen):
+    """Inputs as the Mamba2 block makes them: per step and head dt in
+    [1e-3, 0.1] (log-uniform), per head A in [1, 16]; x = X * dt with X
+    ~ N(0, 1), da = -dt * A; B, C ~ N(0, 0.25), shared by the heads."""
+    dt = torch.empty(b * h, s).uniform_(math.log(1e-3), math.log(0.1),
+                                        generator=gen).exp()
+    a = torch.empty(h).uniform_(1.0, 16.0, generator=gen).repeat(b)
+    x = torch.randn(b * h, s, p, generator=gen) * dt[..., None]
+    bm = 0.5 * torch.randn(b, s, n, generator=gen)
+    cm = 0.5 * torch.randn(b, s, n, generator=gen)
+    return (x.to(DEV, dtype), (-dt * a[:, None]).to(DEV),
+            bm.to(DEV, dtype), cm.to(DEV, dtype))
+
+
+def k7_inputs(b, s, h, kd, dtype, gen):
+    """Inputs at the scale that keeps |y| of order 1: r, k, v ~ N(0, 0.15^2);
+    lw = max(-exp(U[-6, 1.5]), -2.5), the model's decays (w0 spans
+    -exp(-6)..-exp(-1)) plus ones at the floor; u ~ N(0, 0.3^2)."""
+    r, k, v = (0.15 * torch.randn(b * h, s, kd, generator=gen)
+               for _ in range(3))
+    lw = -torch.empty(b * h, s, kd).uniform_(-6.0, 1.5, generator=gen).exp()
+    u = 0.3 * torch.randn(h, kd, generator=gen)
+    return ([t.to(DEV, dtype) for t in (r, k, v)]
+            + [lw.clamp(min=-2.5).to(DEV), u.to(DEV)])
+
+
+def check_scan(report, kernel, plain, chunk, inputs, shape, nbytes_fn,
+               flops_fn):
+    """A scan kernel against its plain version at the eval shape and at a
+    ragged S=2000, fp32 and bf16, then timed in bf16 at the eval shape."""
+    name, kw = kernel.__name__, {"chunk": chunk}
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (2048, 2000):
+            args = inputs(s, dtype)
+            out = kernel(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            finite = bool(torch.isfinite(out.float()).all())
+            log(f"{name} {str(dtype)[6:]:8s} {shape} S={s}: max_abs_err "
+                f"{err:.3e} (tol {TOL[dtype]}; max |plain| "
+                f"{float(ref.float().abs().max()):.3f}), finite={finite}")
+            assert finite and err <= TOL[dtype], \
+                f"{name} disagrees with its plain version"
+            if s == 2048 and dtype == torch.bfloat16:
+                err_main, timed = err, args
+            del args, out, ref
+    ms = time_ms(lambda: kernel(*timed, **kw), iters=20)
+    host_ms = eager_ms(lambda: kernel(*timed, **kw), iters=20)
+    plain_ms = time_ms(lambda: plain(*timed, **kw), iters=5)
+    nbytes, flops = nbytes_fn(*timed), flops_fn(*timed)
+    bms, by = bound(nbytes, flops, torch.bfloat16)
+    log(f"{name} timing bf16 {shape} S=2048: kernel {ms:.4f} ms (eager "
+        f"back-to-back {host_ms:.4f} ms), plain {plain_ms:.4f} ms, no "
+        f"PyTorch call computes the scan, bound {bms:.5f} ms ({by}; "
+        f"{nbytes} bytes, {flops / 1e9:.2f} GFLOP)")
+    report[name] = dict(max_abs_err=err_main, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def check_k6(report):
+    """zamba2-1.2b's eval shape: B=4, H=64, P=N=64, chunk 256.  Bound: each
+    input read once, y written once; operations of the naive recurrence
+    (per step and head 3PN for the state update, 2PN for the output)."""
+    from repro_torch.kernels import mamba2_ssd as ssd
+    gen = torch.Generator().manual_seed(10)
+    b, h, p, n = 4, 64, 64, 64
+    check_scan(report, ssd.ssd_scan_bhsd, ssd.ssd_scan_ref, 256,
+               lambda s, dtype: k6_inputs(b, s, h, p, n, dtype, gen),
+               f"B={b} H={h} P={p} N={n} chunk=256",
+               lambda x, da, bm, cm: _nbytes(x, da, bm, cm) + _nbytes(x),
+               lambda x, da, bm, cm: 5 * x.numel() * n)
+
+
+def check_k7(report):
+    """rwkv6-1.6b's eval shape: B=4, H=32, K=V=64, chunk 32.  Bound: each
+    input read once, y written once; operations of the naive recurrence
+    (per step and head 3KV for the state update, 2KV for the output)."""
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    gen = torch.Generator().manual_seed(11)
+    b, h, kd = 4, 32, 64
+    check_scan(report, wkv.wkv6_scan_bhsd, wkv.wkv6_scan_ref, 32,
+               lambda s, dtype: k7_inputs(b, s, h, kd, dtype, gen),
+               f"B={b} H={h} K=V={kd} chunk=32",
+               lambda r, k, v, lw, u: _nbytes(r, k, v, lw, u) + _nbytes(v),
+               lambda r, k, v, lw, u: 5 * v.numel() * kd)
+
+
 # ------------------------------------------------------------- phase 4 ----
 
 def model_check():
@@ -964,9 +1078,12 @@ def train_run(report, steps: int = 10):
 
 
 KERNEL_GROUPS = (("K1 paged_decode", ("paged_decode_kernel",)),
+                 ("K2 flash_attention", ("flash_attention_kernel",)),
                  ("K3 rmsnorm", ("rmsnorm",)),
                  ("K4 softmax_xent", ("softmax_xent",)),
                  ("K5 adamw", ("adamw_kernel",)),
+                 ("K6 ssd_scan", ("ssd_scan_kernel",)),
+                 ("K7 wkv6", ("wkv6_kernel",)),
                  ("matmul", ("gemm", "sm90_", "cutlass", "cublas", "xmma",
                              "nvjet")),
                  ("indexing", ("index", "scatter", "gather", "embedding")),
@@ -1011,6 +1128,202 @@ def profile_call(what: str, fn, top: int = 10) -> None:
         log(f"  {group:24s} {ms:9.3f} ms  {ms / busy * 100:5.1f}% of busy")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+
+
+# --------------------------------------------------------- phases 8, 9 ----
+
+RECURRENT = ("zamba2-1.2b", "rwkv6-1.6b")
+
+
+def recurrent_opts():
+    from repro_torch.models import ForwardOpts
+    return {"kernel": ForwardOpts(attn_impl="flash", norm_impl="kernel",
+                                  mixer_impl="kernel", xent_impl="kernel"),
+            "plain": ForwardOpts(attn_impl="dense", norm_impl="plain",
+                                 mixer_impl="plain", xent_impl="plain")}
+
+
+@contextlib.contextmanager
+def float64_upcasts():
+    """Inside, ``Tensor.float()`` returns float64 and the compute dtype
+    "float64" exists, so a float64 config runs the plain path in float64
+    end to end (every fp32 upcast of the model code becomes a float64 one):
+    the reference against which both fp32 paths' rounding is measured."""
+    from repro_torch.models import common
+    to_f32 = torch.Tensor.float
+    common.DTYPES["float64"] = torch.float64
+    torch.Tensor.float = lambda self: self.double()
+    try:
+        yield
+    finally:
+        torch.Tensor.float = to_f32
+        del common.DTYPES["float64"]
+
+
+def recurrent_parity():
+    """Full-width fp32 forward, kernel path against plain path, both against
+    a float64 forward of the plain path.  The kernel path must agree with
+    the plain path to 1e-3 (relative max error of the logits) at a depth
+    where the fp32 plain path itself is within 1e-4 of float64: first the
+    full depth, then, while the plain path is further from float64, half
+    the depth again (full width throughout).  The random full-depth rwkv6
+    amplifies fp32 rounding (its first positions' heads can output little,
+    and ln_x's eps 64e-5 scales that up) so far that any two fp32
+    implementations differ by ~1e-3-1e-2 there.  The choice of depth reads
+    only the plain path and float64, never the kernel path."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    opts = recurrent_opts()
+    rng = np.random.default_rng(12)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def rms(a, b):
+        return float((a - b).norm() / b.norm())
+
+    for name in RECURRENT:
+        full = dataclasses.replace(get_config(name), dtype="float32")
+        params = LM(full).init(12, device=DEV)
+        toks = torch.as_tensor(rng.integers(0, full.vocab_size, (2, 512)),
+                               device=DEV)
+        depth = full.num_layers
+        while True:
+            cfg = dataclasses.replace(full, num_layers=depth)
+            lm = LM(cfg)
+            p = dict(params, layers=_first_layers(params["layers"], depth))
+            with torch.no_grad():
+                logits = {path: lm.forward(p, toks, o)[0][..., :cfg.vocab_size]
+                          .double() for path, o in opts.items()}
+                with float64_upcasts():
+                    ref = LM(dataclasses.replace(cfg, dtype="float64")) \
+                        .forward(_to_float64(p), toks, opts["plain"])[0]
+                    ref = ref[..., :cfg.vocab_size]
+                    assert ref.dtype == torch.float64
+            a, b = logits["kernel"], logits["plain"]
+            assert a.shape == (2, 512, cfg.vocab_size) \
+                and bool(torch.isfinite(a).all()), "kernel-path logits"
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            log(f"fp32 full-width {name}, {depth} of {full.num_layers} layers "
+                f"({sum(t.numel() for t in _leaves(p)) / 1e9:.3f} B "
+                f"parameters), B=2 S=512, logits: kernel vs plain path rel "
+                f"max err {rel(a, b):.3e}, argmax agree {agree:.4f}; against "
+                f"the float64 plain forward: kernel path rel max "
+                f"{rel(a, ref):.3e} rms {rms(a, ref):.3e}, plain path rel max "
+                f"{rel(b, ref):.3e} rms {rms(b, ref):.3e}")
+            well_conditioned = rel(b, ref) <= 1e-4
+            del logits, ref, p
+            if well_conditioned:
+                assert rel(a, b) <= 1e-3, \
+                    f"{name}: kernel-path logits leave the plain path"
+                log(f"  gate at {depth} layers: kernel vs plain "
+                    f"{rel(a, b):.3e} <= 1e-3")
+                break
+            assert depth > 1, f"{name}: fp32 forward ill-conditioned at depth 1"
+            log(f"  the fp32 plain path is more than 1e-4 from float64 at "
+                f"{depth} layers: 1e-3 between fp32 paths is no test of the "
+                f"kernels there; halving the depth")
+            depth //= 2
+        del params, a, b
+        free()
+
+
+def _first_layers(tree, n: int):
+    if isinstance(tree, torch.Tensor):
+        return tree[:n]
+    return {k: _first_layers(v, n) for k, v in tree.items()}
+
+
+def _to_float64(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.double()
+    return {k: _to_float64(v) for k, v in tree.items()}
+
+
+def recurrent_eval(report):
+    """bf16 eval through ``make_eval_step``: launch counts, loss against
+    the plain path, tok/s, forward ms, peak memory, a profiled forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.train import make_eval_step
+    opts = recurrent_opts()
+    b, s, runs = 4, 2048, 5
+    for name in RECURRENT:
+        cfg = get_config(name)
+        assert cfg.dtype == "bfloat16"
+        lm = LM(cfg)
+        params = lm.init(13, device=DEV)
+        toks = synthetic_corpus(b * (s + 1), cfg.vocab_size, seed=0) \
+            .astype(np.int64).reshape(b, s + 1)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        evals = {path: make_eval_step(lm, o) for path, o in opts.items()}
+        metrics, launches = {}, {}
+        for path in ("kernel", "plain"):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            metrics[path] = {k: float(v)
+                             for k, v in evals[path](params, batch).items()}
+            torch.cuda.synchronize()
+            launches[path] = ops.launch_counts()
+        want = {k: 0 for k in launches["kernel"]}
+        assert launches["plain"] == want, launches["plain"]
+        want["softmax_xent_fwd"] = 1
+        if cfg.family == "hybrid":
+            n_shared = cfg.num_layers // cfg.hybrid_attn_every
+            want.update(ssd_scan_bhsd=cfg.num_layers,
+                        flash_attention_bhsd=n_shared,
+                        rmsnorm_rows=2 * cfg.num_layers + 2 * n_shared + 1)
+            mixer = "ssd_scan_bhsd"
+        else:
+            want["wkv6_scan_bhsd"] = cfg.num_layers
+            mixer = "wkv6_scan_bhsd"
+        log(f"[{name}] launch counts of one eval {launches['kernel']}, "
+            f"expected {want}; plain path launched none")
+        assert launches["kernel"] == want, "the eval did not run its kernels"
+        report[mixer]["launches"] = launches["kernel"][mixer]
+        lk, lp = metrics["kernel"]["loss"], metrics["plain"]["loss"]
+        rel = abs(lk - lp) / abs(lp)
+        log(f"[{name}] bf16 eval B={b} S={s}: loss {lk:.6f} (nll "
+            f"{metrics['kernel']['nll']:.6f}) vs plain path {lp:.6f}, rel "
+            f"{rel:.3e} (limit 2e-2)")
+        assert np.isfinite(lk) and rel <= 2e-2, "eval loss leaves plain path"
+
+        def run(fn):
+            """Mean host ms of ``runs`` synchronized calls."""
+            times = []
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.mean(times)), float(np.min(times))
+
+        tok_dev = torch.as_tensor(batch["tokens"], device=DEV)
+
+        def forward(path):
+            with torch.no_grad():
+                lm.forward(params, tok_dev, opts[path])
+
+        torch.cuda.reset_peak_memory_stats()
+        eval_ms, eval_min = run(lambda: evals["kernel"](params, batch))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        fwd_ms, fwd_min = run(lambda: forward("kernel"))
+        plain_eval_ms, _ = run(lambda: evals["plain"](params, batch))
+        log(f"[{name}] bf16 eval, {cfg.num_layers} layers, "
+            f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+            f"parameters, B={b} S={s}: eval {eval_ms:.2f} ms mean (min "
+            f"{eval_min:.2f}) over {runs} = {b * s / eval_ms * 1e3:.1f} tok/s; "
+            f"forward {fwd_ms:.2f} ms mean (min {fwd_min:.2f}); peak memory "
+            f"{peak:.2f} GiB; plain-path eval {plain_eval_ms:.2f} ms mean "
+            f"[{nvidia_smi_line()}]")
+        profile_call(f"[{name}] bf16 forward B={b} S={s}",
+                     lambda: forward("kernel"))
+        del params, evals
+        free()
 
 
 # ----------------------------------------------------------------- main ----
@@ -1069,7 +1382,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (2560, 128):
+        for d in (2560, 128, 2048, 4096):
             x = torch.ones(4, d, device=DEV, dtype=dtype)
             rmsnorm.rmsnorm_rows(x, torch.ones(d, device=DEV))
     torch.cuda.synchronize()
@@ -1086,6 +1399,8 @@ def main() -> int:
     check_k3(report)
     check_k4(report)
     check_k5(report)
+    check_k6(report)
+    check_k7(report)
     free()
 
     phase("4 full-width qwen3-4b fp32: kernel path vs plain path, native "
@@ -1104,6 +1419,14 @@ def main() -> int:
 
     phase("7 train full-width qwen3-4b, 12 layers, bf16 compute")
     train_run(report)
+    free()
+
+    phase("8 full-width zamba2-1.2b and rwkv6-1.6b fp32: kernel path vs "
+          "plain path")
+    recurrent_parity()
+
+    phase("9 eval full-width zamba2-1.2b and rwkv6-1.6b bf16")
+    recurrent_eval(report)
 
     csrc = "src/repro_torch/csrc/"
     meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",
@@ -1123,7 +1446,11 @@ def main() -> int:
                                  "src/repro/kernels/softmax_xent.py:32"),
             "adamw_fused": ("triton", "src/repro_torch/kernels/"
                             "adamw_update.py",
-                            "src/repro/kernels/adamw_update.py:34")}
+                            "src/repro/kernels/adamw_update.py:34"),
+            "ssd_scan_bhsd": ("cuda", csrc + "mamba2_ssd.cu",
+                              "src/repro/kernels/mamba2_ssd.py:52"),
+            "wkv6_scan_bhsd": ("cuda", csrc + "rwkv6_wkv.cu",
+                               "src/repro/kernels/rwkv6_wkv.py:50")}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         r = report[name]

@@ -1,13 +1,16 @@
 """Config registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
-Only the dense decoder configs the port serves are registered.  Their files
-are copies of the JAX package's, values unchanged (the port is held to the
-JAX package, not to the hub configs the files cite)."""
+The dense decoder configs the port serves and trains, and the recurrent
+configs whose forward and eval it runs (zamba2-1.2b, hybrid; rwkv6-1.6b,
+ssm).  Their files are copies of the JAX package's, values unchanged (the
+port is held to the JAX package, not to the hub configs the files cite)."""
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.configs.llama3_2_3b import CONFIG as _llama32
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
+from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
+from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
 
-CONFIGS = {c.name: c for c in (_qwen3, _llama32)}
+CONFIGS = {c.name: c for c in (_qwen3, _llama32, _zamba2, _rwkv6)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -16,4 +19,10 @@ def get_config(name: str) -> ModelConfig:
     return CONFIGS[name]
 
 
-__all__ = ["CONFIGS", "ModelConfig", "TrainConfig", "get_config"]
+def archs(*families: str):
+    """The registered arch names of ``families``, sorted: the ``--arch``
+    choices of a launcher that runs only those families."""
+    return sorted(n for n, c in CONFIGS.items() if c.family in families)
+
+
+__all__ = ["CONFIGS", "ModelConfig", "TrainConfig", "archs", "get_config"]

@@ -1,6 +1,6 @@
 // Shared helpers for the port's hand-written Hopper kernels: element
-// conversion to and from fp32 (all arithmetic is fp32), a warp sum, and the
-// dtype codes the ctypes wrappers pass (0 = float32, 1 = bfloat16).
+// conversion to and from fp32 (all arithmetic is fp32), a warp sum, a
+// strided dot product in four partial sums, and the dtype codes the ctypes wrappers pass (0 = float32, 1 = bfloat16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,6 +29,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// sum_k a[k * sa] * b[k * sb] over k < n in four interleaved partial sums,
+// added pairwise: for the long cancelling dot products of the scans this
+// rounds about half as much as one running sum, and the four chains are
+// independent (instruction-level parallelism).
+__device__ __forceinline__ float strided_dot(const float* a, int sa,
+                                             const float* b, int sb, int n) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  const int sa2 = 2 * sa, sa3 = 3 * sa, sb2 = 2 * sb, sb3 = 3 * sb;
+  int k = 0;
+  for (; k + 4 <= n; k += 4, a += 4 * sa, b += 4 * sb) {
+    s0 += a[0] * b[0];
+    s1 += a[sa] * b[sb];
+    s2 += a[sa2] * b[sb2];
+    s3 += a[sa3] * b[sb3];
+  }
+  for (; k < n; ++k, a += sa, b += sb) s0 += a[0] * b[0];
+  return (s0 + s1) + (s2 + s3);
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel;

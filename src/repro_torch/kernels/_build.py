@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("paged_decode", "flash_attention", "softmax_xent")
+SOURCES = ("paged_decode", "flash_attention", "softmax_xent", "mamba2_ssd",
+           "rwkv6_wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +41,8 @@ ENTRIES = {
                                 [_I] + [_P] * 4 + [_I] * 3 + [_P]),
     "softmax_xent_bwd_launch": ("softmax_xent",
                                 [_I] + [_P] * 6 + [_I] * 3 + [_P]),
+    "mamba2_ssd_launch": ("mamba2_ssd", [_I] + [_P] * 5 + [_I] * 5 + [_P]),
+    "rwkv6_wkv_launch": ("rwkv6_wkv", [_I] + [_P] * 6 + [_I] * 6 + [_P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -3,7 +3,7 @@
 Model code calls these; each reshapes to its kernel's layout and back.  On a
 CPU tensor the kernel module runs its plain version, on a CUDA tensor it
 launches the kernel (``repro_torch.kernels.{flash_attention,paged_decode,
-rmsnorm,softmax_xent,adamw_update}``).  ``launch_counts()`` reads how often
+rmsnorm,softmax_xent,adamw_update,mamba2_ssd,rwkv6_wkv}``).  ``launch_counts()`` reads how often
 each kernel was launched; a launch is counted only where a kernel actually
 runs, never for a plain version.
 """
@@ -13,9 +13,11 @@ from typing import Dict
 
 from repro_torch.kernels.adamw_update import adamw_fused
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.mamba2_ssd import ssd_scan_bhsd
 from repro_torch.kernels.paged_decode import (paged_flash_decode,
                                               paged_flash_decode_int8)
 from repro_torch.kernels.rmsnorm import rmsnorm_rows
+from repro_torch.kernels.rwkv6_wkv import wkv6_scan_bhsd
 from repro_torch.kernels.softmax_xent import (SoftmaxXent, softmax_xent_bwd,
                                               softmax_xent_fwd)
 
@@ -25,7 +27,9 @@ KERNELS = {"paged_flash_decode": paged_flash_decode,
            "rmsnorm_rows": rmsnorm_rows,
            "softmax_xent_fwd": softmax_xent_fwd,
            "softmax_xent_bwd": softmax_xent_bwd,
-           "adamw_fused": adamw_fused}
+           "adamw_fused": adamw_fused,
+           "ssd_scan_bhsd": ssd_scan_bhsd,
+           "wkv6_scan_bhsd": wkv6_scan_bhsd}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -78,3 +82,25 @@ def softmax_xent(logits, labels, vocab: int):
     nll, lse = SoftmaxXent.apply(logits.reshape(-1, logits.shape[-1]),
                                  labels.reshape(-1), vocab)
     return nll.reshape(lead), lse.reshape(lead)
+
+
+def mamba2_ssd(x, da, b, c, *, chunk: int = 128):
+    """Model layout: x (B, S, H, P) pre-scaled by dt; da (B, S, H) fp32;
+    b, c (B, S, N).  Returns (B, S, H, P) like x."""
+    bb, s, h, p = x.shape
+    x2 = x.permute(0, 2, 1, 3).reshape(bb * h, s, p)
+    da2 = da.permute(0, 2, 1).reshape(bb * h, s)
+    o = ssd_scan_bhsd(x2, da2, b, c, chunk=chunk)
+    return o.reshape(bb, h, s, p).permute(0, 2, 1, 3)
+
+
+def rwkv6_wkv(r, k, v, lw, u, *, chunk: int = 32):
+    """Model layout: r, k, lw (B, S, H, K); v (B, S, H, V); lw fp32; u
+    (H, K) fp32.  Returns (B, S, H, V) like r."""
+    b, s, h, kd = r.shape
+
+    def fold(t):
+        return t.permute(0, 2, 1, 3).reshape(b * h, s, t.shape[-1])
+
+    o = wkv6_scan_bhsd(fold(r), fold(k), fold(v), fold(lw), u, chunk=chunk)
+    return o.reshape(b, h, s, v.shape[-1]).permute(0, 2, 1, 3)

@@ -17,14 +17,14 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import CONFIGS, get_config
+from repro_torch.configs import archs, get_config
 from repro_torch.models import LM
 from repro_torch.serve import Request, SamplingParams, ServeEngine
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b", choices=sorted(CONFIGS))
+    ap.add_argument("--arch", default="qwen3-4b", choices=archs("dense"))
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="reduced fp32 config (default) or, with "

@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.configs import CONFIGS, TrainConfig, get_config
+from repro_torch.configs import TrainConfig, archs, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import CheckpointManager, FTTrainLoop, job_mtbf_seconds
 from repro_torch.data import (DeterministicLoader, LoaderConfig, TokenDataset,
@@ -45,7 +45,7 @@ def main(argv=None):
     tmp = Path(tempfile.gettempdir())
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b",
-                    choices=sorted(CONFIGS) + ["quickstart-100m"])
+                    choices=archs("dense") + ["quickstart-100m"])
     ap.add_argument("--preset", default=None)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=False, help="the reduced config of --arch")

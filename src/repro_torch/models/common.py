@@ -1,13 +1,15 @@
 """Shared model pieces of the port: the device rule, parameter specs and their
-initializer, RMSNorm, RoPE, activations and the cross-entropy loss
-(counterpart of the JAX ``repro.models.common``).
+initializers, RMSNorm and LayerNorm, RoPE, activations and the
+cross-entropy loss (counterpart of the JAX ``repro.models.common``).
 
 A parameter tree is nested dicts of tensors in the JAX layouts.  For serving,
 matrix weights are stored in the compute dtype (``cfg.dtype``): the JAX
 model keeps fp32 masters and casts them at every use, which gives the same
 numbers as casting once at load.  For training they stay fp32
 (``cfg.param_dtype``) and the model casts them at every use, as JAX does.
-Norm scales stay fp32, because the norm multiplies in fp32.
+Norm scales stay fp32, because the norm multiplies in fp32; so do the
+leaves JAX pins to fp32 (``pin_dtype``) and the matrices JAX multiplies in
+fp32 (``P.fp32``).
 """
 from __future__ import annotations
 
@@ -44,17 +46,24 @@ def resolve_device(device) -> torch.device:
 
 @dataclass(frozen=True)
 class P:
-    """A parameter spec leaf: shape, initializer and its scale.  ``fp32``
-    leaves (norm scales) keep fp32 whatever the compute dtype."""
+    """A parameter spec leaf: shape, initializer and its scale (the JAX
+    ``P`` without logical axes).  ``fp32`` leaves keep fp32 whatever the
+    compute dtype: norm scales, JAX's ``pin_dtype`` leaves and matrices that
+    JAX uses in fp32."""
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | ones
+    init: str = "normal"  # normal | zeros | ones | uniform_conv | a_log |
+    #                       dt_bias | rwkv_decay
     scale: float = 0.02
     fp32: bool = False
 
 
 def norm_spec(cfg, d: int = 0):
-    assert cfg.norm == "rmsnorm", "the port's dense configs use RMSNorm"
-    return {"scale": P((d or cfg.d_model,), init="ones", fp32=True)}
+    d = d or cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return {"scale": P((d,), init="ones", fp32=True)}
+    assert cfg.norm == "layernorm", cfg.norm
+    return {"scale": P((d,), init="ones", fp32=True),
+            "bias": P((d,), init="zeros", fp32=True)}
 
 
 def stack_spec(spec, n: int):
@@ -68,19 +77,50 @@ def depth_scale(cfg) -> float:
     return 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
 
 
+def _uniform(shape, lo, hi, generator, device):
+    u = torch.rand(shape, generator=generator, device=device)
+    return u.mul_(hi - lo).add_(lo)
+
+
+def _init_leaf(spec: P, generator, device, dtype):
+    """One leaf, with the JAX ``_init_leaf``'s distribution (values differ:
+    the generators differ).  ``uniform_conv`` takes its fan from every dim
+    but the last of the leaf's shape, stacked layer dim included, as JAX
+    does."""
+    shape = spec.shape
+    if spec.init == "zeros":
+        w = torch.zeros(shape, device=device)
+    elif spec.init == "ones":
+        w = torch.ones(shape, device=device)
+    elif spec.init == "normal":
+        w = torch.randn(shape, generator=generator, device=device)
+        w.mul_(spec.scale)
+    elif spec.init == "uniform_conv":      # depthwise conv kernels
+        bound = 1.0 / math.sqrt(max(math.prod(shape[:-1]), 1))
+        w = _uniform(shape, -bound, bound, generator, device)
+    elif spec.init == "a_log":             # mamba2: A ~ U[1, 16], store log A
+        w = torch.log(_uniform(shape, 1.0, 16.0, generator, device))
+    elif spec.init == "dt_bias":           # mamba2: inverse softplus of dt
+        dt = torch.exp(_uniform(shape, math.log(1e-3), math.log(0.1),
+                                generator, device))
+        w = dt + torch.log(-torch.expm1(-dt))
+    elif spec.init == "rwkv_decay":        # rwkv6: per-channel decay ramp
+        n = shape[-1]
+        ramp = (np.arange(n) / max(n - 1, 1)) ** 0.9
+        w = torch.from_numpy((-6.0 + 5.0 * ramp).astype(np.float32)) \
+            .to(device).expand(shape).clone()
+    else:
+        raise ValueError(spec.init)
+    return w.to(torch.float32 if spec.fp32 else dtype)
+
+
 def init_params(spec, generator: torch.Generator, device, dtype):
-    """Materialize a spec tree: normal leaves ``scale * N(0, 1)`` in
-    ``dtype``, ones leaves in fp32 (or ``dtype`` if not pinned).  Shapes and
-    scales match the JAX ``build_spec``; values differ, because the random
-    generators differ."""
+    """Materialize a spec tree: each leaf from its initializer, in
+    ``dtype``, or fp32 for ``fp32`` leaves.  Shapes and scales match the
+    JAX ``build_spec``; values differ, because the random generators
+    differ."""
     if isinstance(spec, P):
-        if spec.init == "ones":
-            return torch.ones(spec.shape, device=device,
-                              dtype=torch.float32 if spec.fp32 else dtype)
-        assert spec.init == "normal", spec.init
-        w = torch.randn(spec.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return w.mul_(spec.scale).to(torch.float32 if spec.fp32 else dtype)
+        return _init_leaf(spec, generator, device, dtype)
     return {k: init_params(v, generator, device, dtype)
             for k, v in spec.items()}
 
@@ -95,6 +135,26 @@ def rms_norm(x, scale, eps: float, impl: str = "kernel"):
         return ops.rmsnorm(x, scale, eps=eps)
     assert impl == "plain", impl
     return rmsnorm_ref(x, scale, eps=eps)
+
+
+def layer_norm(x, scale, bias, eps: float):
+    """LayerNorm over the last dim in fp32, cast back to x's dtype (the JAX
+    ``common.layer_norm``).  No TPU kernel computes it: plain torch."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def apply_norm(p, x, cfg, impl: str = "kernel"):
+    """The config's norm: LayerNorm where the spec has a bias, else RMSNorm
+    through ``impl`` (K3 or its plain version)."""
+    if "bias" in p:
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return rms_norm(x, p["scale"], cfg.norm_eps, impl)
 
 
 def activation(name: str):

@@ -1,5 +1,6 @@
 """Top-level model facade of the port (counterpart of the JAX
-``repro.models.lm.LM``) for the dense family."""
+``repro.models.lm.LM``) for the dense family and, forward and loss only,
+the hybrid and ssm families."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -11,7 +12,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.common import (DTYPES, cross_entropy, init_params,
                                        resolve_device)
-from repro_torch.models.transformer import ForwardOpts
+from repro_torch.models.transformer import ForwardOpts, refuse_recurrent
 
 
 @dataclass
@@ -39,8 +40,8 @@ class LM:
              moe_aux_weight: float = 1e-2, z_loss: float = 1e-4):
         """Next-token loss of ``batch`` = {"tokens", "labels"}, both (B, S)
         int tensors.  Returns (loss, {"loss", "nll", "z_loss", "moe_aux"}),
-        the JAX ``LM.loss`` for the dense family, whose ``moe_aux`` is 0,
-        so ``moe_aux_weight`` adds nothing."""
+        the JAX ``LM.loss`` for the dense, hybrid and ssm families, whose
+        ``moe_aux`` is 0, so ``moe_aux_weight`` adds nothing."""
         logits, _ = self.forward(params, batch["tokens"], opts)
         loss, ce = cross_entropy(logits, batch["labels"], self.cfg.vocab_size,
                                  z_loss=z_loss, impl=opts.xent_impl)
@@ -60,7 +61,9 @@ class LM:
                    kv_dtype: str = "native"):
         """A managed paged KV cache (``repro_torch.serve.kvcache``); the
         paged backend is the only one the port has.  ``kv_dtype="int8"``
-        stores int8 pages with per-row fp32 scales."""
+        stores int8 pages with per-row fp32 scales.  The recurrent
+        families have no KV cache: refused."""
+        refuse_recurrent(self.cfg, "init_cache")
         if backend != "paged":
             raise ValueError(f"the port has the paged cache backend only "
                              f"(got {backend!r})")

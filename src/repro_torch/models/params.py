@@ -2,12 +2,21 @@
 into the port's parameters.
 
 ``from_jax`` takes what ``jax.tree.map(np.asarray, params)`` gives for a
-dense ``LM`` and returns torch tensors in the same layouts.  For serving,
-matrix weights are cast once, to the compute dtype: the JAX model casts its
-fp32 masters at every use, which is numerically the same.  For training,
-``dtype=torch.float32`` keeps them fp32.  Norm scales stay fp32, as the
-norm multiplies in fp32.  ``train_state_from_jax`` carries a whole JAX train
-state across.  No JAX is imported here.
+dense, hybrid (zamba2) or ssm (rwkv6) ``LM`` and returns torch tensors in
+the same layouts.  For serving and eval, matrix weights are cast once, to
+the compute dtype: the JAX model casts its fp32 masters at every use, which
+is numerically the same.  For training, ``dtype=torch.float32`` keeps them
+fp32.  The leaves marked ``fp32`` in the port's spec stay fp32 whatever the
+compute dtype:
+- norm scales and LayerNorm biases, because the norms multiply in fp32;
+- the leaves JAX pins to fp32 (``pin_dtype``): mamba2's ``A_log``, ``D``,
+  ``dt_bias`` and gated-norm scale; rwkv6's ``mu_x``, ``mu``, ``w0``, ``u``,
+  ``ln_x`` and the channel mix's ``mu_k``, ``mu_r``;
+- matrices JAX multiplies in fp32: rwkv6's ``tmix.wB``, the decay LoRA's
+  second matrix (``x @ wA`` is cast to fp32 and multiplied by the fp32
+  master), whose bf16 rounding would move every channel's decay.
+``train_state_from_jax`` carries a whole JAX train state across.  No JAX is
+imported here.
 """
 from __future__ import annotations
 

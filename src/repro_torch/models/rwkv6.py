@@ -1,0 +1,172 @@
+"""RWKV6 ("Finch") blocks of the port, forward only (counterpart of the JAX
+``repro.models.rwkv6`` without its decode step and final states): token
+shift with data-dependent mixing, the WKV6 recurrence with per-channel
+data-dependent decay, and the channel-mix FFN.
+
+The recurrence runs ``impl="kernel"`` (K7; its plain version on CPU
+tensors) or ``"plain"``: ``wkv6_chunked``, the JAX model's chunked form.
+Both floor the per-step log decay at ``LOG_DECAY_FLOOR`` and split the
+intra-chunk decay around the chunk midpoint, exact for chunks of at most
+``CHUNK`` steps.  Two places keep JAX's mixed precision: the decay LoRA's
+second matrix ``wB`` multiplies in fp32 (so it is stored fp32, see
+``repro_torch.models.params``), and the ``ln_x`` group norm takes its mean
+in the model dtype and its variance in fp32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import P
+
+LORA_MIX = 32
+LORA_DECAY = 64
+LOG_DECAY_FLOOR = -2.5     # per-step log-decay floor (w >= e^-2.5 ~ 0.082)
+CHUNK = 32
+
+
+def tmix_spec(cfg):
+    d = cfg.d_model
+    h, k = cfg.rwkv_heads, cfg.rwkv_head_dim
+    return {
+        "mu_x": P((d,), init="zeros", fp32=True),
+        "mu": P((5, d), init="zeros", fp32=True),
+        "W1": {"kernel": P((d, 5 * LORA_MIX))},
+        "W2": {"kernel": P((5, LORA_MIX, d))},
+        "wr": {"kernel": P((d, d))},
+        "wk": {"kernel": P((d, d))},
+        "wv": {"kernel": P((d, d))},
+        "wg": {"kernel": P((d, d))},
+        "w0": P((d,), init="rwkv_decay", fp32=True),
+        "wA": {"kernel": P((d, LORA_DECAY))},
+        # JAX multiplies by wB in fp32: kept fp32 under bf16 compute
+        "wB": {"kernel": P((LORA_DECAY, d), fp32=True)},
+        "u": P((h, k), init="normal", scale=0.3, fp32=True),
+        "ln_x": {"scale": P((d,), init="ones", fp32=True),
+                 "bias": P((d,), init="zeros", fp32=True)},
+        "wo": {"kernel": P((d, d))},
+    }
+
+
+def cmix_spec(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": P((d,), init="zeros", fp32=True),
+        "mu_r": P((d,), init="zeros", fp32=True),
+        "wk": {"kernel": P((d, f))},
+        "wv": {"kernel": P((f, d))},
+        "wr": {"kernel": P((d, d))},
+    }
+
+
+def _shift(x):
+    """The previous token's embedding, zeros at t = 0."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def wkv6_chunked(r, k, v, lw, u, chunk: int = CHUNK):
+    """The JAX ``wkv6_chunked`` (no initial or final state).  r, k, lw
+    (B, S, H, K); v (B, S, H, V); u (H, K); lw <= 0, floored.  A ragged tail
+    is padded with steps that do nothing.  Returns fp32 (B, S, H, V)."""
+    b, s, h, kd = r.shape
+    vd = v.shape[-1]
+    chunk = min(chunk, s)
+    s_orig = s
+    if s % chunk:
+        pad = chunk - s % chunk
+        r, k, v, lw = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v, lw))
+        s += pad
+    nc = s // chunk
+    rc = r.float().reshape(b, nc, chunk, h, kd)
+    kc = k.float().reshape(b, nc, chunk, h, kd)
+    vc = v.float().reshape(b, nc, chunk, h, vd)
+    lwc = lw.float().reshape(b, nc, chunk, h, kd)
+
+    cs = lwc.cumsum(dim=2)                  # inclusive: sum_{l<=i} lw_l
+    ce = cs - lwc                           # exclusive
+    mid = cs[:, :, -1:] * 0.5               # per-chunk midpoint
+    qf = rc * torch.exp(torch.clamp(ce - mid, -40.0, 40.0))
+    kf = kc * torch.exp(torch.clamp(mid - cs, -40.0, 40.0))
+    A = torch.einsum("bcihk,bcjhk->bchij", qf, kf)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=r.device).tril(-1)
+    A = torch.where(tri, A, 0.0)
+    diag = torch.einsum("bcihk,hk,bcihk->bcih", rc, u.float(), kc)
+    Yintra = torch.einsum("bchij,bcjhv->bcihv", A, vc) + diag[..., None] * vc
+
+    dte = torch.exp(cs[:, :, -1:] - cs)     # decay j -> chunk end, <= 1
+    chunk_kv = torch.einsum("bcjhk,bcjhv->bchkv", kc * dte, vc)
+    chunk_decay = torch.exp(cs[:, :, -1])   # (b, c, h, k)
+    sprev = torch.zeros((b, h, kd, vd), dtype=torch.float32, device=r.device)
+    starts = []
+    for c in range(nc):
+        starts.append(sprev)
+        sprev = sprev * chunk_decay[:, c, ..., None] + chunk_kv[:, c]
+    s_starts = torch.stack(starts, dim=1)   # (b, c, h, k, v)
+
+    Yinter = torch.einsum("bcihk,bchkv->bcihv", rc * torch.exp(ce), s_starts)
+    return (Yintra + Yinter).reshape(b, s, h, vd)[:, :s_orig]
+
+
+def _mix_inputs(p, x, sx):
+    """Data-dependent token-shift mixing -> inputs for [r, w, k, v, g]."""
+    dtype = x.dtype
+    xxx = x + sx * p["mu_x"].to(dtype)
+    m = torch.tanh(xxx @ p["W1"]["kernel"].to(dtype))
+    m = m.reshape(*m.shape[:-1], 5, LORA_MIX)
+    m = torch.einsum("bstl,tld->bstd", m, p["W2"]["kernel"].to(dtype))
+    mix = p["mu"].to(dtype)[None, None] + m              # (B, S, 5, d)
+    return [x + sx * mix[:, :, t] for t in range(5)]
+
+
+def log_decay(p, xw):
+    """Per-channel log decay from the w-mixed input, floored: the decay
+    LoRA's first product in xw's dtype, its second in fp32, as JAX."""
+    dec_in = (p["w0"].float()
+              + (xw @ p["wA"]["kernel"].to(xw.dtype)).float()
+              @ p["wB"]["kernel"].float())
+    lw = -torch.exp(torch.clamp(dec_in, -12.0, 0.0))
+    return torch.clamp(lw, min=LOG_DECAY_FLOOR)
+
+
+def tmix_block(p, cfg, x, *, impl: str = "kernel"):
+    """Time mix, x (B, S, d) -> (B, S, d).  ``impl`` picks the WKV
+    recurrence (``"kernel"``: K7; ``"plain"``: ``wkv6_chunked``)."""
+    b, s, d = x.shape
+    h, kd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    dtype = x.dtype
+    sx = _shift(x) - x
+    xr, xw, xk, xv, xg = _mix_inputs(p, x, sx)
+
+    r = xr @ p["wr"]["kernel"].to(dtype)
+    kk = xk @ p["wk"]["kernel"].to(dtype)
+    vv = xv @ p["wv"]["kernel"].to(dtype)
+    g = F.silu(xg @ p["wg"]["kernel"].to(dtype))
+    lw = log_decay(p, xw)
+
+    rh, kh, vh, lwh = (t.reshape(b, s, h, kd) for t in (r, kk, vv, lw))
+    if impl == "kernel":
+        out = ops.rwkv6_wkv(rh, kh, vh, lwh, p["u"], chunk=CHUNK)
+    else:
+        assert impl == "plain", impl
+        out = wkv6_chunked(rh, kh, vh, lwh, p["u"])
+    out = out.to(dtype)
+    # per-head group norm (ln_x): mean in the model dtype, variance in fp32
+    mu = out.float().mean(dim=-1, keepdim=True).to(dtype)
+    var = out.float().var(dim=-1, unbiased=False, keepdim=True)
+    out = ((out - mu) * torch.rsqrt(var + 64e-5).to(dtype)).reshape(b, s, d)
+    out = out * p["ln_x"]["scale"].to(dtype) + p["ln_x"]["bias"].to(dtype)
+    out = out * g
+    return out @ p["wo"]["kernel"].to(dtype)
+
+
+def cmix_block(p, cfg, x):
+    """Channel mix, x (B, S, d) -> (B, S, d)."""
+    dtype = x.dtype
+    sx = _shift(x) - x
+    xk = x + sx * p["mu_k"].to(dtype)
+    xr = x + sx * p["mu_r"].to(dtype)
+    kk = torch.square(F.relu(xk @ p["wk"]["kernel"].to(dtype)))
+    vv = kk @ p["wv"]["kernel"].to(dtype)
+    rr = torch.sigmoid(xr @ p["wr"]["kernel"].to(dtype))
+    return rr * vv

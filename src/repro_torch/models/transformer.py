@@ -1,12 +1,16 @@
-"""Dense decoder-only transformer of the port (counterpart of the dense
-family of the JAX ``repro.models.transformer``).
+"""Decoder-only stack of the port: the dense, hybrid (zamba2) and ssm
+(rwkv6) families of the JAX ``repro.models.transformer``.
 
 Layers are stacked along a leading dim of every parameter and applied in a
 Python loop.  Two entry points share the weights:
 
-* ``forward``     — full sequence (training; prefill when ``collect_cache``)
+* ``forward``     — full sequence (training and eval; prefill when
+  ``collect_cache``, for the dense family only)
 * ``decode_step`` — one token per slot at (B,) positions over a paged cache,
-  whose pools it updates in place
+  whose pools it updates in place (dense family only)
+
+The recurrent families run forward only: their prefill (final states) and
+decode step wait for ROADMAP Queue 1 item 16's "decode states".
 """
 from __future__ import annotations
 
@@ -15,9 +19,12 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2, rwkv6
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import (DTYPES, P, norm_spec, rms_norm,
-                                       stack_spec)
+from repro_torch.models.common import (DTYPES, P, apply_norm, norm_spec,
+                                       rms_norm, stack_spec)
+
+RECURRENT = ("hybrid", "ssm")
 
 
 @dataclass(frozen=True)
@@ -28,6 +35,8 @@ class ForwardOpts:
     kv_chunk: int = 1024
     remat: str = "none"           # the JAX trainer's "none"; nothing else
     xent_impl: str = "kernel"     # loss: kernel (K4) | plain (reference)
+    mixer_impl: str = "kernel"    # mamba2 SSD / rwkv6 WKV: kernel (K6/K7) |
+    #                               plain (the JAX models' chunked forms)
 
     def __post_init__(self):
         if self.remat != "none":
@@ -35,20 +44,46 @@ class ForwardOpts:
                              "activation (remat 'none' only)")
 
 
+def refuse_recurrent(cfg, what: str) -> None:
+    """Raise for a family whose ``what`` the port does not run yet."""
+    if cfg.family in RECURRENT:
+        raise NotImplementedError(
+            f"{what} for the {cfg.family} family ({cfg.name}): the port runs "
+            "its full-sequence forward and eval only; prefill, decode and "
+            "training are the next slices (ROADMAP Queue 1 item 16)")
+
+
 def layer_spec(cfg):
-    return {"ln1": norm_spec(cfg), "attn": attn.attention_spec(cfg),
+    fam = cfg.family
+    if fam == "dense":
+        return {"ln1": norm_spec(cfg), "attn": attn.attention_spec(cfg),
+                "ln2": norm_spec(cfg), "mlp": mlp_mod.mlp_spec(cfg)}
+    if fam == "ssm":
+        return {"ln1": norm_spec(cfg), "tmix": rwkv6.tmix_spec(cfg),
+                "ln2": norm_spec(cfg), "cmix": rwkv6.cmix_spec(cfg)}
+    if fam == "hybrid":
+        return {"ln1": norm_spec(cfg), "mamba": mamba2.mamba_spec(cfg)}
+    raise ValueError(f"the port runs the dense, hybrid and ssm families "
+                     f"(got {fam})")
+
+
+def shared_block_spec(cfg):
+    """Zamba2's shared attention + FFN block (weights tied across uses)."""
+    d = cfg.d_model
+    return {"in_proj": {"kernel": P((2 * d, d))},
+            "ln1": norm_spec(cfg), "attn": attn.attention_spec(cfg),
             "ln2": norm_spec(cfg), "mlp": mlp_mod.mlp_spec(cfg)}
 
 
 def build_spec(cfg):
-    assert cfg.family == "dense", (
-        f"the port serves the dense family only (got {cfg.family})")
     d, v = cfg.d_model, cfg.padded_vocab
     spec = {"embed": {"table": P((v, d))},
             "layers": stack_spec(layer_spec(cfg), cfg.num_layers),
             "final_norm": norm_spec(cfg)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = {"kernel": P((d, v))}
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        spec["shared"] = shared_block_spec(cfg)
     return spec
 
 
@@ -66,32 +101,74 @@ def embed(params, cfg, tokens):
 
 
 def unembed(params, cfg, h, norm_impl: str = "kernel"):
-    h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps, norm_impl)
+    h = apply_norm(params["final_norm"], h, cfg, norm_impl)
     if cfg.tie_embeddings:
         return h @ params["embed"]["table"].to(h.dtype).T
     return h @ params["lm_head"]["kernel"].to(h.dtype)
 
 
+def _attn_layer(lp, cfg, h, opts: ForwardOpts):
+    a_in = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps, opts.norm_impl)
+    a, kv = attn.attention_block(lp["attn"], cfg, a_in, impl=opts.attn_impl,
+                                 norm_impl=opts.norm_impl,
+                                 q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
+    h = h + a
+    f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, opts.norm_impl)
+    return h + mlp_mod.mlp(lp["mlp"], cfg, f_in), kv
+
+
+def _ssm_layer(lp, cfg, h, opts: ForwardOpts):
+    x = apply_norm(lp["ln1"], h, cfg, opts.norm_impl)
+    h = h + rwkv6.tmix_block(lp["tmix"], cfg, x, impl=opts.mixer_impl)
+    x2 = apply_norm(lp["ln2"], h, cfg, opts.norm_impl)
+    return h + rwkv6.cmix_block(lp["cmix"], cfg, x2)
+
+
+def _hybrid_layer(lp, cfg, h, opts: ForwardOpts):
+    x = apply_norm(lp["ln1"], h, cfg, opts.norm_impl)
+    return h + mamba2.mamba_block(lp["mamba"], cfg, x, impl=opts.mixer_impl,
+                                  norm_impl=opts.norm_impl)
+
+
+def _shared_block(sp, cfg, h, emb0, opts: ForwardOpts):
+    """Zamba2's shared block: the residual stream and the embedding output,
+    concatenated and projected (2d -> d), through attention (K2 under
+    ``attn_impl="flash"``) and the FFN; its output is added to h."""
+    u = torch.cat([h, emb0], dim=-1) @ sp["in_proj"]["kernel"].to(h.dtype)
+    a, _ = attn.attention_block(sp["attn"], cfg,
+                                apply_norm(sp["ln1"], u, cfg, opts.norm_impl),
+                                impl=opts.attn_impl, norm_impl=opts.norm_impl,
+                                q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
+    u = u + a
+    u = u + mlp_mod.mlp(sp["mlp"], cfg,
+                        apply_norm(sp["ln2"], u, cfg, opts.norm_impl))
+    return h + u
+
+
 def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
             collect_cache: bool = False):
     """tokens (B, S).  Returns (logits (B, S, Vp), cache | None) where cache
-    is ``{"layers": {"k": (L, B, S, KV, D), "v": ...}}``."""
+    is ``{"layers": {"k": (L, B, S, KV, D), "v": ...}}`` (dense family
+    only).  A hybrid stack runs its shared block after layer i whenever
+    i % every == every - 1."""
+    if collect_cache:
+        refuse_recurrent(cfg, "forward(collect_cache=True)")
     h = embed(params, cfg, tokens)
+    emb0, every = h, cfg.hybrid_attn_every
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
-        a_in = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps, opts.norm_impl)
-        a, (k, v) = attn.attention_block(lp["attn"], cfg, a_in,
-                                         impl=opts.attn_impl,
-                                         norm_impl=opts.norm_impl,
-                                         q_chunk=opts.q_chunk,
-                                         kv_chunk=opts.kv_chunk)
-        h = h + a
-        f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, opts.norm_impl)
-        h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
-        if collect_cache:
-            ks.append(k)
-            vs.append(v)
+        if cfg.family == "dense":
+            h, (k, v) = _attn_layer(lp, cfg, h, opts)
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
+        elif cfg.family == "ssm":
+            h = _ssm_layer(lp, cfg, h, opts)
+        else:
+            h = _hybrid_layer(lp, cfg, h, opts)
+            if every and i % every == every - 1:
+                h = _shared_block(params["shared"], cfg, h, emb0, opts)
     logits = unembed(params, cfg, h, opts.norm_impl)
     cache = ({"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
              if collect_cache else None)
@@ -106,6 +183,7 @@ def decode_step(params, cfg, tokens, cache, positions,
     pools come with ``"k_scale"``/``"v_scale"`` (L, P, page, KV) fp32,
     which each layer's attention block is handed.  Returns (logits
     (B, 1, Vp), cache)."""
+    refuse_recurrent(cfg, "decode_step")
     page_table = cache["page_table"]
     pools = cache["layers"]
     quantized = "k_scale" in pools

@@ -16,11 +16,14 @@ import torch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models import LM, ForwardOpts
 from repro_torch.models.common import DTYPES
+from repro_torch.models.transformer import refuse_recurrent
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import tree_leaves
 
-# the JAX trainer's forward: blockwise jnp attention and jnp rms_norm
-TRAIN_OPTS = ForwardOpts(attn_impl="blockwise", norm_impl="plain")
+# the JAX trainer's forward: blockwise jnp attention, jnp rms_norm and the
+# models' chunked (xla) mixers
+TRAIN_OPTS = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
+                         mixer_impl="plain")
 
 
 def init_train_state(lm: LM, seed: int, tcfg: TrainConfig,
@@ -46,7 +49,9 @@ def make_train_step(lm: LM, tcfg: TrainConfig,
     accumulated, each divided by ``microbatches``, as JAX's scan does.
     ``metrics`` are the last microbatch's loss metrics (as in JAX, its
     "loss" is that microbatch's) plus "grad_norm" and "lr"; values are 0-d
-    tensors or floats.  ``adamw_impl`` picks K5 or its plain version."""
+    tensors or floats.  ``adamw_impl`` picks K5 or its plain version.
+    The recurrent families are refused: their training is a later slice."""
+    refuse_recurrent(lm.cfg, "make_train_step")
 
     def loss_grads(params, leaves, batch):
         loss, metrics = lm.loss(params, batch, opts,
@@ -86,7 +91,10 @@ def make_train_step(lm: LM, tcfg: TrainConfig,
 
 
 def make_eval_step(lm: LM, opts: ForwardOpts = TRAIN_OPTS):
-    """Returns ``eval_step(params, batch) -> metrics`` (no gradients)."""
+    """Returns ``eval_step(params, batch) -> metrics``, the loss metrics of
+    ``LM.loss`` under ``torch.no_grad()`` for every family the port runs;
+    with ``opts.mixer_impl="kernel"`` the recurrent mixers go through K6/K7,
+    which have no backward."""
     @torch.no_grad()
     def eval_step(params, batch):
         dev = tree_leaves(params)[0].device

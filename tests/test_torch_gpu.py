@@ -16,8 +16,10 @@ import torch
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.kernels import adamw_update as taw
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import mamba2_ssd as tssd
 from repro_torch.kernels import paged_decode as tpd
 from repro_torch.kernels import rmsnorm as trn
+from repro_torch.kernels import rwkv6_wkv as twkv
 from repro_torch.kernels import softmax_xent as tsx
 from repro_torch.models import LM, ForwardOpts
 from repro_torch.train import init_train_state, make_train_step
@@ -301,3 +303,109 @@ def test_kernel_path_bf16_grads_match_plain_path():
     for a, b in zip(gk, gp):
         assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
         assert _err(a, b) <= 2e-2 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 64, 1, 16, 8, 16), (2, 128, 3, 32, 16, 32), (1, 256, 2, 64, 64, 64),
+    (2, 200, 4, 64, 64, 256), (1, 1, 2, 64, 64, 256)])
+def test_ssd_scan_kernel_matches_plain(b, s, h, p, n, chunk, dtype):
+    """``tests/test_kernels.py``'s sweep shapes, a ragged S (200: three
+    full 64-step tiles and a tail) and a single step.  Inputs are shaped as
+    the Mamba2 block makes them (x = X * dt, da = -dt * A with dt in
+    [1e-3, 0.1] and A in [1, 16]), which keeps |y| below 4: there one bf16
+    unit is at most 1.6e-2, so the two versions' rounding of one fp32 value
+    stays within the bf16 tolerance."""
+    dev = _card()
+    td = DTYPES[dtype]
+    dt = torch.empty(b * h, s, device=dev).uniform_(-6.9, -2.3).exp()
+    a = torch.empty(b * h, 1, device=dev).uniform_(1.0, 16.0)
+    x = (torch.randn(b * h, s, p, device=dev) * dt[..., None]).to(td)
+    da = -dt * a
+    bm, cm = (0.5 * torch.randn(b, s, n, device=dev).to(td)
+              for _ in range(2))
+    before = tssd.ssd_scan_bhsd.launches
+    got = tssd.ssd_scan_bhsd(x, da, bm, cm, chunk=chunk)
+    assert tssd.ssd_scan_bhsd.launches == before + 1
+    assert got.dtype == td and bool(torch.isfinite(got.float()).all())
+    ref = tssd.ssd_scan_ref(x, da, bm, cm, chunk=chunk)
+    assert float(ref.float().abs().max()) < 4
+    assert _err(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,k,chunk", [
+    (1, 64, 1, 16, 16), (2, 128, 3, 32, 32), (1, 96, 2, 64, 32),
+    (2, 100, 4, 64, 32), (1, 1, 2, 64, 32)])
+def test_wkv6_kernel_matches_plain(b, s, h, k, chunk, dtype):
+    """``tests/test_kernels.py``'s sweep shapes, a ragged S (100: three
+    full 32-step chunks and a tail) and a single step; log decays span the
+    model's range down to the -2.5 floor.  r, k, v ~ N(0, 0.15^2) keep |y|
+    below 4, where one bf16 unit is at most 1.6e-2 (see the K6 test)."""
+    dev = _card()
+    td = DTYPES[dtype]
+    r, kk, vv = (0.15 * torch.randn(b * h, s, k, device=dev).to(td)
+                 for _ in range(3))
+    lw = (-torch.empty(b * h, s, k, device=dev).uniform_(-6, 1.5).exp()) \
+        .clamp(min=-2.5)
+    u = 0.3 * torch.randn(h, k, device=dev)
+    before = twkv.wkv6_scan_bhsd.launches
+    got = twkv.wkv6_scan_bhsd(r, kk, vv, lw, u, chunk=chunk)
+    assert twkv.wkv6_scan_bhsd.launches == before + 1
+    assert got.dtype == td and bool(torch.isfinite(got.float()).all())
+    ref = twkv.wkv6_scan_ref(r, kk, vv, lw, u, chunk=chunk)
+    assert float(ref.float().abs().max()) < 4
+    assert _err(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_scan_kernels_refuse_autograd_and_bad_inputs():
+    """K6 and K7 have no backward in either package: a CUDA input that
+    requires a gradient raises; so do a K7 chunk over 32 steps and a K6 B/C
+    of another dtype.  Under no_grad they run."""
+    dev = _card()
+    x = torch.randn(4, 64, 32, device=dev, requires_grad=True)
+    da = -torch.rand(4, 64, device=dev)
+    bm = torch.randn(2, 64, 16, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tssd.ssd_scan_bhsd(x, da, bm, bm)
+    with pytest.raises(ValueError, match="expected"):
+        tssd.ssd_scan_bhsd(x.detach(), da, bm.to(torch.bfloat16), bm)
+    r = torch.randn(4, 64, 32, device=dev)
+    lw = -torch.rand(4, 64, 32, device=dev)
+    u = torch.randn(2, 32, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        twkv.wkv6_scan_bhsd(r, r, r, lw, u)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="exact only for chunks"):
+            twkv.wkv6_scan_bhsd(r, r, r, lw, u, chunk=64)
+        tssd.ssd_scan_bhsd(x, da, bm, bm)
+        twkv.wkv6_scan_bhsd(r, r, r, lw, u)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["zamba2-1.2b", "rwkv6-1.6b"])
+def test_recurrent_eval_kernel_path_matches_plain_path(name):
+    """Reduced zamba2 and rwkv6 in fp32: one eval through K6/K7 (and K2, K3,
+    K4 where the model has them) against the plain path, loss to 1e-5
+    relative, with each mixer kernel launched once per layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import make_eval_step
+    dev = _card()
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32")
+    lm = LM(cfg)
+    params = lm.init(3, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), device=dev)
+    batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+    ops.reset_launch_counts()
+    got = make_eval_step(lm, ForwardOpts())(params, batch)
+    mixer = "ssd_scan_bhsd" if cfg.family == "hybrid" else "wkv6_scan_bhsd"
+    assert ops.launch_counts()[mixer] == cfg.num_layers
+    plain = make_eval_step(lm, ForwardOpts(attn_impl="dense",
+                                           norm_impl="plain",
+                                           mixer_impl="plain",
+                                           xent_impl="plain"))(params, batch)
+    assert abs(float(got["loss"]) - float(plain["loss"])) \
+        <= 1e-5 * abs(float(plain["loss"]))
