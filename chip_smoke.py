@@ -68,7 +68,27 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    (rwkv6), K2 6 times and K3 89 times (zamba2: ln1 and the gated norm of
    38 Mamba2 layers, ln1 and ln2 of 6 shared-block calls, the final norm),
    and K4 once, and the plain path launches nothing; eval tok/s, forward
-   ms, peak memory, and one profiled forward.
+   ms, peak memory, and one profiled forward;
+10. sharded pools: (a) K1's partials mode, native and int8, on n = 2 and 4
+   shards of the phase-3 pools (global table, ``page_offset``): each
+   shard's triple against the plain partials (1e-4 relative), every slot
+   with no live row in a shard exactly (0, 0, -1e30), the merged shards
+   against the normalized K1 on the whole pool (fp32 1e-4, bf16 2e-2), and
+   each shard's time beside its bound, the plain partials and SDPA on the
+   shard's gathered view; (b) two rank processes of this script
+   (``--sharded-rank R --ranks 2 --port P``) on this one card over gloo,
+   spawned after the kernels are built and this process's memory freed:
+   full-width qwen3-4b fp32, one prefill and one decode step over a pool
+   split in two (30 pages, one slot's pages on both ranks), rank 0's
+   logits against its own single-card cache (1e-4 relative max error);
+   (c) the two ranks serve phase 5's workload (257 pages padded to 258)
+   over native, then int8 pages, then native pages over 129 pages (padded
+   to 130), where the live slots outgrow one rank's shard: each rank
+   launches ``paged_flash_decode_partials[_int8]`` exactly 36 times per
+   decode step and the normalized K1 never, pins half the padded pool plus
+   one sink page, and both ranks emit the same streams (how many equal
+   phase 5's, the pages each rank handed out, and the decode step time
+   are reported); then the gloo merge's time per layer.
 
 It then prints a ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -76,12 +96,15 @@ and, last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
+import socket
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -762,16 +785,9 @@ def _leaves(tree):
 
 # ------------------------------------------------------------- phase 5 ----
 
-def serve(report):
-    """The same 16 requests served over native bf16 pages, then over int8
-    pages; each run is gated on its own launch counts."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models import LM
-    from repro_torch.serve import Request, ServeEngine
-    cfg = get_config("qwen3-4b")
-    lm = LM(cfg)
-    params = lm.init(7, device=DEV)
+def serve_prompts(cfg):
+    """Phase 5's 16 prompts of 16-200 tokens, 4 sharing a 64-token prefix
+    (phase 10 serves them again over a sharded pool)."""
     rng = np.random.default_rng(5)
     shared = rng.integers(0, cfg.vocab_size, 64)
     prompts = []
@@ -781,24 +797,43 @@ def serve(report):
         if i % 4 == 0:                        # 4 prompts share a prefix
             prompt = np.concatenate([shared, prompt[:max(plen - 64, 8)]])
         prompts.append(prompt.astype(np.int32))
+    return prompts
+
+
+def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
+    """Phase 5's served runs (phase 10's on one rank of a sharded pool):
+    after a two-request warm-up, the 16 requests over each (page format,
+    pool pages) of ``runs`` (``None``: the engine's default pool, 257
+    pages), each run gated on its own launch counts.  Returns {label:
+    {"streams", "launches", "decode_ms", "pool_bytes", ...}}, the label
+    the page format, with ``-<pages>`` for a pool of other than 257."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.kvcache import page_kv_bytes
+    cfg = lm.cfg
+    prompts = serve_prompts(cfg)
+    sharded = pool_group is not None
 
     def requests():
         return [Request(i, p, max_new_tokens=32) for i, p in enumerate(prompts)]
 
-    def engine(kv_dtype):
+    def engine(kv_dtype, num_pages=None):
         return ServeEngine(lm, params, max_batch=8, max_seq=512,
-                           page_size=16, device=DEV, kv_dtype=kv_dtype)
+                           page_size=16, num_pages=num_pages, device=DEV,
+                           kv_dtype=kv_dtype, pool_group=pool_group)
 
     warm = engine("native")                   # cuBLAS and allocator warm-up
     for r in requests()[:2]:
         warm.submit(r)
     warm.run_until_drained()
     del warm
-    streams = {}
-    for kv_dtype in ("native", "int8"):
+    out = {}
+    for kv_dtype, num_pages in runs:
+        label = kv_dtype + (f"-{num_pages}" if num_pages else "")
+        tag = f"[{log_name} {label}]"
         free()
         before = torch.cuda.memory_allocated()
-        eng = engine(kv_dtype)
+        eng = engine(kv_dtype, num_pages)
         torch.cuda.synchronize()
         pool_bytes = torch.cuda.memory_allocated() - before
         decode_ms, prefill_ms = [], []
@@ -814,6 +849,15 @@ def serve(report):
 
         eng._fused = timed(eng._fused, decode_ms)
         eng._prefill_group = timed(eng._prefill_group, prefill_ms)
+        per_chip = [0] * eng.kv.chips          # fresh pages handed out
+
+        def counted(need, take=eng.kv._take_fresh):
+            pages = take(need)
+            for pid in pages:
+                per_chip[pid // eng.kv.pages_per_chip] += 1
+            return pages
+
+        eng.kv._take_fresh = counted
         reqs = requests()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -836,17 +880,17 @@ def serve(report):
         assert decodes == iters, (decodes, iters)
         L = cfg.num_layers
         norms = L * (2 + 2 * cfg.qk_norm) + 1
-        k1 = "paged_flash_decode" if kv_dtype == "native" \
-            else "paged_flash_decode_int8"
+        k1 = ("paged_flash_decode" + ("_partials" if sharded else "")
+              + ("_int8" if kv_dtype == "int8" else ""))
         want = {name: 0 for name in launches}
         want.update({k1: decodes * L,
                      "flash_attention_bhsd": prefills * L,
                      "rmsnorm_rows": (decodes + prefills) * norms})
-        log(f"[{kv_dtype}] launch counts {launches}, expected {want}")
+        log(f"{tag} launch counts {launches}, expected {want}")
         assert launches == want, "the main path did not run every kernel"
         ttft = reg.histogram("serve_ttft_seconds").quantile(0.5) * 1e3
         st = eng.kv.memory_stats()
-        log(f"[{kv_dtype}] served 16 requests, {tokens} tokens in {wall:.3f}s: "
+        log(f"{tag} served 16 requests, {tokens} tokens in {wall:.3f}s: "
             f"{tokens / wall:.1f} tok/s, TTFT p50 {ttft:.1f} ms, "
             f"{iters:.0f} iterations, {prefills:.0f} prefill dispatches, mean "
             f"decode step {np.mean(decode_ms):.2f} ms, mean prefill dispatch "
@@ -855,29 +899,61 @@ def serve(report):
             f"admission, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"[{nvidia_smi_line()}]")
-        log(f"[{kv_dtype}] KV pool: memory_stats {st.bytes_total} B "
+        log(f"{tag} KV pool: memory_stats {st.bytes_total} B "
             f"({st.pages_total + 1} pages of {st.page_size}, scales "
-            f"{st.bytes_scales} B), allocated on the card at construction "
-            f"{pool_bytes} B; saved vs bf16 pages "
-            f"{reg.gauge('serve_kv_quant_bytes_saved').get():.0f} B")
+            f"{st.bytes_scales} B; per chip {st.bytes_per_chip} B + sink "
+            f"{st.bytes_sink_per_chip} B), allocated on the card at "
+            f"construction {pool_bytes} B; saved vs bf16 pages "
+            f"{reg.gauge('serve_kv_quant_bytes_saved').get():.0f} B; fresh "
+            f"pages handed out per chip {per_chip}")
         # one more fused step, all slots parked on the scratch page: the
-        # same launches and host work as a step of the run
+        # same launches and host work as a step of the run (every rank of
+        # a sharded pool takes it, one profiled)
         zeros = np.zeros(8, np.int64)
-        profile_call(f"[{kv_dtype}] fused decode step (B=8)",
-                     lambda: ServeEngine._fused(eng, zeros, zeros).cpu(),
-                     top=6)
-        streams[kv_dtype] = {r.id: r.out_tokens for r in done}
-        names = (k1,) if kv_dtype == "int8" else (
-            k1, "flash_attention_bhsd", "rmsnorm_rows")
-        for name in names:
-            report[name]["launches"] = launches[name]
+
+        def step():
+            return ServeEngine._fused(eng, zeros, zeros).cpu()
+
+        if profile:
+            profile_call(f"{tag} fused decode step (B=8)", step, top=6)
+        else:
+            step()
+        out[label] = dict(
+            streams={r.id: r.out_tokens for r in done}, launches=launches,
+            per_chip=per_chip, pool_tensor_bytes=sum(
+                t.numel() * t.element_size()
+                for t in eng.kv.state["layers"].values()),
+            k1=k1, decode_ms=float(np.mean(decode_ms)), tok_s=tokens / wall,
+            pool_bytes=pool_bytes, stats=dataclasses.asdict(st),
+            page_bytes=page_kv_bytes(cfg, st.page_size, eng.kv.dtype,
+                                     kv_dtype))
         del eng, done, reqs
+    return out
+
+
+def serve(report):
+    """The same 16 requests served over native bf16 pages, then over int8
+    pages; each run is gated on its own launch counts.  Returns the
+    streams of each page format."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    lm = LM(get_config("qwen3-4b"))
+    params = lm.init(7, device=DEV)
+    runs = serve_runs(lm, params, (("native", None), ("int8", None)),
+                      "serve")
+    for kv_dtype, run in runs.items():
+        names = (run["k1"],) if kv_dtype == "int8" else (
+            run["k1"], "flash_attention_bhsd", "rmsnorm_rows")
+        for name in names:
+            report[name]["launches"] = run["launches"][name]
+    streams = {kv_dtype: run["streams"] for kv_dtype, run in runs.items()}
     same = sum(a == b for i in streams["native"]
                for a, b in zip(streams["native"][i], streams["int8"][i]))
     first = sum(streams["native"][i][0] == streams["int8"][i][0]
                 for i in streams["native"])
     log(f"int8 vs native streams (bf16, random weights): {same}/512 tokens "
         f"equal, first tokens equal {first}/16 (reported, not a gate)")
+    return streams
 
 
 # ------------------------------------------------------------- phase 6 ----
@@ -1326,6 +1402,347 @@ def recurrent_eval(report):
         free()
 
 
+# ------------------------------------------------------------ phase 10 ----
+
+PARTIALS = ("paged_flash_decode_partials", "paged_flash_decode_partials_int8")
+
+
+def _shard_of(pool, n, c):
+    """Shard c of n of a pool padded with zero pages to a multiple of n."""
+    pad = -pool.shape[0] % n
+    if pad:
+        pool = torch.cat([pool, pool.new_zeros(pad, *pool.shape[1:])])
+    pn = pool.shape[0] // n
+    return pool[c * pn:(c + 1) * pn], c * pn
+
+
+def _triple_err(got, ref) -> float:
+    """Largest error of (acc, l, m) against the plain triple, each output
+    relative to its own largest magnitude (at least 1)."""
+    return max(float((a - r).abs().max()) / max(1.0, float(r.abs().max()))
+               for a, r in zip(got, ref))
+
+
+def check_k1_partials(report):
+    """K1's partials mode, native and int8, on n = 2 and 4 shards of the
+    phase-3 K1 pools (global table, page_offset = c * P/n): each shard's
+    triple against the plain partials (1e-4 relative; both are fp32
+    arithmetic on the same inputs), every slot with no live row in a shard
+    exactly (0, 0, -1e30), the merged shards against the normalized K1 on
+    the whole pool (fp32 1e-4, bf16 2e-2); then each shard's time at the K1
+    row's shape beside its bound, the plain partials and SDPA on the
+    shard's gathered view (the normalized function, not the triple)."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.quant import dequantize_kv, quantize_kv
+    from repro_torch.models.attention import merge_partials_local
+    gen = torch.Generator().manual_seed(6)
+    errs = {name: 0.0 for name in PARTIALS}
+    for quant, name in zip((False, True), PARTIALS):
+        fn = getattr(pd, name)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, table, pos = k1_inputs(dtype, gen)
+            pools = ([*quantize_kv(k), *quantize_kv(v)] if quant else
+                     [k, None, v, None])
+            pools = [pools[0], pools[2], pools[1], pools[3]]  # k, v, ks, vs
+            for n in (2, 4):
+                triples, empty = [], 0
+                for c in range(n):
+                    shard = [_shard_of(t, n, c)[0] for t in pools if
+                             t is not None]
+                    off = _shard_of(pools[0], n, c)[1]
+                    got = fn(q, *shard, table, pos, off)
+                    ref = pd.paged_decode_ref(
+                        q, shard[0], shard[1], table, pos,
+                        *(shard[2:] or [None, None]), page_offset=off,
+                        partials=True)
+                    torch.cuda.synchronize()
+                    err = _triple_err(got, ref)
+                    errs[name] = max(errs[name], err)
+                    hole = ref[2] == -1e30
+                    empty += int(hole.sum())
+                    exact = bool((got[2][hole] == -1e30).all()
+                                 and (got[1][hole] == 0).all()
+                                 and (got[0][hole] == 0).all())
+                    assert err <= 1e-4 and exact, \
+                        f"{name} shard {c}/{n} disagrees with its plain"
+                    triples.append((got[0][:, None], got[1], got[2]))
+                merged = merge_partials_local(triples)[:, 0].to(dtype)
+                whole = (pd.paged_flash_decode_int8(q, pools[0], pools[1],
+                                                    pools[2], pools[3],
+                                                    table, pos)
+                         if quant else
+                         pd.paged_flash_decode(q, k, v, table, pos))
+                merr = max_err(merged, whole)
+                log(f"K1 partials {name} {str(dtype)[6:]:8s} n={n}: triple "
+                    f"rel err {errs[name]:.3e} (tol 1e-4), {empty} empty "
+                    f"(slot, head, group) triples exact; merged vs K1 on the "
+                    f"whole pool max_abs_err {merr:.3e} (tol {TOL[dtype]})")
+                assert merr <= TOL[dtype], f"{name} merged disagrees with K1"
+    # timing at the K1 row's shape: bf16 q, positions of 974 live rows, no
+    # NaN pages; per shard at n = 2 and 4
+    b, kv, g, d, page, m = 8, 8, 4, 128, 16, 32
+    q, k, v, table, _ = k1_inputs(torch.bfloat16, gen)
+    k, v = torch.nan_to_num(k), torch.nan_to_num(v)
+    pos = torch.tensor([40, 75, 110, 140, 170, 200, 231, 0], dtype=torch.int32,
+                       device=DEV)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    live = torch.arange(m, device=DEV)[None] <= (pos.long() // page)[:, None]
+    for quant, name in zip((False, True), PARTIALS):
+        fn = getattr(pd, name)
+        pools = ([*quantize_kv(k), *quantize_kv(v)] if quant else
+                 [k, None, v, None])
+        pools = [pools[0], pools[2], pools[1], pools[3]]
+        for n in (2, 4):
+            rows_ms = []
+            for c in range(n):
+                shard = [_shard_of(t, n, c)[0] for t in pools if t is not None]
+                off = _shard_of(pools[0], n, c)[1]
+                pn = shard[0].shape[0]
+                args = (q, *shard, table, pos, off)
+                got, ref = fn(*args), pd.paged_decode_ref(
+                    q, shard[0], shard[1], table, pos,
+                    *(shard[2:] or [None, None]), page_offset=off,
+                    partials=True)
+                err = _triple_err(got, ref)
+                abs_err = max(max_err(a, r) for a, r in zip(got, ref))
+                assert err <= 1e-4, f"{name} shard {c}/{n} disagrees"
+                ms = time_ms(lambda: fn(*args))
+                plain_ms = time_ms(lambda: pd.paged_decode_ref(
+                    q, shard[0], shard[1], table, pos,
+                    *(shard[2:] or [None, None]), page_offset=off,
+                    partials=True))
+                # yardstick: SDPA over the shard's gathered view, rows of
+                # other shards' and dead pages masked, heads expanded (int8:
+                # dequantized beforehand), outside the timing
+                local = table.long() - off
+                ok = live & (local >= 0) & (local < pn)
+                tbl = torch.where(ok, local, 0)
+                mask = ((torch.arange(m * page, device=DEV)[None]
+                         <= pos.long()[:, None])
+                        & ok[:, :, None].expand(b, m, page).reshape(
+                            b, m * page))[:, None, None, :]
+
+                def heads(pool, scale):
+                    x = pool[tbl]
+                    if scale is not None:
+                        x = dequantize_kv(x, scale[tbl], torch.bfloat16)
+                    x = x.reshape(b, m * page, kv, 1, d).expand(
+                        -1, -1, -1, g, -1)
+                    return x.reshape(b, m * page, kv * g, d).permute(
+                        0, 2, 1, 3).contiguous()
+
+                kg = heads(shard[0], shard[2] if quant else None)
+                vg = heads(shard[1], shard[3] if quant else None)
+                qh = q.reshape(b, kv * g, 1, d)
+                lib_ms = time_ms(lambda: sdpa(qh, kg, vg, attn_mask=mask))
+                rows = int(mask.sum())
+                row_b = kv * (d + 4) if quant else kv * d * 2
+                nbytes = (2 * rows * row_b + q.numel() * 2
+                          + b * kv * g * (d + 2) * 4
+                          + 4 * (table.numel() + b))
+                flops = 4 * kv * g * d * rows + (2 * rows * kv * d
+                                                  if quant else 0)
+                bms, by = bound(nbytes, flops, torch.float32 if quant
+                                else torch.bfloat16)
+                rows_ms.append((ms, plain_ms, lib_ms, bms, by, abs_err))
+                log(f"K1 partials {name} timing bf16 q, n={n} shard {c} "
+                    f"({rows} live rows of 974 here): kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, SDPA on the shard's gathered "
+                    f"view {lib_ms:.4f} ms, bound {bms:.5f} ms ({by}; "
+                    f"{nbytes} B), triple rel err {err:.3e}")
+            if n == 2:
+                cols = list(zip(*rows_ms))
+                report[name] = dict(
+                    max_abs_err=max(cols[5]), ms=float(np.mean(cols[0])),
+                    plain_ms=float(np.mean(cols[1])),
+                    library_ms=float(np.mean(cols[2])),
+                    bound_ms=float(np.mean(cols[3])), bound_by=cols[4][0])
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_ranks(report, phase5_streams, n: int = 2,
+                  timeout_s: float = 600.0) -> None:
+    """Phase 10 (b) and (c) in n rank processes on this one card over gloo
+    (``python3 chip_smoke.py --sharded-rank R --ranks N --port P``), after
+    this process has built every kernel and freed its memory.  Each rank
+    prints its log and, last, a RESULT line; a rank that fails or outlives
+    ``timeout_s`` fails the phase, and every rank is stopped."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
+         str(r), "--ranks", str(n), "--port", str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(n)]
+    outs = [""] * n
+    try:
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for r, p in enumerate(procs):
+            outs[r] = p.communicate()[0]
+            for line in outs[r].splitlines():
+                if not line.startswith("RESULT "):
+                    log(f"[rank {r}] {line}")
+    codes = [p.returncode for p in procs]
+    assert codes == [0] * n, f"sharded ranks exited with {codes}"
+    results = [json.loads(next(l for l in out.splitlines()
+                               if l.startswith("RESULT "))[7:])
+               for out in outs]
+    for label in ("native", "int8", "native-129"):
+        runs = [r["serve"][label] for r in results]
+        assert all(run["streams"] == runs[0]["streams"] for run in runs), \
+            f"[{label}] the ranks' streams differ"
+        streams = {int(i): t for i, t in runs[0]["streams"].items()}
+        ref = phase5_streams[label.split("-")[0]]
+        same = sum(streams[i] == ref[i] for i in ref)
+        tokens = sum(a == b for i in ref for a, b in zip(streams[i], ref[i]))
+        log(f"[sharded {label}] streams equal on all {n} ranks; "
+            f"{same}/16 streams ({tokens}/512 tokens) equal phase 5's "
+            f"single-card streams (reported, not a gate); fresh pages per "
+            f"rank {runs[0]['per_chip']}; mean decode step "
+            f"{runs[0]['decode_ms']:.2f} ms on rank 0")
+        name = runs[0]["k1"]
+        if label != "native-129":
+            report[name]["launches"] = runs[0]["launches"][name]
+
+
+def rank_main(rank: int, n: int, port: int) -> int:
+    """One rank of phase 10: (b) full-width qwen3-4b fp32, one prefill and
+    one decode step over the sharded pool, rank 0 holding the logits
+    against its own single-card cache (relative max error 1e-4: the two
+    differ only in the order of the attention sums); (c) phase 5's bf16
+    workload over sharded native, then int8, pages; then the gloo merge's
+    cost per layer."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models import ForwardOpts, LM
+    from repro_torch.models.attention import merge_paged_partials
+    from repro_torch.parallel import PoolGroup
+    from repro_torch.serve.kvcache import PagedCache
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=n,
+                            timeout=timedelta(seconds=300))
+    group = PoolGroup.of()
+    result = {"rank": rank}
+
+    # (b) fp32 logits, sharded against single-card
+    cfg = dataclasses.replace(get_config("qwen3-4b"), dtype="float32")
+    lm = LM(cfg)
+    params = lm.init(11, device=DEV)
+    rng = np.random.default_rng(4)
+    lens = [70, 97, 115, 128]
+    tokens = np.zeros((len(lens), 128), np.int64)
+    for j, plen in enumerate(lens):
+        tokens[j, :plen] = rng.integers(0, cfg.vocab_size, plen)
+    # 30 pages, 15 a rank: the 5-, 7- and 8-page slots fill one rank each
+    # way and the 9-page slot spills over both, so the merge combines two
+    # live shards there and a live shard with an empty one elsewhere; the
+    # single-card cache takes the same page ids (locality_chips)
+    groups = [group] + ([None] if rank == 0 else [])
+    caches = [PagedCache(cfg, len(lens), 256, page_size=16, num_pages=30,
+                         device=DEV, dtype=torch.float32, pool_group=g,
+                         locality_chips=None if g else n) for g in groups]
+    dest = np.zeros((len(lens), 128), np.int32)
+    for kv in caches:
+        for j, plen in enumerate(lens):
+            assert kv.alloc(j, plen + 2) == 0
+            dest[j] = kv.prefill_dest(j, 128, plen)
+    assert all(kv.page_table.tolist() == caches[0].page_table.tolist()
+               for kv in caches)
+    spans = [len({p // caches[0].pages_per_chip for p in pages})
+             for pages in caches[0]._slot_pages]
+    assert max(spans) == n, spans
+    logits, cache = lm.forward(params, torch.as_tensor(tokens, device=DEV),
+                               ForwardOpts("flash", "kernel"),
+                               collect_cache=True)
+    for kv in caches:
+        kv.staged_write_prefill(cache["layers"],
+                                torch.as_tensor(dest, device=DEV))
+    del cache
+    nxt = logits[torch.arange(len(lens), device=DEV),
+                 torch.as_tensor(np.array(lens) - 1, device=DEV)].argmax(-1)
+    pos = torch.as_tensor(np.array(lens, np.int32), device=DEV)
+    step = [lm.decode_step(params, nxt[:, None], kv.decode_view(), pos,
+                           pool_group=g)[0][:, -1, :cfg.vocab_size]
+            for kv, g in zip(caches, groups)]
+    if rank == 0:
+        a, b = step[0].float(), step[1].float()
+        assert bool(torch.isfinite(a).all()) and a.shape == (4, cfg.vocab_size)
+        err = float((a - b).abs().max() / b.abs().max())
+        top2 = b.topk(2, dim=-1).values
+        decided = top2[:, 0] - top2[:, 1] > (a - b).abs().max(-1).values
+        same = a.argmax(-1) == b.argmax(-1)
+        log(f"fp32 full-width qwen3-4b, 4 prompts of 70-128 tokens, prefill "
+            f"+ 1 decode step over {n} shards (ranks each slot's pages lie "
+            f"on: {spans}) vs one card: logits rel max err {err:.3e} "
+            f"(limit 1e-4), greedy agree {int(same.sum())}/4")
+        assert err <= 1e-4 and bool((same | ~decided).all()), \
+            "sharded decode logits disagree with the single-card cache"
+        result["fp32_rel_err"] = err
+    del params, caches, logits, step
+    free()
+
+    # (c) phase 5's bf16 workload over sharded pools
+    lm = LM(get_config("qwen3-4b"))
+    params = lm.init(7, device=DEV)
+    # phase 5's pool (257 pages) over native and int8 pages; then native
+    # over 129 pages, where the live slots outgrow one rank's shard
+    runs = serve_runs(lm, params, (("native", None), ("int8", None),
+                                   ("native", 129)),
+                      f"sharded r{rank}", pool_group=group,
+                      profile=rank == 0)
+    for label, run in runs.items():
+        st = run["stats"]
+        want = st["bytes_total"] // n + run["page_bytes"]
+        log(f"[sharded r{rank} {label}] pool tensors on this rank "
+            f"{run['pool_tensor_bytes']} B = padded pool "
+            f"{st['bytes_total']} / {n} + sink page {run['page_bytes']} "
+            f"({want}); memory_allocated grew {run['pool_bytes']} B at "
+            f"construction (the caching allocator's blocks, not a gate)")
+        assert run["pool_tensor_bytes"] == want \
+            == st["bytes_per_chip"] + st["bytes_sink_per_chip"], \
+            "a rank pins other than its shard and its sink"
+    result["serve"] = runs
+    del params
+    free()
+
+    # the merge alone: one MAX and one SUM all_reduce of a decode layer's
+    # triple (B=8, KV=8, G=4, D=128), synchronized
+    acc = torch.randn(8, 1, 8, 4, 128, device=DEV)
+    l = torch.rand(8, 8, 4, device=DEV) + 1
+    m = torch.randn(8, 8, 4, device=DEV)
+    for _ in range(5):
+        merge_paged_partials(acc, l, m, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        merge_paged_partials(acc, l, m, group)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) / 50 * 1e3
+    log(f"[sharded r{rank}] merge of one layer's partials over gloo, "
+        f"{n} ranks on one card: {merge_ms:.3f} ms (x 36 layers = "
+        f"{36 * merge_ms:.1f} ms per decode step)")
+    result["merge_ms"] = merge_ms
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(result), flush=True)
+    return 0
+
+
 # ----------------------------------------------------------------- main ----
 
 def free() -> None:
@@ -1409,7 +1826,7 @@ def main() -> int:
     free()
 
     phase("5 serve full-width qwen3-4b bf16, native and int8 pages")
-    serve(report)
+    phase5_streams = serve(report)
     free()
 
     phase("6 training parity: 2-layer full-width qwen3-4b fp32, K4/K5 vs "
@@ -1428,12 +1845,25 @@ def main() -> int:
     phase("9 eval full-width zamba2-1.2b and rwkv6-1.6b bf16")
     recurrent_eval(report)
 
+    phase("10 sharded pools: K1 partials, then full-width qwen3-4b on 2 "
+          "ranks of this card over gloo")
+    check_k1_partials(report)
+    free()
+    sharded_ranks(report, phase5_streams)
+
     csrc = "src/repro_torch/csrc/"
     meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",
                                    "src/repro/kernels/paged_decode.py:142"),
             "paged_flash_decode_int8": ("cuda", csrc + "paged_decode.cu",
                                         "src/repro/kernels/"
                                         "paged_decode.py:142"),
+            "paged_flash_decode_partials": ("cuda", csrc + "paged_decode.cu",
+                                            "src/repro/kernels/"
+                                            "paged_decode.py:142"),
+            "paged_flash_decode_partials_int8": ("cuda",
+                                                 csrc + "paged_decode.cu",
+                                                 "src/repro/kernels/"
+                                                 "paged_decode.py:142"),
             "flash_attention_bhsd": ("cuda", csrc + "flash_attention.cu",
                                      "src/repro/kernels/"
                                      "flash_attention.py:60"),
@@ -1469,4 +1899,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--sharded-rank" in sys.argv:
+        argv = sys.argv[1:]
+        opt = {argv[i]: int(argv[i + 1]) for i in range(0, len(argv), 2)}
+        sys.exit(rank_main(opt["--sharded-rank"], opt["--ranks"],
+                           opt["--port"]))
     sys.exit(main())

@@ -32,9 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the cudaError_t of its launch (0 = success).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
-    "paged_decode_launch": ("paged_decode", [_I] + [_P] * 6 + [_I] * 6 + [_P]),
-    "paged_decode_int8_launch": ("paged_decode",
-                                 [_I] + [_P] * 8 + [_I] * 6 + [_P]),
+    "paged_decode_launch": ("paged_decode",
+                            [_I] * 3 + [_P] * 11 + [_I] * 8 + [_P]),
     "flash_attention_launch": ("flash_attention",
                                [_I] + [_P] * 4 + [_I] * 5 + [_P]),
     "softmax_xent_fwd_launch": ("softmax_xent",

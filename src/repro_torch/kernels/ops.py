@@ -14,8 +14,9 @@ from typing import Dict
 from repro_torch.kernels.adamw_update import adamw_fused
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.mamba2_ssd import ssd_scan_bhsd
-from repro_torch.kernels.paged_decode import (paged_flash_decode,
-                                              paged_flash_decode_int8)
+from repro_torch.kernels.paged_decode import (
+    paged_flash_decode, paged_flash_decode_int8, paged_flash_decode_partials,
+    paged_flash_decode_partials_int8)
 from repro_torch.kernels.rmsnorm import rmsnorm_rows
 from repro_torch.kernels.rwkv6_wkv import wkv6_scan_bhsd
 from repro_torch.kernels.softmax_xent import (SoftmaxXent, softmax_xent_bwd,
@@ -23,6 +24,9 @@ from repro_torch.kernels.softmax_xent import (SoftmaxXent, softmax_xent_bwd,
 
 KERNELS = {"paged_flash_decode": paged_flash_decode,
            "paged_flash_decode_int8": paged_flash_decode_int8,
+           "paged_flash_decode_partials": paged_flash_decode_partials,
+           "paged_flash_decode_partials_int8":
+               paged_flash_decode_partials_int8,
            "flash_attention_bhsd": flash_attention_bhsd,
            "rmsnorm_rows": rmsnorm_rows,
            "softmax_xent_fwd": softmax_xent_fwd,
@@ -67,6 +71,30 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, positions,
         o = paged_flash_decode_int8(q, k_pool, v_pool, k_scale, v_scale,
                                     page_table, positions)
     return o[:, None]
+
+
+def paged_decode_partials(q, k_pool, v_pool, page_table, positions,
+                          page_offset: int, k_scale=None, v_scale=None):
+    """One pool shard's share of a sharded paged decode: q (B, 1, KV, G, D);
+    pools the shard's (P_local, page, KV, D) pages, ``page_offset`` the
+    global id of its first page; page_table (B, M) of GLOBAL ids, entries
+    outside the shard skipped like dead pages; with int8 pools, the shard's
+    ``k_scale``/``v_scale`` (P_local, page, KV) fp32.  Returns the raw fp32
+    triple ``(acc (B, 1, KV, G, D), l (B, KV, G), m (B, KV, G))``, merged
+    across shards by ``attention.merge_paged_partials``."""
+    assert q.shape[1] == 1, q.shape
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_decode_partials: k_scale and v_scale go "
+                         "together")
+    q = q[:, 0].contiguous()
+    if k_scale is None:
+        acc, l, m = paged_flash_decode_partials(q, k_pool, v_pool, page_table,
+                                                positions, page_offset)
+    else:
+        acc, l, m = paged_flash_decode_partials_int8(
+            q, k_pool, v_pool, k_scale, v_scale, page_table, positions,
+            page_offset)
+    return acc[:, None], l, m
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-5):

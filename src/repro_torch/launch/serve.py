@@ -4,22 +4,75 @@ over the paged KV cache, on the card unless ``--device cpu``.
     python -m repro_torch.launch.serve --no-reduced          # full width
     python -m repro_torch.launch.serve --no-reduced --kv-dtype int8
     python -m repro_torch.launch.serve --device cpu --reduced
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --device cpu --reduced --mesh 2
 
 It prints the same summary lines as ``repro.launch.serve``.  ``--reduced``
 (the default) serves the reduced config in fp32; ``--no-reduced`` serves the
 full-width config in its own dtype, with random weights from seed 0.
+
+``--mesh N`` splits the KV pool over N ranks (the 1-D form of the JAX
+``--mesh N``), one process per rank under ``torch.distributed.run``, which
+sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``.  The backend is ``nccl`` with one card per rank where
+there are N cards, else ``gloo`` (the CPU, or ranks sharing one card).
+Rank 0 prints the summary.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
+from datetime import timedelta
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import archs, get_config
 from repro_torch.models import LM
+from repro_torch.models.common import resolve_device
+from repro_torch.parallel import PoolGroup
 from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+
+def parse_mesh(spec: str) -> int:
+    """``--mesh``: ``N`` ranks for a 1-D pool split (``0``: one process, no
+    split).  The JAX launcher's 2-D forms (``DxM``, ``D,M``,
+    ``dp=D,model=M``) are not ported."""
+    spec = spec.strip().lower()
+    if any(sep in spec for sep in ("x", ",", "=")):
+        raise NotImplementedError(
+            f"--mesh {spec}: 2-D batch x pages meshes (dp_axis) are not "
+            "ported; ROADMAP Queue 1 item 14 lists them as open")
+    return int(spec)
+
+
+def join_pool_group(n: int, device: str):
+    """Join the ``torch.distributed`` group that ``torch.distributed.run``
+    describes in the environment; returns (PoolGroup, this rank's device).
+    ``nccl`` with one card per rank when there are ``n`` cards, else
+    ``gloo``, every rank on card 0 (or the CPU)."""
+    env = os.environ
+    if not all(k in env for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                  "MASTER_PORT")):
+        raise SystemExit(f"--mesh {n} runs one process per rank: launch it "
+                         f"with python -m torch.distributed.run "
+                         f"--nproc-per-node {n} -m repro_torch.launch.serve")
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    if world != n:
+        raise SystemExit(f"--mesh {n} but WORLD_SIZE is {world}")
+    dev = resolve_device(device)
+    backend = "gloo"
+    if dev.type == "cuda" and torch.cuda.device_count() >= n:
+        backend = "nccl"
+        dev = torch.device("cuda", int(env.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+        rank=rank, world_size=world, timeout=timedelta(minutes=10))
+    return PoolGroup.of(), dev
 
 
 def main(argv=None):
@@ -54,18 +107,34 @@ def main(argv=None):
                     choices=["kernel", "gather"],
                     help="paged decode read path: 'kernel' (K1, walks the "
                          "page table) or 'gather' (dense gathered view)")
+    ap.add_argument("--mesh", default="0", metavar="N",
+                    help="split the KV pool over N ranks (run under "
+                         "python -m torch.distributed.run --nproc-per-node "
+                         "N): each rank pins P/N pages and merges the "
+                         "ranks' decode partials; 0 = one process")
     args = ap.parse_args(argv)
+    n = parse_mesh(args.mesh)
+    pool_group, device = None, args.device
+    if n:
+        pool_group, device = join_pool_group(n, args.device)
+    try:
+        serve(args, pool_group, device)
+    finally:
+        if pool_group is not None:
+            dist.destroy_process_group()
 
+
+def serve(args, pool_group, device):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     lm = LM(cfg)
-    params = lm.init(0, device=args.device)
+    params = lm.init(0, device=device)
     eng = ServeEngine(lm, params, args.max_batch, args.max_seq,
                       page_size=args.page_size, num_pages=args.num_pages,
                       prefix_sharing=not args.no_prefix_sharing,
-                      device=args.device, kv_dtype=args.kv_dtype,
-                      decode_impl=args.decode_impl)
+                      device=device, kv_dtype=args.kv_dtype,
+                      decode_impl=args.decode_impl, pool_group=pool_group)
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     for i in range(args.requests):
@@ -77,6 +146,8 @@ def main(argv=None):
                                top_k=args.top_k, top_p=args.top_p, seed=i)))
     done = eng.run_until_drained()
     wall = time.perf_counter() - t0
+    if pool_group is not None and pool_group.rank != 0:
+        return
     reg = eng.reg
     total_tokens = sum(len(r.out_tokens) for r in done)
     iters = reg.counter("serve_iterations_total").get()
@@ -95,8 +166,13 @@ def main(argv=None):
     st = eng.kv.memory_stats()
     deferred = reg.counter("serve_admission_deferred_total").get()
     pf_h = reg.histogram("serve_prefill_batch_size")
+    sharded = ""
+    if pool_group is not None:
+        sharded = (f", sharded over {st.mesh_chips} ranks "
+                   f"({st.bytes_per_chip/1e6:.2f} MB/rank + "
+                   f"{st.bytes_sink_per_chip/1e6:.2f} MB sink page)")
     print(f"kv cache [{st.backend}]: {st.bytes_total/1e6:.2f} MB pinned, "
-          f"{st.pages_total} pages of {st.page_size}; admissions "
+          f"{st.pages_total} pages of {st.page_size}{sharded}; admissions "
           f"deferred={deferred:.0f}; prefill batch p50="
           f"{pf_h.quantile(0.5):.0f}")
     transient = reg.gauge("serve_decode_transient_bytes").get()
@@ -105,7 +181,10 @@ def main(argv=None):
     if st.kv_dtype == "int8":
         saved = reg.gauge("serve_kv_quant_bytes_saved").get()
         dense = str(eng.kv.dtype).removeprefix("torch.")
-        print(f"kv quant [int8]: {st.bytes_scales/1e3:.1f} kB scales, "
+        per_rank = (f" ({st.bytes_scales_per_chip/1e3:.1f} kB/rank)"
+                    if pool_group is not None else "")
+        print(f"kv quant [int8]: {st.bytes_scales/1e3:.1f} kB scales"
+              f"{per_rank}, "
               f"{saved/1e6:.2f} MB saved vs {dense} pages "
               f"({(st.bytes_total + saved)/max(st.bytes_total, 1):.2f}x "
               f"positions per byte)")

@@ -229,17 +229,146 @@ def _scatter_paged_kv(pool, new, page_table, positions):
     flat[page_ids * page + pos % page] = new[:, 0].to(pool.dtype)
 
 
+# ---------------------------------------------- sharded pools (one rank) ----
+# A rank's shard of a pool split over n ranks is (P/n + 1, page, ...): its
+# window of P/n pages, global ids [offset, offset + P/n), then one sink page.
+# Torch has no drop-mode scatter, so a write that belongs to another rank
+# lands in the sink: no host sync (a boolean index would make one per
+# layer) and no race with a live page (rank c > 0's local page 0 is live).
+
+def _local_rows(rows, row_offset: int, n_rows: int):
+    """Global flat pool rows -> this shard's flat rows; rows outside
+    ``[row_offset, row_offset + n_rows)`` go to row ``n_rows``, the sink
+    page's first."""
+    local = rows.long() - row_offset
+    inside = (local >= 0) & (local < n_rows)
+    return torch.where(inside, local, torch.full_like(local, n_rows))
+
+
+def scatter_paged_kv_local(pool, new, page_table, positions, page_offset):
+    """In-place sharded decode write (counterpart of the JAX
+    ``scatter_paged_kv_local``): slot b's row (B, 1, KV, D), or its scale
+    (B, 1, KV) into a scale shard, lands at ``table[b, pos // page]`` (a
+    GLOBAL id) if that page is in this shard's window starting at global
+    page ``page_offset``, else in the sink.  ``pool`` is the shard with its
+    sink, (P/n + 1, page, ...).  Exactly one rank, or none for a freed
+    slot on scratch page 0 outside rank 0, commits each row, so the union
+    of the windows is the single-rank pool."""
+    check_pool_write(pool, new, "scatter_paged_kv_local")
+    pn, page = pool.shape[0] - 1, pool.shape[1]
+    flat = pool.view(-1, *pool.shape[2:])
+    pos = positions.long()
+    page_ids = page_table.long().gather(1, (pos // page)[:, None])[:, 0]
+    idx = _local_rows(page_ids * page + pos % page, page_offset * page,
+                      pn * page)
+    flat[idx] = new[:, 0].to(pool.dtype)
+
+
+def scatter_chunk_paged_local(pool, new, dest, row_offset: int):
+    """In-place sharded prefill write (counterpart of the JAX
+    ``scatter_chunk_paged_local``): ``new`` (B, C, ...) lands at ``dest``
+    (B, C) GLOBAL flat pool rows (page * page_size + row) where they fall in
+    this shard's window, whose first row has global index ``row_offset``;
+    the rest go to the sink.  ``pool`` is the shard with its sink.
+    Scratch-routed positions (flat row 0) land on rank 0's scratch page, as
+    on one card."""
+    check_pool_write(pool, new, "scatter_chunk_paged_local")
+    pn, page = pool.shape[0] - 1, pool.shape[1]
+    flat = pool.view(-1, *pool.shape[2:])
+    idx = _local_rows(dest.reshape(-1), row_offset, pn * page)
+    flat[idx] = new.reshape(-1, *new.shape[dest.dim():]).to(pool.dtype)
+
+
+def paged_gather_partials(q, k_pool, v_pool, page_table, positions,
+                          page_offset: int, k_scale=None, v_scale=None):
+    """One shard's partial paged decode through a gathered view (counterpart
+    of the JAX ``paged_gather_partials``; K1's partials mode walks the table
+    instead).  q (B, 1, KV, G, D); pools the shard's window (P/n, page, KV,
+    D), global ids from ``page_offset``; page_table (B, M) GLOBAL ids.
+    Entries outside the window are masked like dead pages: gathered through
+    local page 0, scores NEG_INF.  Returns the raw fp32 triple (acc (B, 1,
+    KV, G, D), l (B, KV, G), m (B, KV, G)); the explicit ``where`` on p
+    makes a shard with no live row of a slot give (0, 0, NEG_INF), where
+    ``exp(s - max)`` alone would give exp(0) = 1.  Int8 shards dequantize
+    the gathered rows to fp32 through their scale shards."""
+    hd = q.shape[-1]
+    b, m = page_table.shape
+    pn, page = k_pool.shape[:2]
+    live = (torch.arange(m, device=q.device)[None, :]
+            <= (positions.long() // page)[:, None])
+    local = page_table.long() - page_offset
+    ok = live & (local >= 0) & (local < pn)
+    lt = torch.where(ok, local, torch.zeros_like(local))
+    kg = k_pool[lt].reshape(b, m * page, *k_pool.shape[2:])
+    vg = v_pool[lt].reshape(b, m * page, *v_pool.shape[2:])
+    if k_scale is not None:
+        kg = dequant_gathered(kg, k_scale, lt, torch.float32)
+        vg = dequant_gathered(vg, v_scale, lt, torch.float32)
+    ct = torch.promote_types(q.dtype, kg.dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", q[:, 0].to(ct), kg.to(ct)).float()
+    s = s / math.sqrt(hd)
+    valid = ((torch.arange(m * page, device=q.device)[None, :]
+              <= positions.long()[:, None])
+             & ok[:, :, None].expand(b, m, page).reshape(b, m * page)
+             )[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    mx = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - mx[..., None]), torch.zeros_like(s))
+    acc = torch.einsum("bkgs,bskd->bkgd", p, vg.float())
+    return acc[:, None], p.sum(dim=-1), mx
+
+
+def merge_partials_local(triples):
+    """The cross-shard online-softmax merge over a list of (acc (B, 1, KV,
+    G, D), l, m (B, KV, G)) triples held in one process:
+    ``sum(acc * w) / max(sum(l * w), 1e-30)`` with ``w = exp(m - max m)``.
+    A shard with m = NEG_INF weighs exactly 0."""
+    gm = torch.stack([m for _, _, m in triples]).amax(dim=0)
+    num = den = 0
+    for acc, l, m in triples:
+        w = torch.exp(m - gm)
+        num = num + acc * w[:, None, :, :, None]
+        den = den + l * w
+    return num / torch.clamp(den, min=1e-30)[:, None, :, :, None]
+
+
+def merge_paged_partials(acc, l, m, pool_group):
+    """``merge_partials_local`` across the ranks of ``pool_group`` (a
+    ``repro_torch.parallel.pagedkv.PoolGroup``; counterpart of the JAX
+    ``merge_paged_partials``): one all_reduce MAX of m, then one all_reduce
+    SUM of acc·w and l·w packed into one (B, 1, KV, G, D + 1) tensor.  The
+    result is the same on every rank.  The denominator vanishes only if no
+    rank saw a live row, which the scratch-page convention rules out
+    (logical page 0 is live at every position)."""
+    gm = pool_group.all_max(m.clone())
+    w = torch.exp(m - gm)[:, None, :, :, None]
+    d = acc.shape[-1]
+    packed = torch.cat([acc * w, l[:, None, :, :, None] * w], dim=-1)
+    pool_group.all_sum(packed)
+    return packed[..., :d] / torch.clamp(packed[..., d:], min=1e-30)
+
+
 def attention_decode_block(p, cfg, x, k_pool, v_pool, positions, page_table,
                            decode_impl: str = "kernel",
                            norm_impl: str = "kernel", k_scale=None,
-                           v_scale=None):
+                           v_scale=None, pool_group=None):
     """One-token decode at per-slot (B,) positions.  x (B, 1, d).  The new
     K/V row is written into the pools (in place) before attending, and the
     slot attends to its own position too.  With int8 pools (``k_scale``/
     ``v_scale`` given) the row is quantized first and its scale written
     through the same table index, so the slot reads its own new row back
-    from int8, as the JAX model does."""
+    from int8, as the JAX model does.  With ``pool_group`` the pools are
+    this rank's shards (with their sink pages) of pools split over the
+    group, and the write and attention go through
+    ``repro_torch.parallel.pagedkv.sharded_paged_decode_attention``."""
     q, k, v = project_qkv(p, cfg, x, positions[:, None], norm_impl)
+    if pool_group is not None:
+        from repro_torch.parallel.pagedkv import \
+            sharded_paged_decode_attention
+        y = sharded_paged_decode_attention(
+            pool_group, q, k, v, k_pool, v_pool, page_table, positions,
+            decode_impl, k_scale=k_scale, v_scale=v_scale)
+        return output_proj(p, cfg, y)
     if k_scale is not None:
         k, sk = quantize_kv(k)
         v, sv = quantize_kv(v)

@@ -49,20 +49,25 @@ class LM:
                       "moe_aux": torch.zeros((), device=loss.device)}
 
     def decode_step(self, params, tokens, cache, positions,
-                    decode_impl: str = "kernel", norm_impl: str = "kernel"):
+                    decode_impl: str = "kernel", norm_impl: str = "kernel",
+                    pool_group=None):
         return transformer.decode_step(params, self.cfg, tokens, cache,
                                        positions, decode_impl=decode_impl,
-                                       norm_impl=norm_impl)
+                                       norm_impl=norm_impl,
+                                       pool_group=pool_group)
 
     def init_cache(self, batch_size: int, max_seq: int,
                    backend: str = "paged", page_size: int = 16,
                    num_pages: Optional[int] = None,
                    prefix_sharing: bool = True, device="cuda", dtype=None,
-                   kv_dtype: str = "native"):
+                   kv_dtype: str = "native", pool_group=None,
+                   locality_chips: Optional[int] = None):
         """A managed paged KV cache (``repro_torch.serve.kvcache``); the
         paged backend is the only one the port has.  ``kv_dtype="int8"``
-        stores int8 pages with per-row fp32 scales.  The recurrent
-        families have no KV cache: refused."""
+        stores int8 pages with per-row fp32 scales.  ``pool_group`` (the
+        counterpart of the JAX ``mesh``/``kv_axis``) splits the pool over
+        its ranks; ``locality_chips`` partitions only the free list.  The
+        recurrent families have no KV cache: refused."""
         refuse_recurrent(self.cfg, "init_cache")
         if backend != "paged":
             raise ValueError(f"the port has the paged cache backend only "
@@ -72,4 +77,5 @@ class LM:
                           num_pages=num_pages, prefix_sharing=prefix_sharing,
                           device=device,
                           dtype=dtype or DTYPES[self.cfg.dtype],
-                          kv_dtype=kv_dtype)
+                          kv_dtype=kv_dtype, pool_group=pool_group,
+                          locality_chips=locality_chips)

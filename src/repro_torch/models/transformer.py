@@ -7,7 +7,8 @@ Python loop.  Two entry points share the weights:
 * ``forward``     — full sequence (training and eval; prefill when
   ``collect_cache``, for the dense family only)
 * ``decode_step`` — one token per slot at (B,) positions over a paged cache,
-  whose pools it updates in place (dense family only)
+  whose pools it updates in place (dense family only), or over this rank's
+  shards of pools split over a ``PoolGroup``
 
 The recurrent families run forward only: their prefill (final states) and
 decode step wait for ROADMAP Queue 1 item 16's "decode states".
@@ -176,12 +177,17 @@ def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
 
 
 def decode_step(params, cfg, tokens, cache, positions,
-                decode_impl: str = "kernel", norm_impl: str = "kernel"):
+                decode_impl: str = "kernel", norm_impl: str = "kernel",
+                pool_group=None):
     """One token per slot.  tokens (B, 1); positions (B,) int32; cache is a
     paged view ``{"layers": {"k": (L, P, page, KV, D), "v": ...},
     "page_table": (B, M) int32}`` whose pools are written in place; int8
     pools come with ``"k_scale"``/``"v_scale"`` (L, P, page, KV) fp32,
-    which each layer's attention block is handed.  Returns (logits
+    which each layer's attention block is handed.  With ``pool_group``
+    (the counterpart of the JAX ``mesh``/``kv_axis``) the pools are this
+    rank's (L, P/n + 1, page, ...) shards with their sink pages, the table
+    holds global ids, and every layer's attention merges across the group,
+    so the logits are the same on every rank.  Returns (logits
     (B, 1, Vp), cache)."""
     refuse_recurrent(cfg, "decode_step")
     page_table = cache["page_table"]
@@ -196,7 +202,7 @@ def decode_step(params, cfg, tokens, cache, positions,
         h = h + attn.attention_decode_block(
             lp["attn"], cfg, a_in, pools["k"][i], pools["v"][i], positions,
             page_table, decode_impl=decode_impl, norm_impl=norm_impl,
-            **scales)
+            pool_group=pool_group, **scales)
         f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, norm_impl)
         h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
     return unembed(params, cfg, h, norm_impl), cache

@@ -27,9 +27,19 @@ fp32 scales: the prefill block is quantized before it is written and each
 decode row in the attention block; prefill attends over the float K/V, so
 its logits are the native ones.  ``decode_impl`` is ``"kernel"`` (K1) or
 ``"gather"`` (the dense gathered view).
+
+**Sharded pools** (``pool_group``, the counterpart of the JAX ``mesh=``):
+the engine runs SPMD, one process per rank of a ``torch.distributed``
+group.  Every rank builds the same engine with the same weights and takes
+the same requests; its cache holds the rank's P/n-page shard of the pool,
+and each decode layer merges the ranks' partials (K1's partials mode under
+``"kernel"``), so every rank samples the same tokens and keeps the same
+scheduler state.  ``run_until_drained`` checks at the end that every rank
+emitted the same streams, and raises if not.
 """
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -71,11 +81,16 @@ class NonFiniteLogitsError(RuntimeError):
     recompute; the port has no fault recovery yet, so it stops."""
 
 
+class RankDivergenceError(RuntimeError):
+    """The ranks of a sharded engine emitted different streams."""
+
+
 class ServeEngine:
     def __init__(self, lm: LM, params, max_batch: int, max_seq: int,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefix_sharing: bool = True, device="cuda",
-                 kv_dtype: str = "native", decode_impl: str = "kernel"):
+                 kv_dtype: str = "native", decode_impl: str = "kernel",
+                 pool_group=None):
         assert lm.cfg.family == "dense", lm.cfg.family
         if decode_impl not in ("kernel", "gather"):
             raise ValueError(f"decode_impl {decode_impl!r} not in "
@@ -88,6 +103,7 @@ class ServeEngine:
         self.lm, self.params = lm, params
         self.B, self.S = max_batch, max_seq
         self.decode_impl = decode_impl
+        self.pool_group = pool_group
         self.reg = MetricsRegistry()
         self.finished: List[Request] = []
         dtype = torch.float32 if lm.cfg.dtype == "float32" else torch.bfloat16
@@ -95,7 +111,7 @@ class ServeEngine:
                                 num_pages=num_pages,
                                 prefix_sharing=prefix_sharing,
                                 device=self.device, dtype=dtype,
-                                kv_dtype=kv_dtype)
+                                kv_dtype=kv_dtype, pool_group=pool_group)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int32)   # next write index
         self.queue: List[Request] = []
@@ -130,6 +146,9 @@ class ServeEngine:
           buckets=(1, 2, 4, 8, 16, 32, 64, float("inf")))
         g("serve_kv_pages_in_use", "physical KV pages reserved by live slots")
         g("serve_kv_bytes_reserved", "cache bytes reserved by live slots")
+        g("serve_kv_bytes_per_chip",
+          "pinned cache bytes per mesh chip: this rank's pool shard and its "
+          "sink page on a sharded pool, the whole pool on one card")
         g("serve_kv_pages_shared", "pages with refcount > 1 (prefix sharing)")
         g("serve_decode_transient_bytes",
           "per-step transient of the paged KV read path, one layer")
@@ -252,7 +271,7 @@ class ServeEngine:
         logits, _ = self.lm.decode_step(
             self.params, self._tensor(self.next_token[:, None], torch.long),
             self.kv.decode_view(), self._tensor(positions, torch.int32),
-            decode_impl=self.decode_impl)
+            decode_impl=self.decode_impl, pool_group=self.pool_group)
         rows = logits[:, -1, :self.lm.cfg.vocab_size].float()
         tok = self._sample(rows, self.temps.tolist(), self.top_ks.tolist(),
                            self.top_ps.tolist(), self.seeds.tolist(),
@@ -323,6 +342,8 @@ class ServeEngine:
         self.reg.gauge("serve_kv_pages_in_use").set(st.pages_in_use)
         self.reg.gauge("serve_kv_bytes_reserved").set(st.bytes_reserved)
         self.reg.gauge("serve_kv_pages_shared").set(st.pages_shared)
+        self.reg.gauge("serve_kv_bytes_per_chip").set(
+            st.bytes_per_chip + st.bytes_sink_per_chip)
         self.reg.gauge("serve_decode_transient_bytes").set(
             decode_transient_bytes(self.lm.cfg, self.B, self.kv.max_pages,
                                    st.page_size, self.kv.dtype,
@@ -338,9 +359,22 @@ class ServeEngine:
         self.reg.gauge("serve_kv_quant_bytes_saved").set(saved)
 
     def run_until_drained(self, max_iters: int = 10_000) -> List[Request]:
-        """Step until every submitted request has completed."""
+        """Step until every submitted request has completed.  Sharded, every
+        rank must have emitted the same streams: ``RankDivergenceError``
+        otherwise."""
         for _ in range(max_iters):
             if not self.step() and not self.queue:
+                self._check_ranks_agree()
                 return self.finished
         raise RuntimeError(f"engine not drained after {max_iters} "
                            f"iterations ({len(self.queue)} queued)")
+
+    def _check_ranks_agree(self) -> None:
+        if self.pool_group is None:
+            return
+        streams = sorted((r.id, r.out_tokens) for r in self.finished)
+        if not self.pool_group.same_on_every_rank(
+                json.dumps(streams).encode()):
+            raise RankDivergenceError(
+                f"rank {self.pool_group.rank} of {self.pool_group.size}: "
+                "the ranks' token streams differ")

@@ -1,6 +1,6 @@
 """Paged KV cache of the port (counterpart of ``PagedCache`` in the JAX
 ``repro.serve.kvcache``, without its quotas, eviction, chunked allocation,
-host tier and meshes).
+host tier, chip failure and 2-D meshes).
 
 Storage is a per-layer (L, P, page, KV, D) K and V pool on the device; each
 slot owns a row of a host-side (B, M) int32 page table mapping logical page
@@ -18,6 +18,17 @@ position instead of ``2·L·KV·D·itemsize``.  Rows are quantized before they
 are written (``quantize_block`` for a prefill block, the attention block for
 a decode row); the write helpers refuse a float block for an int8 pool.
 
+Sharded pools (``pool_group``, a ``repro_torch.parallel.pagedkv.PoolGroup``
+of n ranks): the pool is padded to a multiple of n pages and rank c holds
+global pages ``[c*P/n, (c+1)*P/n)`` plus one sink page past them, where
+writes that belong to another rank land (``memory_stats`` counts it).  Every
+rank keeps the same host-side bookkeeping and the same global page table.
+The free list is per chip and locality-first: a request's fresh pages come
+from the one chip that fits them with the fewest to spare, or spill across
+chips from the fullest; admission depends only on the total free count.
+``locality_chips`` partitions the free list the same way without sharding
+the tensors (the JAX cache's mesh-free knob).
+
 All bookkeeping is host-side numpy.  Unlike the JAX cache, whose pools are
 immutable values threaded through each dispatch, the pools here are written
 in place by the prefill scatter and the decode step.
@@ -32,6 +43,8 @@ import torch
 
 from repro_torch.kernels.quant import check_pool_write, quantize_kv
 from repro_torch.models.common import resolve_device
+from repro_torch.parallel.pagedkv import (chip_of_page, chip_page_range,
+                                          sharded_write_prefill)
 
 #: fp32 bytes of the scale stored beside each int8 K/V row.
 SCALE_BYTES = 4
@@ -103,6 +116,10 @@ class MemoryStats:
     pages_shared: int         # pages with refcount > 1 (prefix sharing)
     kv_dtype: str = "native"  # page element format ("native" / "int8")
     bytes_scales: int = 0     # portion of bytes_total pinned by int8 scales
+    mesh_chips: int = 1       # chips (ranks) the pool is split over
+    bytes_per_chip: int = 0   # bytes_total / mesh_chips
+    bytes_scales_per_chip: int = 0
+    bytes_sink_per_chip: int = 0  # a sharded rank's sink page, beside it
 
 
 class PagedCache:
@@ -111,7 +128,8 @@ class PagedCache:
     def __init__(self, cfg, batch: int, max_seq: int, page_size: int = 16,
                  num_pages: Optional[int] = None, prefix_sharing: bool = True,
                  device="cuda", dtype=torch.bfloat16,
-                 kv_dtype: str = "native"):
+                 kv_dtype: str = "native", pool_group=None,
+                 locality_chips: Optional[int] = None):
         assert cfg.family == "dense", cfg.family
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
@@ -122,13 +140,26 @@ class PagedCache:
             # full dense-equivalent capacity plus the scratch page
             num_pages = batch * self.max_pages + 1
         assert num_pages >= 2, "need at least scratch + one usable page"
+        if pool_group is not None and locality_chips is not None:
+            raise ValueError("locality_chips partitions the free list "
+                             "without a pool group; with one, the chip "
+                             "count is the group's size")
+        self.pool_group = pool_group
+        self.chips = (pool_group.size if pool_group is not None
+                      else locality_chips or 1)
+        # pad the pool so every chip holds the same number of pages
+        num_pages = -(-num_pages // self.chips) * self.chips
         self.P = num_pages
+        self.pages_per_chip = num_pages // self.chips
         self.device = resolve_device(device)
         self.dtype = dtype                  # the compute dtype
         self.kv_dtype = kv_dtype
         self.quantized = kv_dtype == "int8"
         self.prefix_sharing = prefix_sharing
-        shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+        # this rank's shard of the pages and its sink page, or all of them
+        local_pages = (self.pages_per_chip + 1 if pool_group is not None
+                       else num_pages)
+        shape = (cfg.num_layers, local_pages, page_size, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         pool_dtype = torch.int8 if self.quantized else dtype
         layers = {name: torch.zeros(shape, dtype=pool_dtype,
@@ -141,8 +172,11 @@ class PagedCache:
         self.state = {"layers": layers}
         self.page_table = np.zeros((batch, self.max_pages), np.int32)
         self._page_table_dev: Optional[torch.Tensor] = None
-        # free stack: pop() hands out the lowest id; scratch 0 never listed
-        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        # per-chip free stacks, pop() handing out the chip's lowest id;
+        # scratch 0 (chip 0) never listed
+        self._free_chip: List[List[int]] = [
+            [pid for pid in reversed(chip_page_range(c, self.pages_per_chip))
+             if pid != 0] for c in range(self.chips)]
         self._ref = np.zeros(num_pages, np.int32)
         self._hash_to_page: Dict[bytes, int] = {}
         self._page_to_hash: Dict[int, bytes] = {}
@@ -157,6 +191,7 @@ class PagedCache:
         return -(-length // self.page)
 
     def usable_pages(self) -> int:
+        """Pages the allocator can ever hand out: the pool minus scratch."""
         return self.P - 1
 
     def can_ever_fit(self, length: int) -> bool:
@@ -164,6 +199,27 @@ class PagedCache:
                 and self.pages_needed(length) <= self.usable_pages())
 
     # ------------------------------------------------------------- alloc ----
+    def _free_count(self) -> int:
+        return sum(len(f) for f in self._free_chip)
+
+    def _take_fresh(self, need: int) -> List[int]:
+        """Pop ``need`` pages, locality-first: from the chip that fits them
+        with the fewest free pages to spare, else across chips from the
+        fullest down.  The caller has checked ``need <= _free_count()``, so
+        placement never decides admission."""
+        fits = [c for c in range(self.chips)
+                if len(self._free_chip[c]) >= need]
+        order = ([min(fits, key=lambda c: (len(self._free_chip[c]), c))]
+                 if fits else
+                 sorted(range(self.chips),
+                        key=lambda c: (-len(self._free_chip[c]), c)))
+        out: List[int] = []
+        for c in order:
+            while self._free_chip[c] and len(out) < need:
+                out.append(self._free_chip[c].pop())
+        assert len(out) == need, (len(out), need)
+        return out
+
     def _banker_items(self):
         """(remaining need, pages freed on completion) per live slot;
         shared pages may outlive the slot, so only refcount-1 pages count."""
@@ -185,7 +241,7 @@ class PagedCache:
     def _grant_safe(self, take: int, remaining: int) -> bool:
         """Would granting ``take`` fresh pages to a new slot that will still
         need ``remaining`` more leave the pool banker-safe?"""
-        free = len(self._free)
+        free = self._free_count()
         if take > free:
             return False
         return self._safe(free - take,
@@ -223,7 +279,7 @@ class PagedCache:
             for pid in shared:
                 self._ref[pid] -= 1
             return None
-        fresh = [self._free.pop() for _ in range(n_pages - len(shared))]
+        fresh = self._take_fresh(n_pages - len(shared))
         for pid in fresh:
             self._ref[pid] = 1
         pages = shared + fresh
@@ -279,12 +335,17 @@ class PagedCache:
         (L, n, Sblk, KV), which land through the same flat rows); dest
         (n, Sblk) flat rows from ``prefill_dest``.  Every scratch-routed
         position writes flat row 0; those duplicate writes race on CUDA,
-        which is harmless because page 0 is never read by a live slot."""
+        which is harmless because page 0 is never read by a live slot.  On
+        a sharded pool each rank writes its own rows and sends the rest to
+        its sink (``pagedkv.sharded_write_prefill``)."""
         pools = self.state["layers"]
         if set(kv_block) != set(pools):
             raise ValueError(f"staged_write_prefill: block holds "
                              f"{sorted(kv_block)}, the pools "
                              f"{sorted(pools)}")
+        if self.pool_group is not None:
+            sharded_write_prefill(self.pool_group, pools, kv_block, dest)
+            return
         idx = dest.reshape(-1).long()
         for name, pool in pools.items():
             small = kv_block[name]
@@ -296,7 +357,9 @@ class PagedCache:
     # ------------------------------------------------------------ decode ----
     def decode_view(self):
         """Pools plus the (B, M) page table on the device; the table's
-        device copy is reused until the next alloc or free."""
+        device copy is reused until the next alloc or free.  Sharded, the
+        pools are this rank's shards with their sink pages and the table
+        holds global ids."""
         if self._page_table_dev is None:
             self._page_table_dev = torch.from_numpy(self.page_table).to(
                 self.device)
@@ -310,7 +373,8 @@ class PagedCache:
                 key = self._page_to_hash.pop(pid, None)
                 if key is not None:
                     del self._hash_to_page[key]
-                self._free.append(pid)
+                self._free_chip[chip_of_page(pid,
+                                             self.pages_per_chip)].append(pid)
         self._slot_pages[slot] = []
         self._slot_shared[slot] = 0
         self._slot_need[slot] = 0
@@ -326,7 +390,7 @@ class PagedCache:
                 raise CacheInvariantError(f"PagedCache.verify: {what}")
 
         owned = [pid for pages in self._slot_pages for pid in pages]
-        free = list(self._free)
+        free = [pid for chip in self._free_chip for pid in chip]
         check(0 not in owned and 0 not in free and self._ref[0] == 0,
               "scratch page 0 handed out, listed free, or refcounted")
         counts = (np.bincount(owned, minlength=self.P) if owned
@@ -337,6 +401,10 @@ class PagedCache:
         check(set(free).isdisjoint(owned), "page both free and owned")
         check(set(free) | set(owned) == set(range(1, self.P)),
               "free and owned pages do not partition the pool")
+        for c, chip in enumerate(self._free_chip):
+            check(all(chip_of_page(pid, self.pages_per_chip) == c
+                      for pid in chip),
+                  f"page filed under wrong chip's free list ({c})")
         for s in range(self.B):
             pages = self._slot_pages[s]
             row = self.page_table[s]
@@ -356,10 +424,13 @@ class PagedCache:
         st = self.memory_stats()
         pb = page_kv_bytes(self.cfg, self.page, self.dtype, self.kv_dtype)
         pools = self.state["layers"].values()
-        check(st.pages_in_use == st.pages_total - len(free)
+        pinned = (st.bytes_total if self.pool_group is None
+                  else st.bytes_per_chip + st.bytes_sink_per_chip)
+        check(st.pages_total == self.usable_pages()
+              and st.pages_in_use == st.pages_total - len(free)
               and st.bytes_reserved == st.pages_in_use * pb
               and st.bytes_total == self.P * pb
-              == sum(t.numel() * t.element_size() for t in pools),
+              and pinned == sum(t.numel() * t.element_size() for t in pools),
               "memory_stats byte math inconsistent")
         check(self._safe(len(free), self._banker_items()),
               "pool not banker-safe (a live slot can never complete)")
@@ -367,7 +438,7 @@ class PagedCache:
     def memory_stats(self) -> MemoryStats:
         pb = page_kv_bytes(self.cfg, self.page, self.dtype, self.kv_dtype)
         usable = self.usable_pages()
-        in_use = usable - len(self._free)
+        in_use = usable - self._free_count()
         scale_b = (self.P * self.page * 2 * self.cfg.num_layers
                    * self.cfg.num_kv_heads * SCALE_BYTES
                    if self.quantized else 0)
@@ -376,4 +447,7 @@ class PagedCache:
             bytes_reserved=in_use * pb,
             page_size=self.page, pages_total=usable, pages_in_use=in_use,
             pages_shared=int((self._ref > 1).sum()), kv_dtype=self.kv_dtype,
-            bytes_scales=scale_b)
+            bytes_scales=scale_b, mesh_chips=self.chips,
+            bytes_per_chip=self.P * pb // self.chips,
+            bytes_scales_per_chip=scale_b // self.chips,
+            bytes_sink_per_chip=pb if self.pool_group is not None else 0)

@@ -111,6 +111,71 @@ def test_paged_decode_int8_kernel_matches_plain(dtype, d, page):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("n", [2, 4])
+def test_paged_decode_partials_kernels_match_plain(dtype, quant, n):
+    """K1's partials mode, native and int8, on each of n shards of one pool
+    (global table, ``page_offset`` = c * P/n): the triple against the plain
+    partials (both fp32 arithmetic on the same inputs: 1e-4 relative), a
+    slot with no live row in a shard exactly (0, 0, -1e30), NaN on every
+    dead page never read, and the merged shards against the normalized
+    K1 on the whole pool."""
+    from repro_torch.kernels.quant import quantize_kv
+    from repro_torch.models.attention import merge_partials_local
+    dev = _card()
+    gen = torch.Generator().manual_seed(3)
+    b, kv, g, d, page, m = 6, 8, 4, 128, 16, 8
+    n_pages = -(-(b * m + 1) // n) * n
+    pn = n_pages // n
+    pos = torch.tensor([3, page - 1, page, 2 * page + 1, m * page - 1, 0],
+                       dtype=torch.int32)
+    table = (torch.randperm(n_pages - 1, generator=gen)[: b * m] + 1)
+    table = table.reshape(b, m).to(torch.int32)
+    table[5] = 0                                  # freed slot
+    k = torch.randn(n_pages, page, kv, d, generator=gen)
+    v = torch.randn(n_pages, page, kv, d, generator=gen)
+    for s in range(b - 1):
+        dead = table[s, pos[s] // page + 1:].long()
+        k[dead] = float("nan")
+        v[dead] = float("nan")
+    q = torch.randn(b, kv, g, d, generator=gen).to(dev, DTYPES[dtype])
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        ks, vs = ks.to(dev), vs.to(dev)
+    else:
+        k, v = k.to(DTYPES[dtype]), v.to(DTYPES[dtype])
+        ks = vs = None
+    k, v, table, pos = (x.to(dev) for x in (k, v, table, pos))
+    fn = (tpd.paged_flash_decode_partials_int8 if quant
+          else tpd.paged_flash_decode_partials)
+    triples = []
+    for c in range(n):
+        sl = slice(c * pn, (c + 1) * pn)
+        shard = [k[sl], v[sl]] + ([ks[sl], vs[sl]] if quant else [])
+        before = fn.launches
+        got = fn(q, *shard, table, pos, c * pn)
+        assert fn.launches == before + 1
+        ref = tpd.paged_decode_ref(q, k[sl], v[sl], table, pos,
+                                   *(shard[2:] or [None, None]),
+                                   page_offset=c * pn, partials=True)
+        for a, r in zip(got, ref):
+            assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+            assert _err(a, r) <= 1e-4 * max(1.0, float(r.abs().max()))
+        empty = ref[2] == -1e30
+        assert bool((got[2][empty] == -1e30).all())
+        assert bool((got[1][empty] == 0).all())
+        assert bool((got[0][empty.unsqueeze(-1).expand_as(got[0])] == 0)
+                    .all())
+        triples.append((got[0][:, None], got[1], got[2]))
+    assert int((torch.stack([t[2] for t in triples]) == -1e30).sum()) > 0
+    merged = merge_partials_local(triples)[:, 0].to(q.dtype)
+    whole = (tpd.paged_flash_decode_int8(q, k, v, ks, vs, table, pos) if quant
+             else tpd.paged_flash_decode(q, k, v, table, pos))
+    assert _err(merged, whole) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s", [16, 200, 512])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(dtype, s, causal):
