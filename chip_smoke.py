@@ -25,8 +25,16 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    and K7 (the RWKV6 WKV recurrence) at the eval shapes of zamba2-1.2b and
    rwkv6-1.6b (B=4, S=2048) and at a ragged S=2000, fp32 and bf16, on
    inputs shaped as the models make them (no PyTorch call computes either
-   scan, so they have no yardstick);
-4. full-width qwen3-4b in fp32: one batched prefill and 16 decode steps
+   scan, so they have no yardstick); K2 in both modes (bf16 on the tensor
+   cores, fp32 on the CUDA cores) at D 32, 64, 128, G 1 and 4, S 16, 32,
+   64, 128, 200, 256, 512, 2048, causal and not, with the plan's shared
+   memory equal to the kernel's, on the model layout and on strided
+   fused-projection views through ``ops.flash_attention`` (one profiled
+   call must show K2 as its only device kernel), bf16 D=80 refused, and
+   timed at the serve prefill shape, at zamba2-1.2b's shared attention
+   block (B=4, H=KV=32, S=2048, D=64) and, fp32, at phase 4's prefill;
+4. full-width qwen3-4b in fp32: one batched prefill (exactly 36 launches
+   of K2's fp32 mode on the kernel path) and 16 decode steps
    through the kernels and through the plain path (dense prefill, gathered
    decode, plain RMSNorm), over native pages and over int8 pages; on each
    page format logits agree to a relative max error of 1e-3 and greedy
@@ -39,7 +47,8 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    iteration, and the kernel launch counts match the decode steps, prefill
    dispatches and norms of that run (the int8 run launches K1's int8 mode,
    never the native one); the pools' bytes from ``memory_stats()`` and as
-   allocated on the card; one fused decode step of each run profiled;
+   allocated on the card; one fused decode step of each run, and one
+   prefill forward of 8 prompts of bucket 256, profiled;
 6. training parity: full-width qwen3-4b cut to 2 layers, fp32, two train
    steps through K4 and K5 and through their plain versions; loss,
    grad_norm and every parameter agree to a relative max error of 1e-3;
@@ -350,51 +359,149 @@ def check_k1_int8(report):
         bound_by=by, library_ms=lib_ms)
 
 
-def check_k2(report):
-    from repro_torch.kernels import flash_attention as fa
-    gen = torch.Generator().manual_seed(2)
-    kv, g, d = 8, 4, 128
-    for dtype in (torch.float32, torch.bfloat16):
-        for s in (16, 32, 64, 128, 256, 512, 200):
-            for causal in (True, False):
-                n = 2
-                q = torch.randn(n * kv * g, s, d, generator=gen)
-                k = torch.randn(n * kv, s, d, generator=gen)
-                v = torch.randn(n * kv, s, d, generator=gen)
-                q, k, v = (t.to(DEV, dtype) for t in (q, k, v))
-                out = fa.flash_attention_bhsd(q, k, v, causal=causal)
-                ref = fa.flash_attention_ref(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                err = max_err(out, ref)
-                ok = bool(torch.isfinite(out.float()).all()) \
-                    and err <= TOL[dtype]
-                log(f"K2 flash_attention {str(dtype)[6:]:8s} S={s:3d} "
-                    f"causal={causal!s:5s}: max_abs_err {err:.3e}")
-                assert ok, "K2 disagrees with its plain version"
-    # timing at the largest serve prefill bucket: 8 prompts of bucket 256
-    n, s = 8, 256
-    q = torch.randn(n * kv * g, s, d, generator=gen).to(DEV, torch.bfloat16)
-    k = torch.randn(n * kv, s, d, generator=gen).to(DEV, torch.bfloat16)
-    v = torch.randn(n * kv, s, d, generator=gen).to(DEV, torch.bfloat16)
-    err = max_err(fa.flash_attention_bhsd(q, k, v),
-                  fa.flash_attention_ref(q, k, v))
-    ms = time_ms(lambda: fa.flash_attention_bhsd(q, k, v))
-    host_ms = eager_ms(lambda: fa.flash_attention_bhsd(q, k, v))
-    plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v))
-    qh = q.reshape(n, kv * g, s, d)
-    kh, vh = k.reshape(n, kv, s, d), v.reshape(n, kv, s, d)
+def k2_case(fa, dtype, n, kv, g, s, d, causal, gen):
+    q = torch.randn(n * kv * g, s, d, device=DEV, generator=gen).to(dtype)
+    k = torch.randn(n * kv, s, d, device=DEV, generator=gen).to(dtype)
+    v = torch.randn(n * kv, s, d, device=DEV, generator=gen).to(dtype)
+    out = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    ref = fa.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    assert bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype], \
+        (f"K2 {dtype} D={d} G={g} S={s} causal={causal} disagrees with its "
+         f"plain version: max_abs_err {err:.3e}")
+    return err
+
+
+def model_layout(b, s, kv, g, d, dtype, gen, fused=False):
+    """q (B, S, KV, G, D), k, v (B, S, KV, D); with ``fused``, strided
+    slices of one (B, S, (KV*G + 2 KV) * D) projection."""
+    if fused:
+        qkv = torch.randn(b, s, (kv * g + 2 * kv) * d, device=DEV,
+                          generator=gen).to(dtype)
+        return (qkv[..., :kv * g * d].unflatten(-1, (kv, g, d)),
+                qkv[..., kv * g * d:(kv * g + kv) * d].unflatten(-1, (kv, d)),
+                qkv[..., (kv * g + kv) * d:].unflatten(-1, (kv, d)))
+    return (torch.randn(b, s, kv, g, d, device=DEV, generator=gen).to(dtype),
+            torch.randn(b, s, kv, d, device=DEV, generator=gen).to(dtype),
+            torch.randn(b, s, kv, d, device=DEV, generator=gen).to(dtype))
+
+
+def model_ref(fa, q, k, v, causal=True):
+    b, s, kv, g, d = q.shape
+    o = fa.flash_attention_ref(
+        q.permute(0, 2, 3, 1, 4).reshape(b * kv * g, s, d),
+        k.permute(0, 2, 1, 3).reshape(b * kv, s, d),
+        v.permute(0, 2, 1, 3).reshape(b * kv, s, d), causal=causal)
+    return o.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)
+
+
+def time_k2(fa, what, b, s, kv, g, d, dtype, gen):
+    """K2 on the model layout (as ops.flash_attention launches it), its
+    plain version, SDPA on contiguous (B, H, S, D) copies, and the bound
+    from shapes, causal; returns the report entry."""
+    from repro_torch.kernels import ops
+    q, k, v = model_layout(b, s, kv, g, d, dtype, gen)
+    err = max_err(ops.flash_attention(q, k, v), model_ref(fa, q, k, v))
+    ms = time_ms(lambda: ops.flash_attention(q, k, v))
+    host_ms = eager_ms(lambda: ops.flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: model_ref(fa, q, k, v))
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, kv * g, s, d).contiguous()
+    kh = k.permute(0, 2, 1, 3).contiguous()
+    vh = v.permute(0, 2, 1, 3).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
-                                  enable_gqa=True))
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-    flops = 4 * n * kv * g * d * (s * (s + 1) // 2)
-    bms, by = bound(nbytes, flops, torch.bfloat16)
-    log(f"K2 timing bf16 causal n=8 H=32 KV=8 S=256 D=128: kernel {ms:.4f} "
-        f"ms (eager back-to-back {host_ms:.4f} ms), plain {plain_ms:.4f} "
-        f"ms, SDPA {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
-    report["flash_attention_bhsd"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms)
+                                  enable_gqa=g > 1))
+    size = q.element_size()
+    nbytes = size * (2 * q.numel() + 2 * k.numel())
+    flops = 4 * b * kv * g * d * (s * (s + 1) // 2)
+    bms, by = bound(nbytes, flops, dtype)
+    log(f"K2 timing {what}: {str(dtype)[6:]} causal B={b} H={kv * g} "
+        f"KV={kv} S={s} D={d}: kernel {ms:.4f} ms (eager back-to-back "
+        f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+        f"bound {bms:.5f} ms ({by}; {nbytes} B, {flops} flop), "
+        f"max_abs_err {err:.3e} [{nvidia_smi_line()}]")
+    assert err <= TOL[dtype], "K2 disagrees with its plain version"
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def check_k2(report):
+    """K2's two modes against the plain version: bf16 (tensor cores) and
+    fp32 (CUDA cores), D 32, 64, 128, G 1 and 4, S 16, 32, 64, 128, 200,
+    256, 512, 2048, causal and not; model-layout and strided (fused projection) inputs
+    through ops.flash_attention, which must launch the one kernel and no
+    copy; bf16 D = 80 refused; times at the serve prefill shape, at
+    zamba2-1.2b's shared attention block and (fp32) at phase 4's prefill."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (32, 64, 128):
+            for g in (1, 4):
+                worst, cases = 0.0, 0
+                for s in (16, 32, 64, 128, 200, 256, 512, 2048):
+                    for causal in (True, False):
+                        worst = max(worst, k2_case(fa, dtype, 2, 8, g, s, d,
+                                                   causal, gen))
+                        cases += 1
+                log(f"K2 flash_attention {str(dtype)[6:]:8s} D={d:3d} G={g}: "
+                    f"{cases} cases (S 16 to 2048; causal and not), worst "
+                    f"max_abs_err {worst:.3e} (limit {TOL[dtype]:g})")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, g in ((64, 1), (128, 4)):
+            q, k, v = model_layout(2, 200, 8, g, d, dtype, gen, fused=True)
+            before = ops.launch_counts()
+            out = ops.flash_attention(q, k, v)
+            after = ops.launch_counts()
+            mode = ("flash_attention_bhsd" if dtype == torch.bfloat16
+                    else "flash_attention_bhsd_fp32")
+            assert after[mode] == before[mode] + 1 and \
+                sum(after.values()) == sum(before.values()) + 1
+            err = max_err(out, model_ref(fa, q, k, v))
+            log(f"K2 model layout, strided fused-projection views "
+                f"{str(dtype)[6:]} D={d} G={g} S=200: max_abs_err {err:.3e}, "
+                f"out contiguous {out.is_contiguous()}")
+            assert out.is_contiguous() and err <= TOL[dtype]
+    from repro_torch.kernels import _build
+    for dtype, mode in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for d in (32, 64, 128):
+            built = _build.entry("flash_attention_smem_bytes")(
+                fa._DTYPES[dtype], d)
+            plan = fa.smem_bytes(mode, d)
+            assert built == plan <= fa.SMEM_LIMIT, \
+                (f"K2 {mode} D={d}: the kernel requests {built} B of shared "
+                 f"memory, the plan (and its CPU tests) {plan}")
+    log("K2 shared memory per launch, the plan's figures equal the kernel's: "
+        + ", ".join(f"{m} D={d} {fa.smem_bytes(m, d)} B" for m in ("bf16",
+                                                                    "fp32")
+                    for d in (32, 64, 128)))
+    q = torch.zeros(8, 64, 80, device=DEV, dtype=torch.bfloat16)
+    before = ops.launch_counts()
+    try:
+        fa.flash_attention_bhsd(q, q[:2], q[:2])
+        raise AssertionError("K2 took a bf16 head dim of 80")
+    except ValueError as e:
+        log(f"K2 bf16 D=80 refused: {e}")
+    assert ops.launch_counts() == before
+    # the model path's launch is the kernel alone: no permute or copy of
+    # q, k, v or the output around it
+    q, k, v = model_layout(8, 256, 8, 4, 128, torch.bfloat16, gen)
+    ops.flash_attention(q, k, v)
+    rows, _ = profiled_kernels(lambda: ops.flash_attention(q, k, v))
+    log(f"K2 profiled ops.flash_attention on the model layout (8, 256, 8, "
+        f"4, 128) bf16: device kernels {[(n[:60], c) for n, _, c in rows]}")
+    assert len(rows) == 1 and "flash_attention_wgmma" in rows[0][0], \
+        "ops.flash_attention launched more than K2"
+    report["flash_attention_bhsd"] = time_k2(
+        fa, "serve prefill (8 prompts of bucket 256)", 8, 256, 8, 4, 128,
+        torch.bfloat16, gen)
+    report["flash_attention_bhsd_zamba2"] = time_k2(
+        fa, "zamba2-1.2b shared attention block", 4, 2048, 32, 1, 64,
+        torch.bfloat16, gen)
+    report["flash_attention_bhsd_fp32"] = time_k2(
+        fa, "phase 4's fp32 prefill (4 prompts of bucket 128)", 4, 128, 8, 4,
+        128, torch.float32, gen)
 
 
 def check_k3(report):
@@ -675,9 +782,10 @@ def check_k7(report):
 
 # ------------------------------------------------------------- phase 4 ----
 
-def model_check():
+def model_check(report):
     import dataclasses
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models import ForwardOpts, LM
     from repro_torch.serve.kvcache import PagedCache
     cfg = dataclasses.replace(get_config("qwen3-4b"), dtype="float32")
@@ -704,7 +812,19 @@ def model_check():
     tok_dev = torch.as_tensor(tokens, device=DEV)
     last = torch.as_tensor(np.array(lens) - 1, device=DEV)
     for oname, o in opts.items():
+        ops.reset_launch_counts()
         lg, cache = lm.forward(params, tok_dev, o, collect_cache=True)
+        torch.cuda.synchronize()
+        k2 = {m: ops.launch_counts()[m] for m in ("flash_attention_bhsd",
+                                                  "flash_attention_bhsd_fp32")}
+        want = {"flash_attention_bhsd": 0, "flash_attention_bhsd_fp32":
+                cfg.num_layers if oname == "kernel" else 0}
+        log(f"fp32 {oname}-path prefill: K2 launches by mode {k2}, expected "
+            f"{want}")
+        assert k2 == want, "the fp32 prefill did not run K2's fp32 mode"
+        if oname == "kernel":
+            report["flash_attention_bhsd_fp32"]["launches"] = \
+                k2["flash_attention_bhsd_fp32"]
         for name, (pre, _, _, kv_dtype) in paths.items():
             if pre != oname:
                 continue
@@ -918,6 +1038,17 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
             profile_call(f"{tag} fused decode step (B=8)", step, top=6)
         else:
             step()
+        if profile and label == "native":
+            # one prefill forward of the largest bucket, 8 prompts of 256:
+            # K2 runs on the model layout, with no copy of q, k, v or out
+            toks = torch.as_tensor(np.stack([
+                np.resize(p, 256) for p in prompts[:8]]), device=DEV)
+
+            def prefill():
+                with torch.no_grad():
+                    lm.forward(params, toks, collect_cache=True)
+
+            profile_call(f"{tag} prefill forward (8 x 256)", prefill, top=8)
         out[label] = dict(
             streams={r.id: r.out_tokens for r in done}, launches=launches,
             per_chip=per_chip, pool_tensor_bytes=sum(
@@ -1154,7 +1285,8 @@ def train_run(report, steps: int = 10):
 
 
 KERNEL_GROUPS = (("K1 paged_decode", ("paged_decode_kernel",)),
-                 ("K2 flash_attention", ("flash_attention_kernel",)),
+                 ("K2 flash_attention", ("flash_attention_wgmma",
+                                         "flash_attention_fp32")),
                  ("K3 rmsnorm", ("rmsnorm",)),
                  ("K4 softmax_xent", ("softmax_xent",)),
                  ("K5 adamw", ("adamw_kernel",)),
@@ -1169,11 +1301,9 @@ KERNEL_GROUPS = (("K1 paged_decode", ("paged_decode_kernel",)),
                                              "fill")))
 
 
-def profile_call(what: str, fn, top: int = 10) -> None:
-    """Where the time of one call of ``fn`` goes: device time by kernel
-    group (torch.profiler, CUPTI), the number of kernels it launched, the
-    device's busy and idle share of the call's wall time, and the largest
-    kernels.  It runs after a counted run; its launches are not counted."""
+def profiled_kernels(fn):
+    """One call of ``fn`` under torch.profiler (CUPTI): its device kernels
+    as (name, ms, count) rows, and the call's wall ms."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1183,10 +1313,18 @@ def profile_call(what: str, fn, top: int = 10) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernel rows only: an operator's row repeats its kernels' time
-    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+    return [(ev.key, ev.self_device_time_total / 1e3, ev.count)
             for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.self_device_time_total > 0]
+            and ev.self_device_time_total > 0], wall_ms
+
+
+def profile_call(what: str, fn, top: int = 10) -> None:
+    """Where the time of one call of ``fn`` goes: device time by kernel
+    group (torch.profiler, CUPTI), the number of kernels it launched, the
+    device's busy and idle share of the call's wall time, and the largest
+    kernels.  It runs after a counted run; its launches are not counted."""
+    rows, wall_ms = profiled_kernels(fn)
     busy = sum(ms for _, ms, _ in rows)
     if not busy:
         log(f"profiled {what}: wall {wall_ms:.2f} ms; the profiler "
@@ -1794,8 +1932,8 @@ def main() -> int:
     log(f"nvcc: {sorted(logs) or 'cached'} in {time.perf_counter()-t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "smem",
-                                       "Compiling entry")):
+            if any(w in line for w in ("Used", "spill", "smem",
+                                       "Compiling entry", "Performance")):
                 log(f"  {name}: {line.strip()}")
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
@@ -1822,7 +1960,7 @@ def main() -> int:
 
     phase("4 full-width qwen3-4b fp32: kernel path vs plain path, native "
           "and int8 pages")
-    model_check()
+    model_check(report)
     free()
 
     phase("5 serve full-width qwen3-4b bf16, native and int8 pages")
@@ -1867,6 +2005,9 @@ def main() -> int:
             "flash_attention_bhsd": ("cuda", csrc + "flash_attention.cu",
                                      "src/repro/kernels/"
                                      "flash_attention.py:60"),
+            "flash_attention_bhsd_fp32": ("cuda", csrc + "flash_attention.cu",
+                                          "src/repro/kernels/"
+                                          "flash_attention.py:60"),
             "rmsnorm_rows": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                              "src/repro/kernels/rmsnorm.py:19"),
             "softmax_xent_fwd": ("cuda", csrc + "softmax_xent.cu",

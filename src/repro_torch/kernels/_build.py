@@ -28,14 +28,15 @@ SOURCES = ("paged_decode", "flash_attention", "softmax_xent", "mamba2_ssd",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C entry points: name -> (library, argument types).  Every entry returns
-# the cudaError_t of its launch (0 = success).
+# C entry points: name -> (library, argument types).  Every launch entry
+# returns the cudaError_t of its launch (0 = success).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
     "paged_decode_launch": ("paged_decode",
                             [_I] * 3 + [_P] * 11 + [_I] * 8 + [_P]),
     "flash_attention_launch": ("flash_attention",
-                               [_I] + [_P] * 4 + [_I] * 5 + [_P]),
+                               [_I] + [_P] * 4 + [_I] * 6 + [_P] * 2),
+    "flash_attention_smem_bytes": ("flash_attention", [_I] * 2),
     "softmax_xent_fwd_launch": ("softmax_xent",
                                 [_I] + [_P] * 4 + [_I] * 3 + [_P]),
     "softmax_xent_bwd_launch": ("softmax_xent",

@@ -1,18 +1,23 @@
 """Model-layout wrappers around the port's kernels, and their launch counts.
 
-Model code calls these; each reshapes to its kernel's layout and back.  On a
+Model code calls these; each reshapes to its kernel's layout and back
+(K2 reads and writes the model layout itself, through strides).  On a
 CPU tensor the kernel module runs its plain version, on a CUDA tensor it
 launches the kernel (``repro_torch.kernels.{flash_attention,paged_decode,
 rmsnorm,softmax_xent,adamw_update,mamba2_ssd,rwkv6_wkv}``).  ``launch_counts()`` reads how often
 each kernel was launched; a launch is counted only where a kernel actually
-runs, never for a plain version.
+runs, never for a plain version.  K2 counts its two modes apart:
+``flash_attention_bhsd`` (bf16, tensor cores) and ``flash_attention_bhsd_fp32``
+(fp32, CUDA cores).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.kernels.adamw_update import adamw_fused
-from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                 flash_attention_model,
+                                                 fp32_mode)
 from repro_torch.kernels.mamba2_ssd import ssd_scan_bhsd
 from repro_torch.kernels.paged_decode import (
     paged_flash_decode, paged_flash_decode_int8, paged_flash_decode_partials,
@@ -28,6 +33,7 @@ KERNELS = {"paged_flash_decode": paged_flash_decode,
            "paged_flash_decode_partials_int8":
                paged_flash_decode_partials_int8,
            "flash_attention_bhsd": flash_attention_bhsd,
+           "flash_attention_bhsd_fp32": fp32_mode,
            "rmsnorm_rows": rmsnorm_rows,
            "softmax_xent_fwd": softmax_xent_fwd,
            "softmax_xent_bwd": softmax_xent_bwd,
@@ -45,14 +51,10 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q: (B, S, KV, G, D); k, v: (B, S, KV, D).  Returns (B, S, KV, G, D)."""
-    b, s, kv, g, d = q.shape
-    q2 = q.permute(0, 2, 3, 1, 4).reshape(b * kv * g, s, d)
-    k2 = k.permute(0, 2, 1, 3).reshape(b * kv, s, d)
-    v2 = v.permute(0, 2, 1, 3).reshape(b * kv, s, d)
-    o = flash_attention_bhsd(q2, k2, v2, causal=causal)
-    return o.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)
+# q (B, S, KV, G, D); k, v (B, S, KV, D) -> (B, S, KV, G, D), contiguous on
+# the card, so ``output_proj`` reshapes it as a view: K2 takes the model
+# layout as it is
+flash_attention = flash_attention_model
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, positions,

@@ -189,6 +189,75 @@ def test_flash_attention_kernel_matches_plain(dtype, s, causal):
         <= TOL[dtype]
 
 
+def _k2_launches():
+    return tfa.flash_attention_bhsd.launches, tfa.fp32_mode.launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("s,causal", [(16, True), (200, True), (256, False),
+                                      (2048, True)])
+def test_flash_attention_kernel_head_dims_and_groups(dtype, d, g, s, causal):
+    """Each bf16 instantiation (D = 32, 64, 128) and the fp32 mode, with
+    and without GQA, ragged and long S; each launch counts in its mode."""
+    dev = _card()
+    td, kv = DTYPES[dtype], 2
+    q = torch.randn(2 * kv * g, s, d, device=dev).to(td)
+    k = torch.randn(2 * kv, s, d, device=dev).to(td)
+    v = torch.randn(2 * kv, s, d, device=dev).to(td)
+    bf16, fp32 = _k2_launches()
+    got = tfa.flash_attention_bhsd(q, k, v, causal=causal)
+    assert _k2_launches() == ((bf16 + 1, fp32) if dtype == "bfloat16"
+                              else (bf16, fp32 + 1))
+    assert bool(torch.isfinite(got.float()).all())
+    assert _err(got, tfa.flash_attention_ref(q, k, v, causal=causal)) \
+        <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,g", [(64, 1), (128, 4)])
+def test_flash_attention_model_layout_strided(dtype, d, g):
+    """ops.flash_attention on q, k, v sliced out of one fused projection
+    (strided views of the model layout): one launch, no copy, and a
+    contiguous (B, S, KV, G, D) output equal to the plain version's."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    b, s, kv = 2, 200, 2
+    qkv = torch.randn(b, s, (kv * g + 2 * kv) * d, device=dev).to(
+        DTYPES[dtype])
+    q = qkv[..., :kv * g * d].unflatten(-1, (kv, g, d))
+    k = qkv[..., kv * g * d:(kv * g + kv) * d].unflatten(-1, (kv, d))
+    v = qkv[..., (kv * g + kv) * d:].unflatten(-1, (kv, d))
+    before = sum(_k2_launches())
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert sum(_k2_launches()) == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    ref = tfa.flash_attention_ref(
+        q.permute(0, 2, 3, 1, 4).reshape(b * kv * g, s, d),
+        k.permute(0, 2, 1, 3).reshape(b * kv, s, d),
+        v.permute(0, 2, 1, 3).reshape(b * kv, s, d))
+    assert _err(got, ref.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)) \
+        <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_bf16_head_dim_80():
+    """The tensor-core mode is instantiated for D = 32, 64, 128: D = 80 in
+    bf16 raises and launches nothing (fp32 takes any D that fits)."""
+    dev = _card()
+    q = torch.randn(8, 64, 80, device=dev)
+    k = torch.randn(2, 64, 80, device=dev)
+    before = _k2_launches()
+    with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
+        tfa.flash_attention_bhsd(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    assert _k2_launches() == before
+    got = tfa.flash_attention_bhsd(q, k, k)
+    assert _err(got, tfa.flash_attention_ref(q, k, k)) <= TOL["float32"]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,d", [(8, 2560), (256, 128)])

@@ -50,6 +50,7 @@ def _np(x):
     (2, 256, 2, 3, 64, 128, 64),
     (1, 128, 4, 2, 128, 32, 128),
     (2, 64, 1, 8, 32, 64, 32),
+    (1, 128, 2, 4, 128, 64, 64),       # qwen3-4b's D and G
 ])
 def test_flash_attention_matches_pallas_and_ref(b, s, kv, g, d, bq, bk,
                                                 dtype):
