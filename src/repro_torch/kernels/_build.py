@@ -41,7 +41,10 @@ ENTRIES = {
                                 [_I] + [_P] * 4 + [_I] * 3 + [_P]),
     "softmax_xent_bwd_launch": ("softmax_xent",
                                 [_I] + [_P] * 6 + [_I] * 3 + [_P]),
-    "mamba2_ssd_launch": ("mamba2_ssd", [_I] + [_P] * 5 + [_I] * 5 + [_P]),
+    "mamba2_ssd_launch": ("mamba2_ssd",
+                          [_I] + [_P] * 5 + [_I] * 5 + [_P] * 2),
+    "mamba2_ssd_smem_bytes": ("mamba2_ssd", [_I] * 3),
+    "mamba2_ssd_blocks_per_sm": ("mamba2_ssd", []),
     "rwkv6_wkv_launch": ("rwkv6_wkv", [_I] + [_P] * 6 + [_I] * 6 + [_P]),
 }
 
@@ -67,7 +70,8 @@ def library_path(name: str) -> Path:
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     """Compile every library of ``names`` that is not built yet, all at
     once.  Returns the compiler output (``-Xptxas -v``: registers, shared
-    memory, spills) of each library built by this call."""
+    memory, spills) of each library built by this call; it is also kept
+    beside the library (``compiler_log``)."""
     BUILD.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
@@ -85,12 +89,20 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     for name, (proc, tmp, out) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
         else:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{logs[name]}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def compiler_log(name: str) -> str:
+    """The compiler output kept when library ``name`` was built ("" if
+    it is not built)."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def entry(symbol: str):

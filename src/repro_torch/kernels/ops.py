@@ -1,8 +1,8 @@
 """Model-layout wrappers around the port's kernels, and their launch counts.
 
 Model code calls these; each reshapes to its kernel's layout and back
-(K2 reads and writes the model layout itself, through strides).  On a
-CPU tensor the kernel module runs its plain version, on a CUDA tensor it
+(K2 and K6 read and write the model layout themselves, through strides).
+On a CPU tensor the kernel module runs its plain version, on a CUDA tensor it
 launches the kernel (``repro_torch.kernels.{flash_attention,paged_decode,
 rmsnorm,softmax_xent,adamw_update,mamba2_ssd,rwkv6_wkv}``).  ``launch_counts()`` reads how often
 each kernel was launched; a launch is counted only where a kernel actually
@@ -18,7 +18,7 @@ from repro_torch.kernels.adamw_update import adamw_fused
 from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                  flash_attention_model,
                                                  fp32_mode)
-from repro_torch.kernels.mamba2_ssd import ssd_scan_bhsd
+from repro_torch.kernels.mamba2_ssd import ssd_scan_bhsd, ssd_scan_model
 from repro_torch.kernels.paged_decode import (
     paged_flash_decode, paged_flash_decode_int8, paged_flash_decode_partials,
     paged_flash_decode_partials_int8)
@@ -114,14 +114,11 @@ def softmax_xent(logits, labels, vocab: int):
     return nll.reshape(lead), lse.reshape(lead)
 
 
-def mamba2_ssd(x, da, b, c, *, chunk: int = 128):
-    """Model layout: x (B, S, H, P) pre-scaled by dt; da (B, S, H) fp32;
-    b, c (B, S, N).  Returns (B, S, H, P) like x."""
-    bb, s, h, p = x.shape
-    x2 = x.permute(0, 2, 1, 3).reshape(bb * h, s, p)
-    da2 = da.permute(0, 2, 1).reshape(bb * h, s)
-    o = ssd_scan_bhsd(x2, da2, b, c, chunk=chunk)
-    return o.reshape(bb, h, s, p).permute(0, 2, 1, 3)
+# x (B, S, H, P) pre-scaled by dt; da (B, S, H) fp32; b, c (B, S, N) ->
+# (B, S, H, P), contiguous on the card, so ``mamba_block`` reshapes it as a
+# view: K6 takes the model layout as it is.  Both of K6's modes count in
+# ``ssd_scan_bhsd``.
+mamba2_ssd = ssd_scan_model
 
 
 def rwkv6_wkv(r, k, v, lw, u, *, chunk: int = 32):

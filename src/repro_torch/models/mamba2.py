@@ -5,8 +5,13 @@ The SSD scan runs ``impl="kernel"`` (K6; its plain version on CPU tensors)
 or ``"plain"``: ``ssd_chunked``, the JAX model's chunked form, which rounds
 the intra-chunk mixing matrix, the decays and the chunk start states to the
 model dtype where JAX does.  In bf16 the two are therefore different
-functions, as JAX's ``"pallas"`` and ``"xla"`` paths are: K6 keeps every
-intermediate in fp32, as the TPU kernel does.  The depthwise conv is
+functions, as JAX's ``"pallas"`` and ``"xla"`` paths are: the TPU kernel
+keeps every intermediate in fp32, and K6's bf16 mode rounds three of them
+(the decayed scores, the state as an operand of C S^T, X o w) to bf16 for
+the tensor cores, which moves the fp32 scan's output by ~7e-3 at zamba2's
+eval shape before its own rounding (``kernels/mamba2_ssd.py``).  K6
+returns Y in the model layout, contiguous on the card, so the reshape
+after it is a view.  The depthwise conv is
 shift-and-add in the model dtype, as in JAX (an fp32 ``F.conv1d`` on the
 card would go through cuDNN in TF32).
 """

@@ -468,6 +468,158 @@ def test_ssd_scan_kernel_matches_plain(b, s, h, p, n, chunk, dtype):
     assert _err(got, ref) <= TOL[dtype]
 
 
+def _ssd_model_inputs(b, s, h, p, n, td, dev):
+    """The model layout x (B, S, H, P), da (B, S, H), b, c (B, S, N), shaped
+    as the Mamba2 block makes them (see the sweep above)."""
+    dt = torch.empty(b, s, h, device=dev).uniform_(-6.9, -2.3).exp()
+    a = torch.empty(h, device=dev).uniform_(1.0, 16.0)
+    x = (torch.randn(b, s, h, p, device=dev) * dt[..., None]).to(td)
+    bm, cm = (0.5 * torch.randn(b, s, n, device=dev).to(td)
+              for _ in range(2))
+    return x, -dt * a, bm, cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [2048, 2000])
+def test_ssd_scan_model_layout_matches_plain(s, dtype):
+    """``ops.mamba2_ssd`` on the model layout at zamba2-1.2b's shape (B=4,
+    H=64, P=N=64) and at a ragged S: one K6 launch, y (B, S, H, P)
+    contiguous, against the plain version on the permuted views."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    td = DTYPES[dtype]
+    b, h, p, n = 4, 64, 64, 64
+    x, da, bm, cm = _ssd_model_inputs(b, s, h, p, n, td, dev)
+    before = tssd.ssd_scan_bhsd.launches
+    with torch.no_grad():
+        got = ops.mamba2_ssd(x, da, bm, cm, chunk=256)
+    assert tssd.ssd_scan_bhsd.launches == before + 1
+    assert got.shape == (b, s, h, p) and got.is_contiguous()
+    assert got.dtype == td and bool(torch.isfinite(got.float()).all())
+    ref = tssd.ssd_scan_ref(x.permute(0, 2, 1, 3).reshape(b * h, s, p),
+                            da.permute(0, 2, 1).reshape(b * h, s), bm, cm,
+                            chunk=256).reshape(b, h, s, p).permute(0, 2, 1, 3)
+    assert float(ref.float().abs().max()) < 4
+    assert _err(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [2048, 2000])
+def test_ssd_scan_bf16_rounds_where_its_note_says(s):
+    """At zamba2-1.2b's shape the bf16 mode's y equals ``ssd_scan_mma_emu``
+    (the rounding points its source names, emulated in fp32) rounded to
+    bf16 in at least 99.9% of the elements, and that emulation is within
+    the 1e-2 of the all-fp32 plain version the source states: the kernel
+    rounds there and nowhere else.  Where the two differ, the kernel's fp32
+    arithmetic, in another order, has flipped one of those roundings; an
+    emulation with one rounding point more (C o e^cs) or one fewer (G, S or
+    X o w) matches in at most 92% of the elements at this shape
+    (``tools/k6_rounding.py``)."""
+    dev = _card()
+    b, h, p, n = 4, 64, 64, 64
+    x, da, bm, cm = _ssd_model_inputs(b, s, h, p, n, torch.bfloat16, dev)
+    with torch.no_grad():
+        got = tssd.ssd_scan_model(x, da, bm, cm)
+    xb = x.permute(0, 2, 1, 3).reshape(b * h, s, p)
+    dab = da.permute(0, 2, 1).reshape(b * h, s)
+    emu = tssd.ssd_scan_mma_emu(xb, dab, bm, cm)
+    got = got.permute(0, 2, 1, 3).reshape(b * h, s, p)
+    same = float((got == emu.to(torch.bfloat16)).float().mean())
+    assert same >= 0.999, same
+    ref = tssd.ssd_scan_ref(xb.float(), dab, bm.float(), cm.float(),
+                            chunk=256)
+    assert _err(emu, ref) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_ssd_scan_fp32_takes_unaligned_layouts():
+    """The fp32 mode reads scalars: P and N that are not multiples of 4, a
+    step stride of 52 bytes and a base off a 16-byte boundary launch as
+    they are and match the plain version."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    b, s, h, p, n = 2, 200, 3, 13, 6
+    x, da, bm, cm = _ssd_model_inputs(b, s, h, p, n, torch.float32, dev)
+    wide = torch.zeros(b, s, h, p + 1, device=dev)
+    wide[..., :p] = x
+    flat = torch.zeros(b * s * n + 1, device=dev)
+    flat[1:] = bm.flatten()
+    shifted = flat[1:].view(b, s, n)
+    before = tssd.ssd_scan_bhsd.launches
+    with torch.no_grad():
+        got = ops.mamba2_ssd(wide[..., :p], da, shifted, cm, chunk=64)
+    assert tssd.ssd_scan_bhsd.launches == before + 1
+    ref = tssd.ssd_scan_ref(x.permute(0, 2, 1, 3).reshape(b * h, s, p),
+                            da.permute(0, 2, 1).reshape(b * h, s), bm, cm,
+                            chunk=64).reshape(b, h, s, p).permute(0, 2, 1, 3)
+    assert _err(got, ref) <= TOL["float32"]
+
+
+@pytest.mark.gpu
+def test_ssd_scan_model_layout_launches_only_k6():
+    """One profiled ``ops.mamba2_ssd`` on the model layout runs K6's device
+    kernel and nothing else: no permute, copy or contiguous kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    dev = _card()
+    x, da, bm, cm = _ssd_model_inputs(4, 2048, 64, 64, 64, torch.bfloat16,
+                                      dev)
+    ops.mamba2_ssd(x, da, bm, cm)       # build and warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.mamba2_ssd(x, da, bm, cm)
+        torch.cuda.synchronize()
+    names = {ev.key for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and ev.self_device_time_total > 0}
+    assert names and all("ssd_scan_mma_kernel" in k for k in names), names
+
+
+@pytest.mark.gpu
+def test_ssd_plan_matches_the_kernel():
+    """The plan's shared memory is the C entry's for both modes, and the
+    two blocks an SM its note claims for the bf16 mode are what the
+    occupancy API grants after a launch."""
+    from repro_torch.kernels import _build
+    dev = _card()
+    smem = _build.entry("mamba2_ssd_smem_bytes")
+    for dtype, mode in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for p, n in ((16, 8), (64, 64), (32, 16)):
+            x, da, bm, cm = _ssd_model_inputs(1, 64, 2, p, n, dtype, dev)
+            pl = tssd.plan(x, da, bm, cm, torch.empty_like(x))
+            assert pl.smem == smem(tssd._DTYPES[dtype], p, n)
+            tssd.ssd_scan_model(x, da, bm, cm)
+    torch.cuda.synchronize()
+    assert _build.entry("mamba2_ssd_blocks_per_sm")() == \
+        tssd.blocks_per_sm("bf16", 64, 64) == 2
+
+
+@pytest.mark.gpu
+def test_ssd_scan_refuses_what_it_does_not_take():
+    """The bf16 mode pads P and N to 64: beyond that, another dtype, or a
+    layout whose rows are not 16-byte aligned, K6 raises; it never routes
+    to the plain version or to the fp32 mode, and counts no launch."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    before = tssd.ssd_scan_bhsd.launches
+    for p, n in ((72, 64), (64, 72), (128, 128)):
+        x, da, bm, cm = _ssd_model_inputs(1, 64, 2, p, n, torch.bfloat16,
+                                          dev)
+        with pytest.raises(ValueError, match="takes P and N in"):
+            ops.mamba2_ssd(x, da, bm, cm)
+    x, da, bm, cm = _ssd_model_inputs(1, 64, 2, 64, 64, torch.bfloat16, dev)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.mamba2_ssd(x.half(), da, bm.half(), cm.half())
+    wide = torch.zeros(1, 64, 2, 68, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.mamba2_ssd(wide[..., :64], da, bm, cm)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.mamba2_ssd(x[..., :12], da, bm, cm)
+    assert tssd.ssd_scan_bhsd.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,k,chunk", [
