@@ -16,7 +16,12 @@ code 1, no result line) without one.  Phases, each of which fails the run:
 3. kernels against their plain versions on the card, bf16 and fp32, at the
    shapes the serve and train paths give them, K1 also in its int8 mode
    over pools quantized by ``quantize_kv`` (where a D that is not a
-   multiple of 16 is refused) (fp32 1e-4, bf16 2e-2
+   multiple of 16 is refused), and also against the plain version of its
+   split schedule, one launch a call, two calls bitwise equal, at the
+   serve shape and at a ragged 4,096-position table with NaN dead pages,
+   its plan's split count and shared memory (equal to the kernel's), and
+   its times at the serve shape and at a 4,096-position context (32,768
+   rows, beyond L2) (fp32 1e-4, bf16 2e-2
    absolute; AdamW 1e-6; the softmax-xent backward elementwise, each
    element to 1e-5 (fp32) or 1e-2 (bf16) of its own size, since its
    elements span ten orders of magnitude; a row pitch that is not 16-byte
@@ -85,11 +90,13 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    ms, peak memory, and one profiled forward;
 10. sharded pools: (a) K1's partials mode, native and int8, on n = 2 and 4
    shards of the phase-3 pools (global table, ``page_offset``): each
-   shard's triple against the plain partials (1e-4 relative), every slot
+   shard's triple against the plain partials and the plain split schedule
+   (1e-4 relative), one launch a call, two calls bitwise equal, every slot
    with no live row in a shard exactly (0, 0, -1e30), the merged shards
    against the normalized K1 on the whole pool (fp32 1e-4, bf16 2e-2), and
-   each shard's time beside its bound, the plain partials and SDPA on the
-   shard's gathered view; (b) two rank processes of this script
+   each shard's time (serve shape at n = 2 and 4, long shape at n = 2)
+   beside its bound, the plain partials and SDPA on the shard's gathered
+   view; (b) two rank processes of this script
    (``--sharded-rank R --ranks 2 --port P``) on this one card over gloo,
    spawned after the kernels are built and this process's memory freed:
    full-width qwen3-4b fp32, one prefill and one decode step over a pool
@@ -104,8 +111,9 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    phase 5's, the pages each rank handed out, and the decode step time
    are reported); then the gloo merge's time per layer.
 
-It then prints a ``kernels`` JSON line, the card's name and power limit,
-and, last, ``{"ok": true, "device": {...}}``.
+It then prints a ``kernels`` JSON line (K1's entries at the serve shape,
+with the long shape's numbers under ``long``), the card's name and power
+limit, and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -210,106 +218,274 @@ def elem_rel_err(a, b) -> float:
 
 # ------------------------------------------------------------- phase 3 ----
 
-def k1_inputs(dtype, gen):
-    """qwen3-4b decode shapes: B=8, KV=8, G=4, D=128, page 16, M=32.
-    Ragged positions (0, page boundaries, a full table), one freed slot
-    (all-zero row at position 0), and every dead page filled with NaN."""
-    b, kv, g, d, page, m = 8, 8, 4, 128, 16, 32
+K1_SERVE_POS = (40, 75, 110, 140, 170, 200, 231, 0)     # 974 live rows
+K1_LONG_POS = (4095,) * 8                                # 32,768 live rows
+K1_RAGGED_LONG_POS = (4095, 15, 16, 17, 130, 255, 511, 0)
+
+
+def k1_inputs(dtype, gen, m: int = 32,
+              positions=(0, 15, 16, 17, 130, 255, 511, 0), nan_dead=True):
+    """qwen3-4b decode shapes: B=8, KV=8, G=4, D=128, page 16, M=m (32: the
+    served max_seq 512; 256: a 4,096-position context).  Ragged positions
+    (0, page boundaries, a full table), one freed slot (all-zero row at
+    position 0, where the last slot's position is 0), and every dead page
+    filled with NaN (``nan_dead``)."""
+    b, kv, g, d, page = 8, 8, 4, 128, 16
     n_pages = b * m + 1
-    positions = torch.tensor([0, 15, 16, 17, 130, 255, 511, 0],
-                             dtype=torch.int32)
+    positions = torch.tensor(positions, dtype=torch.int32)
     perm = torch.randperm(n_pages - 1, generator=gen) + 1
     table = perm[: b * m].reshape(b, m).to(torch.int32)
-    table[7] = 0                                     # freed slot
+    if int(positions[7]) == 0:
+        table[7] = 0                                 # freed slot
     k = torch.randn(n_pages, page, kv, d, generator=gen)
     v = torch.randn(n_pages, page, kv, d, generator=gen)
-    for s in range(b - 1):
-        dead = table[s, positions[s] // page + 1:].long()
-        k[dead] = float("nan")
-        v[dead] = float("nan")
+    if nan_dead:
+        for s in range(b - 1):
+            dead = table[s, positions[s] // page + 1:].long()
+            k[dead] = float("nan")
+            v[dead] = float("nan")
     q = torch.randn(b, kv, g, d, generator=gen)
     return [t.to(DEV) for t in (q.to(dtype), k.to(dtype), v.to(dtype),
                                  table, positions)]
 
 
+def k1_call(pd, q, pools, table, pos, off=None):
+    """The K1 wrapper for these operands, called: int8 when ``pools`` is
+    (k, v, k_scale, v_scale), partials of the shard at ``off`` when given."""
+    if off is None:
+        fn = pd.paged_flash_decode_int8 if len(pools) == 4 else \
+            pd.paged_flash_decode
+        return fn(q, *pools, table, pos)
+    fn = pd.paged_flash_decode_partials_int8 if len(pools) == 4 else \
+        pd.paged_flash_decode_partials
+    return fn(q, *pools, table, pos, off)
+
+
+def k1_plain(pd, q, pools, table, pos, off=None):
+    """The plain version of ``k1_call``."""
+    return pd.paged_decode_ref(q, pools[0], pools[1], table, pos,
+                               *(pools[2:] or (None, None)),
+                               page_offset=off or 0,
+                               partials=off is not None)
+
+
+def k1_library(q, pools, table, pos, off=None):
+    """K1's yardstick, one PyTorch call on views made outside the timing:
+    SDPA on the (shard's) gathered view, rows of dead pages and of other
+    shards masked, K/V heads expanded to the G query heads (int8 partials:
+    dequantized beforehand); for the normalized int8 mode two calls,
+    ``dequantize_kv`` of the gathered int8 K and V laid out (B, KV, S, D),
+    then SDPA with ``enable_gqa``.  Returns (callable, live rows)."""
+    from repro_torch.kernels.quant import dequantize_kv
+    b, kv, g, d = q.shape
+    m = table.shape[1]
+    pn, page = pools[0].shape[:2]
+    live = torch.arange(m, device=DEV)[None] <= (pos.long() // page)[:, None]
+    local = table.long() - (off or 0)
+    ok = live & (local >= 0) & (local < pn)
+    tbl = torch.where(ok, local, 0)
+    mask = ((torch.arange(m * page, device=DEV)[None] <= pos.long()[:, None])
+            & ok[:, :, None].expand(b, m, page).reshape(b, m * page))
+    rows = int(mask.sum())
+    mask = mask[:, None, None, :]
+    qh = q.reshape(b, kv * g, 1, d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    quant = len(pools) == 4
+    if quant and off is None:
+        def gathered(pool):
+            x = pool[tbl].reshape(b, m * page, kv, *pool.shape[3:])
+            return x.transpose(1, 2).contiguous()
+
+        kg, vg, ksg, vsg = (gathered(t) for t in pools)
+        return (lambda: sdpa(qh, dequantize_kv(kg, ksg, q.dtype),
+                             dequantize_kv(vg, vsg, q.dtype), attn_mask=mask,
+                             enable_gqa=True)), rows
+
+    def heads(pool, scale):
+        x = pool[tbl]
+        if scale is not None:
+            x = dequantize_kv(x, scale[tbl], q.dtype)
+        x = x.reshape(b, m * page, kv, 1, d).expand(-1, -1, -1, g, -1)
+        return x.reshape(b, m * page, kv * g, d).permute(0, 2, 1, 3) \
+            .contiguous()
+
+    kg = heads(pools[0], pools[2] if quant else None)
+    vg = heads(pools[1], pools[3] if quant else None)
+    return (lambda: sdpa(qh, kg, vg, attn_mask=mask)), rows
+
+
+def k1_bound(q, table, rows: int, quant: bool, partials: bool):
+    """K1's least time for ``rows`` live rows: each K/V byte (int8: and its
+    fp32 scale) read once, q read once, the output (partials: the fp32
+    triple) written once, the table and positions read once; operations:
+    QK and PV (int8: and the dequantization) at the bf16 peak for bf16
+    pools and the fp32 peak for int8.  Returns (ms, "bytes" or
+    "operations", bytes)."""
+    b, kv, g, d = q.shape
+    row_b = kv * (d + 4) if quant else kv * d * q.element_size()
+    out_b = b * kv * g * (d + 2) * 4 if partials else \
+        q.numel() * q.element_size()
+    nbytes = (2 * rows * row_b + q.numel() * q.element_size() + out_b
+              + 4 * (table.numel() + b))
+    flops = 4 * kv * g * d * rows + (2 * rows * kv * d if quant else 0)
+    return (*bound(nbytes, flops, torch.float32 if quant else q.dtype),
+            nbytes)
+
+
+def k1_splits(pd, q, k_pool, table, quant=False) -> int:
+    """The split count of K1's plan for these operands on this card."""
+    b, kv, g, d = q.shape
+    return pd.plan(b, kv, g, d, k_pool.shape[1], table.shape[1], q.dtype,
+                   quant, False, pd._n_sms(0)).splits
+
+
+def k1_agree(pd, what, q, pools, table, pos, tol):
+    """One normalized K1 call against the plain version and the plain
+    version of its split schedule, finite, one launch, and a second call
+    bitwise equal."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    out = k1_call(pd, q, pools, table, pos)
+    counted = {n: c - before[n] for n, c in ops.launch_counts().items()
+               if c != before[n]}
+    again = k1_call(pd, q, pools, table, pos)
+    ref = k1_plain(pd, q, pools, table, pos)
+    split = pd.paged_decode_split_ref(
+        q, pools[0], pools[1], table, pos, *(pools[2:] or (None, None)),
+        splits=k1_splits(pd, q, pools[0], table, len(pools) == 4))
+    torch.cuda.synchronize()
+    err, serr = max_err(out, ref), max_err(out, split)
+    finite = bool(torch.isfinite(out.float()).all())
+    same = torch.equal(out, again)
+    log(f"{what}: max_abs_err {err:.3e} vs plain, {serr:.3e} vs the plain "
+        f"split schedule (tol {tol}), finite={finite}, two calls bitwise "
+        f"equal {same}, launches {counted}")
+    assert finite and err <= tol and serr <= tol, \
+        f"{what} disagrees with its plain version"
+    assert same, f"{what}: two calls on the same inputs differ"
+    assert list(counted.values()) == [1], f"{what}: launches {counted}"
+
+
+def k1_plan_check(pd) -> None:
+    """K1's plan at the timed shapes: split count, grid, cluster, and its
+    shared memory equal to the kernel's own figure."""
+    from repro_torch.kernels import _build
+    smem = _build.entry("paged_decode_smem_bytes")
+    for m in (32, 256):
+        for quant in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                pl = pd.plan(8, 8, 4, 128, 16, m, dtype, quant, False,
+                             pd._n_sms(0))
+                mine = smem(0 if dtype == torch.float32 else 1, int(quant),
+                            4, 128, m)
+                log(f"K1 plan M={m} {'int8' if quant else 'native'} "
+                    f"{str(dtype)[6:]}: splits {pl.splits} (cluster "
+                    f"{pl.cluster}, grid {pl.grid}, {pl.blocks_per_sm} "
+                    f"blocks an SM, at most {pl.pages_per_split} pages a "
+                    f"split), smem {pl.smem} B, kernel's {mine} B")
+                assert pl.smem == mine, "K1 plan's shared memory differs"
+
+
+def k1_timed(pd, what, q, pools, table, pos, off=None):
+    """One K1 mode at one shape, gated and logged: its error against the
+    plain version (normalized: max abs; partials: ``_triple_err``), finite,
+    two calls bitwise equal; then the device times of the kernel, the plain
+    version and the yardstick (``k1_library``) beside the bound."""
+    got = k1_call(pd, q, pools, table, pos, off)
+    again = k1_call(pd, q, pools, table, pos, off)
+    ref = k1_plain(pd, q, pools, table, pos, off)
+    torch.cuda.synchronize()
+    if off is None:
+        err = abs_err = max_err(got, ref)
+        finite = bool(torch.isfinite(got.float()).all())
+        same = torch.equal(got, again)
+    else:
+        err = _triple_err(got, ref)
+        abs_err = max(max_err(a, r) for a, r in zip(got, ref))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        same = all(torch.equal(a, r) for a, r in zip(got, again))
+    tol = 1e-4 if off is not None else TOL[q.dtype]
+    assert finite and err <= tol and same, \
+        f"{what} disagrees with its plain version or itself"
+    lib, rows = k1_library(q, pools, table, pos, off)
+    bms, by, nbytes = k1_bound(q, table, rows, len(pools) == 4,
+                               off is not None)
+    r = dict(max_abs_err=abs_err, bound_ms=bms, bound_by=by,
+             ms=time_ms(lambda: k1_call(pd, q, pools, table, pos, off)),
+             plain_ms=time_ms(lambda: k1_plain(pd, q, pools, table, pos,
+                                               off), iters=10),
+             library_ms=time_ms(lib, iters=10))
+    eager = eager_ms(lambda: k1_call(pd, q, pools, table, pos, off))
+    log(f"{what}, positions {pos.tolist()} ({rows} live rows): kernel "
+        f"{r['ms']:.4f} ms (eager back-to-back {eager:.4f} ms), plain "
+        f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+        f"{bms:.5f} ms ({by}; {nbytes} B), error {err:.3e} (tol {tol}), two "
+        f"calls bitwise equal {same}")
+    return r
+
+
+def _k1_entry(serve, long):
+    """A ``kernels`` entry: the serve shape's numbers, the long shape's
+    beside them."""
+    out = {key: serve[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}
+    out["long"] = {key: long[key] for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms",
+                                              "max_abs_err")}
+    return out
+
+
 def check_k1(report):
+    """K1's native mode against the plain version and its split schedule
+    (phase-3 inputs, fp32 and bf16; the long ragged table with NaN dead
+    pages), the plan, then its times at the serve shape (974 live rows)
+    and at a 4,096-position context (32,768 rows)."""
     from repro_torch.kernels import paged_decode as pd
     gen = torch.Generator().manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, table, pos = k1_inputs(dtype, gen)
-        out = pd.paged_flash_decode(q, k, v, table, pos)
-        ref = pd.paged_decode_ref(q, k, v, table, pos)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        finite = bool(torch.isfinite(out.float()).all())
-        log(f"K1 paged_flash_decode {str(dtype)[6:]:8s} B=8 KV=8 G=4 D=128 "
-            f"page=16 M=32: max_abs_err {err:.3e} (tol {TOL[dtype]}), "
-            f"finite={finite}")
-        assert finite and err <= TOL[dtype], "K1 disagrees with its plain"
-    # timing at the serve shapes, bf16, no NaN pages
-    b, kv, g, d, page, m = 8, 8, 4, 128, 16, 32
-    q, k, v, table, pos = k1_inputs(torch.bfloat16, gen)
-    k, v = torch.nan_to_num(k), torch.nan_to_num(v)
-    pos = torch.tensor([40, 75, 110, 140, 170, 200, 231, 0], dtype=torch.int32,
-                       device=DEV)
-    out = pd.paged_flash_decode(q, k, v, table, pos)
-    err = max_err(out, pd.paged_decode_ref(q, k, v, table, pos))
-    ms = time_ms(lambda: pd.paged_flash_decode(q, k, v, table, pos))
-    host_ms = eager_ms(lambda: pd.paged_flash_decode(q, k, v, table, pos))
-    plain_ms = time_ms(lambda: pd.paged_decode_ref(q, k, v, table, pos))
-    # yardstick: SDPA on the gathered (dead-page-redirected) view, its K/V
-    # heads expanded to the G query heads beforehand, outside the timing
-    live = torch.arange(m, device=DEV)[None] <= (pos.long() // page)[:, None]
-    tbl = torch.where(live, table.long(), 0)
-
-    def heads(pool):
-        x = pool[tbl].reshape(b, m * page, kv, 1, d).expand(-1, -1, -1, g, -1)
-        return x.reshape(b, m * page, kv * g, d).permute(0, 2, 1, 3) \
-            .contiguous()
-
-    kg, vg = heads(k), heads(v)
-    qh = q.reshape(b, kv * g, 1, d)
-    mask = (torch.arange(m * page, device=DEV)[None]
-            <= pos.long()[:, None])[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(lambda: sdpa(qh, kg, vg, attn_mask=mask))
-    rows = int((pos.long() + 1).sum())
-    nbytes = (2 * rows * kv * d + 2 * q.numel()) * 2 + 4 * (table.numel() + b)
-    bms, by = bound(nbytes, 4 * kv * g * d * rows, torch.bfloat16)
-    log(f"K1 timing bf16, positions {pos.tolist()}: kernel {ms:.4f} ms "
-        f"(eager back-to-back {host_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, SDPA on gathered view {lib_ms:.4f} ms, "
-        f"bound {bms:.5f} ms ({by})")
-    report["paged_flash_decode"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms)
+        k1_agree(pd, f"K1 paged_flash_decode {str(dtype)[6:]:8s} B=8 KV=8 "
+                 f"G=4 D=128 page=16 M=32", q, (k, v), table, pos,
+                 TOL[dtype])
+        q, k, v, table, pos = k1_inputs(dtype, gen, 256, K1_RAGGED_LONG_POS)
+        k1_agree(pd, f"K1 paged_flash_decode {str(dtype)[6:]:8s} M=256 "
+                 f"positions {list(K1_RAGGED_LONG_POS)}, NaN dead pages", q,
+                 (k, v), table, pos, TOL[dtype])
+    k1_plan_check(pd)
+    # timing, bf16, finite dead pages
+    q, k, v, table, _ = k1_inputs(torch.bfloat16, gen, nan_dead=False)
+    pos = torch.tensor(K1_SERVE_POS, dtype=torch.int32, device=DEV)
+    serve = k1_timed(pd, "K1 timing bf16 serve", q, (k, v), table, pos)
+    q, k, v, table, pos = k1_inputs(torch.bfloat16, gen, 256, K1_LONG_POS,
+                                    nan_dead=False)
+    long = k1_timed(pd, "K1 timing bf16 long", q, (k, v), table, pos)
+    report["paged_flash_decode"] = _k1_entry(serve, long)
 
 
 def check_k1_int8(report):
     """K1's int8 mode: the pools of ``k1_inputs`` quantized by the port's
     ``quantize_kv`` (each dead page's NaN rows give NaN scales), with fp32
-    and bf16 q, against the plain version."""
+    and bf16 q, against the plain version and its split schedule; D=120
+    refused; its times at the serve and long shapes."""
     from repro_torch.kernels import paged_decode as pd
-    from repro_torch.kernels.quant import dequantize_kv, quantize_kv
+    from repro_torch.kernels.quant import quantize_kv
     gen = torch.Generator().manual_seed(4)
 
-    def quantized(dtype):
-        q, k, v, table, pos = k1_inputs(dtype, gen)
+    def quantized(dtype, *args, **kw):
+        q, k, v, table, pos = k1_inputs(dtype, gen, *args, **kw)
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-        return q, kq, vq, ks, vs, table, pos
+        return q, (kq, vq, ks, vs), table, pos
 
     for dtype in (torch.float32, torch.bfloat16):
-        q, kq, vq, ks, vs, table, pos = quantized(dtype)
-        out = pd.paged_flash_decode_int8(q, kq, vq, ks, vs, table, pos)
-        ref = pd.paged_decode_ref(q, kq, vq, table, pos, ks, vs)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        finite = bool(torch.isfinite(out.float()).all())
-        log(f"K1 int8 paged_flash_decode_int8 q {str(dtype)[6:]:8s} B=8 KV=8 "
-            f"G=4 D=128 page=16 M=32: max_abs_err {err:.3e} (tol "
-            f"{TOL[dtype]}), finite={finite}")
-        assert finite and err <= TOL[dtype], \
-            "K1 int8 disagrees with its plain version"
+        q, pools, table, pos = quantized(dtype)
+        k1_agree(pd, f"K1 int8 paged_flash_decode_int8 q {str(dtype)[6:]:8s} "
+                 f"B=8 KV=8 G=4 D=128 page=16 M=32", q, pools, table, pos,
+                 TOL[dtype])
+        q, pools, table, pos = quantized(dtype, 256, K1_RAGGED_LONG_POS)
+        k1_agree(pd, f"K1 int8 paged_flash_decode_int8 q {str(dtype)[6:]:8s} "
+                 f"M=256 positions {list(K1_RAGGED_LONG_POS)}, NaN dead "
+                 f"pages and scales", q, pools, table, pos, TOL[dtype])
+    kq, vq, ks, vs = pools
     cut = [t[..., :120].contiguous() for t in (q, kq, vq)]
     try:
         pd.paged_flash_decode_int8(cut[0], cut[1], cut[2], ks, vs, table, pos)
@@ -318,50 +494,14 @@ def check_k1_int8(report):
     else:
         raise AssertionError("K1 int8 took D=120, not a multiple of 16")
     log("K1 int8 refuses D=120 (not a multiple of 16)")
-    # timing at the serve shapes, bf16 q, no NaN pages
-    b, kv, g, d, page, m = 8, 8, 4, 128, 16, 32
-    q, k, v, table, _ = k1_inputs(torch.bfloat16, gen)
-    (kq, ks), (vq, vs) = (quantize_kv(torch.nan_to_num(t)) for t in (k, v))
-    pos = torch.tensor([40, 75, 110, 140, 170, 200, 231, 0], dtype=torch.int32,
-                       device=DEV)
-    args = (q, kq, vq, ks, vs, table, pos)
-    err = max_err(pd.paged_flash_decode_int8(*args),
-                  pd.paged_decode_ref(q, kq, vq, table, pos, ks, vs))
-    ms = time_ms(lambda: pd.paged_flash_decode_int8(*args))
-    host_ms = eager_ms(lambda: pd.paged_flash_decode_int8(*args))
-    plain_ms = time_ms(lambda: pd.paged_decode_ref(q, kq, vq, table, pos, ks,
-                                                   vs))
-    # yardstick, two calls: dequantize_kv of the gathered (dead-page-
-    # redirected) int8 K and V, laid out (B, KV, S, D) beforehand, then SDPA
-    # with enable_gqa
-    live = torch.arange(m, device=DEV)[None] <= (pos.long() // page)[:, None]
-    tbl = torch.where(live, table.long(), 0)
-
-    def gathered(pool):
-        x = pool[tbl].reshape(b, m * page, kv, *pool.shape[3:])
-        return x.transpose(1, 2).contiguous()
-
-    kg, vg, ksg, vsg = (gathered(t) for t in (kq, vq, ks, vs))
-    qh = q.reshape(b, kv * g, 1, d)
-    mask = (torch.arange(m * page, device=DEV)[None]
-            <= pos.long()[:, None])[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(lambda: sdpa(
-        qh, dequantize_kv(kg, ksg, torch.bfloat16),
-        dequantize_kv(vg, vsg, torch.bfloat16), attn_mask=mask,
-        enable_gqa=True))
-    rows = int((pos.long() + 1).sum())
-    nbytes = 2 * rows * kv * (d + 4) + 2 * q.numel() * 2 \
-        + 4 * (table.numel() + b)
-    flops = 4 * kv * g * d * rows + 2 * rows * kv * d   # dequant in fp32
-    bms, by = bound(nbytes, flops, torch.float32)
-    log(f"K1 int8 timing bf16 q, positions {pos.tolist()}: kernel {ms:.4f} ms "
-        f"(eager back-to-back {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"dequantize_kv + SDPA (enable_gqa) on the gathered view, two calls, "
-        f"{lib_ms:.4f} ms, bound {bms:.5f} ms ({by}; {nbytes} bytes)")
-    report["paged_flash_decode_int8"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms)
+    # timing, bf16 q, finite dead pages
+    q, pools, table, _ = quantized(torch.bfloat16, nan_dead=False)
+    pos = torch.tensor(K1_SERVE_POS, dtype=torch.int32, device=DEV)
+    serve = k1_timed(pd, "K1 int8 timing bf16 q serve", q, pools, table, pos)
+    q, pools, table, pos = quantized(torch.bfloat16, 256, K1_LONG_POS,
+                                     nan_dead=False)
+    long = k1_timed(pd, "K1 int8 timing bf16 q long", q, pools, table, pos)
+    report["paged_flash_decode_int8"] = _k1_entry(serve, long)
 
 
 def k2_case(fa, dtype, n, kv, g, s, d, causal, gen):
@@ -1405,7 +1545,7 @@ def train_run(report, steps: int = 10):
         "the kernel path's loss trajectory leaves the plain path's"
 
 
-KERNEL_GROUPS = (("K1 paged_decode", ("paged_decode_kernel",)),
+KERNEL_GROUPS = (("K1 paged_decode", ("paged_decode_split_kernel",)),
                  ("K2 flash_attention", ("flash_attention_wgmma",
                                          "flash_attention_fp32")),
                  ("K3 rmsnorm", ("rmsnorm",)),
@@ -1686,14 +1826,16 @@ def _triple_err(got, ref) -> float:
 def check_k1_partials(report):
     """K1's partials mode, native and int8, on n = 2 and 4 shards of the
     phase-3 K1 pools (global table, page_offset = c * P/n): each shard's
-    triple against the plain partials (1e-4 relative; both are fp32
-    arithmetic on the same inputs), every slot with no live row in a shard
+    triple against the plain partials and the plain split schedule (1e-4
+    relative; all fp32 arithmetic on the same inputs), one launch a call
+    and two calls bitwise equal, every slot with no live row in a shard
     exactly (0, 0, -1e30), the merged shards against the normalized K1 on
-    the whole pool (fp32 1e-4, bf16 2e-2); then each shard's time at the K1
-    row's shape beside its bound, the plain partials and SDPA on the
-    shard's gathered view (the normalized function, not the triple)."""
+    the whole pool (fp32 1e-4, bf16 2e-2); then each shard's time at the
+    K1 row's serve shape (n = 2 and 4) and at the long shape (n = 2) beside
+    its bound, the plain partials and SDPA on the shard's gathered view
+    (the normalized function, not the triple)."""
     from repro_torch.kernels import paged_decode as pd
-    from repro_torch.kernels.quant import dequantize_kv, quantize_kv
+    from repro_torch.kernels.quant import quantize_kv
     from repro_torch.models.attention import merge_partials_local
     gen = torch.Generator().manual_seed(6)
     errs = {name: 0.0 for name in PARTIALS}
@@ -1704,26 +1846,31 @@ def check_k1_partials(report):
             pools = ([*quantize_kv(k), *quantize_kv(v)] if quant else
                      [k, None, v, None])
             pools = [pools[0], pools[2], pools[1], pools[3]]  # k, v, ks, vs
+            splits = k1_splits(pd, q, k, table, quant)
             for n in (2, 4):
                 triples, empty = [], 0
                 for c in range(n):
                     shard = [_shard_of(t, n, c)[0] for t in pools if
                              t is not None]
                     off = _shard_of(pools[0], n, c)[1]
+                    before = fn.launches
                     got = fn(q, *shard, table, pos, off)
-                    ref = pd.paged_decode_ref(
-                        q, shard[0], shard[1], table, pos,
-                        *(shard[2:] or [None, None]), page_offset=off,
-                        partials=True)
+                    launched = fn.launches - before
+                    again = fn(q, *shard, table, pos, off)
+                    args = (q, shard[0], shard[1], table, pos,
+                            *(shard[2:] or [None, None]), off, True)
+                    ref = pd.paged_decode_ref(*args)
+                    split = pd.paged_decode_split_ref(*args, splits=splits)
                     torch.cuda.synchronize()
-                    err = _triple_err(got, ref)
+                    err = max(_triple_err(got, ref), _triple_err(got, split))
                     errs[name] = max(errs[name], err)
                     hole = ref[2] == -1e30
                     empty += int(hole.sum())
                     exact = bool((got[2][hole] == -1e30).all()
                                  and (got[1][hole] == 0).all()
                                  and (got[0][hole] == 0).all())
-                    assert err <= 1e-4 and exact, \
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    assert err <= 1e-4 and exact and same and launched == 1, \
                         f"{name} shard {c}/{n} disagrees with its plain"
                     triples.append((got[0][:, None], got[1], got[2]))
                 merged = merge_partials_local(triples)[:, 0].to(dtype)
@@ -1734,89 +1881,43 @@ def check_k1_partials(report):
                          pd.paged_flash_decode(q, k, v, table, pos))
                 merr = max_err(merged, whole)
                 log(f"K1 partials {name} {str(dtype)[6:]:8s} n={n}: triple "
-                    f"rel err {errs[name]:.3e} (tol 1e-4), {empty} empty "
-                    f"(slot, head, group) triples exact; merged vs K1 on the "
-                    f"whole pool max_abs_err {merr:.3e} (tol {TOL[dtype]})")
+                    f"rel err {errs[name]:.3e} vs plain and split schedule "
+                    f"(tol 1e-4), one launch a call, repeated calls bitwise "
+                    f"equal, {empty} empty (slot, head, group) triples "
+                    f"exact; merged vs K1 on the whole pool max_abs_err "
+                    f"{merr:.3e} (tol {TOL[dtype]})")
                 assert merr <= TOL[dtype], f"{name} merged disagrees with K1"
-    # timing at the K1 row's shape: bf16 q, positions of 974 live rows, no
-    # NaN pages; per shard at n = 2 and 4
-    b, kv, g, d, page, m = 8, 8, 4, 128, 16, 32
-    q, k, v, table, _ = k1_inputs(torch.bfloat16, gen)
-    k, v = torch.nan_to_num(k), torch.nan_to_num(v)
-    pos = torch.tensor([40, 75, 110, 140, 170, 200, 231, 0], dtype=torch.int32,
-                       device=DEV)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    live = torch.arange(m, device=DEV)[None] <= (pos.long() // page)[:, None]
-    for quant, name in zip((False, True), PARTIALS):
-        fn = getattr(pd, name)
-        pools = ([*quantize_kv(k), *quantize_kv(v)] if quant else
-                 [k, None, v, None])
-        pools = [pools[0], pools[2], pools[1], pools[3]]
-        for n in (2, 4):
-            rows_ms = []
-            for c in range(n):
-                shard = [_shard_of(t, n, c)[0] for t in pools if t is not None]
-                off = _shard_of(pools[0], n, c)[1]
-                pn = shard[0].shape[0]
-                args = (q, *shard, table, pos, off)
-                got, ref = fn(*args), pd.paged_decode_ref(
-                    q, shard[0], shard[1], table, pos,
-                    *(shard[2:] or [None, None]), page_offset=off,
-                    partials=True)
-                err = _triple_err(got, ref)
-                abs_err = max(max_err(a, r) for a, r in zip(got, ref))
-                assert err <= 1e-4, f"{name} shard {c}/{n} disagrees"
-                ms = time_ms(lambda: fn(*args))
-                plain_ms = time_ms(lambda: pd.paged_decode_ref(
-                    q, shard[0], shard[1], table, pos,
-                    *(shard[2:] or [None, None]), page_offset=off,
-                    partials=True))
-                # yardstick: SDPA over the shard's gathered view, rows of
-                # other shards' and dead pages masked, heads expanded (int8:
-                # dequantized beforehand), outside the timing
-                local = table.long() - off
-                ok = live & (local >= 0) & (local < pn)
-                tbl = torch.where(ok, local, 0)
-                mask = ((torch.arange(m * page, device=DEV)[None]
-                         <= pos.long()[:, None])
-                        & ok[:, :, None].expand(b, m, page).reshape(
-                            b, m * page))[:, None, None, :]
-
-                def heads(pool, scale):
-                    x = pool[tbl]
-                    if scale is not None:
-                        x = dequantize_kv(x, scale[tbl], torch.bfloat16)
-                    x = x.reshape(b, m * page, kv, 1, d).expand(
-                        -1, -1, -1, g, -1)
-                    return x.reshape(b, m * page, kv * g, d).permute(
-                        0, 2, 1, 3).contiguous()
-
-                kg = heads(shard[0], shard[2] if quant else None)
-                vg = heads(shard[1], shard[3] if quant else None)
-                qh = q.reshape(b, kv * g, 1, d)
-                lib_ms = time_ms(lambda: sdpa(qh, kg, vg, attn_mask=mask))
-                rows = int(mask.sum())
-                row_b = kv * (d + 4) if quant else kv * d * 2
-                nbytes = (2 * rows * row_b + q.numel() * 2
-                          + b * kv * g * (d + 2) * 4
-                          + 4 * (table.numel() + b))
-                flops = 4 * kv * g * d * rows + (2 * rows * kv * d
-                                                  if quant else 0)
-                bms, by = bound(nbytes, flops, torch.float32 if quant
-                                else torch.bfloat16)
-                rows_ms.append((ms, plain_ms, lib_ms, bms, by, abs_err))
-                log(f"K1 partials {name} timing bf16 q, n={n} shard {c} "
-                    f"({rows} live rows of 974 here): kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, SDPA on the shard's gathered "
-                    f"view {lib_ms:.4f} ms, bound {bms:.5f} ms ({by}; "
-                    f"{nbytes} B), triple rel err {err:.3e}")
-            if n == 2:
-                cols = list(zip(*rows_ms))
-                report[name] = dict(
-                    max_abs_err=max(cols[5]), ms=float(np.mean(cols[0])),
-                    plain_ms=float(np.mean(cols[1])),
-                    library_ms=float(np.mean(cols[2])),
-                    bound_ms=float(np.mean(cols[3])), bound_by=cols[4][0])
+    # timing: bf16 q, finite dead pages; the serve shape per shard at n = 2
+    # and 4, the long shape per shard at n = 2
+    shapes = (("serve", 32, K1_SERVE_POS, (2, 4)),
+              ("long", 256, K1_LONG_POS, (2,)))
+    rows_ms = {}
+    for shape, m, positions, ns in shapes:
+        q, k, v, table, pos = k1_inputs(torch.bfloat16, gen, m, positions,
+                                        nan_dead=False)
+        for quant, name in zip((False, True), PARTIALS):
+            pools = [*quantize_kv(k), *quantize_kv(v)] if quant else [k, v]
+            if quant:
+                pools = [pools[0], pools[2], pools[1], pools[3]]
+            for n in ns:
+                for c in range(n):
+                    shard = [_shard_of(t, n, c)[0] for t in pools]
+                    off = _shard_of(pools[0], n, c)[1]
+                    r = k1_timed(pd, f"K1 partials {name} timing bf16 q "
+                                 f"{shape}, n={n} shard {c}", q, shard,
+                                 table, pos, off)
+                    if n == 2:
+                        rows_ms.setdefault((name, shape), []).append(r)
+    for name in PARTIALS:
+        entry = {}
+        for shape in ("serve", "long"):
+            rs = rows_ms[(name, shape)]
+            entry[shape] = dict(
+                max_abs_err=max(r["max_abs_err"] for r in rs),
+                bound_by=rs[0]["bound_by"],
+                **{key: float(np.mean([r[key] for r in rs]))
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+        report[name] = dict(entry["serve"], long=entry["long"])
 
 
 def _free_port() -> int:
@@ -2152,7 +2253,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **({"long": r["long"]} if "long" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
     "paged_decode_launch": ("paged_decode",
-                            [_I] * 3 + [_P] * 11 + [_I] * 8 + [_P]),
+                            [_I] * 3 + [_P] * 11 + [_I] * 9 + [_P]),
+    "paged_decode_smem_bytes": ("paged_decode", [_I] * 5),
     "flash_attention_launch": ("flash_attention",
                                [_I] + [_P] * 4 + [_I] * 6 + [_P] * 2),
     "flash_attention_smem_bytes": ("flash_attention", [_I] * 2),

@@ -26,6 +26,7 @@ from repro_torch.train import init_train_state, make_train_step
 from repro_torch.train.optimizer import tree_leaves
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DT = {"float32": 0, "bfloat16": 1}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -40,15 +41,24 @@ def _err(a, b) -> float:
     return float((a.detach().float() - b.detach().float()).abs().max())
 
 
+def _splits(q, k_pool, table, quant=False) -> int:
+    """The split count K1's plan gives these operands on this card."""
+    b, kv, g, d = q.shape
+    return tpd.plan(b, kv, g, d, k_pool.shape[1], table.shape[1], q.dtype,
+                    quant, False, tpd._n_sms(q.device.index or 0)).splits
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d,page", [(32, 4), (128, 16)])
-def test_paged_decode_kernel_matches_plain(dtype, d, page):
+@pytest.mark.parametrize("d,page,g", [(32, 4, 4), (128, 16, 4), (40, 4, 4),
+                                      (256, 16, 4), (128, 16, 12)])
+def test_paged_decode_kernel_matches_plain(dtype, d, page, g):
     """Boundary positions (0, page edges, a full table), a freed slot on
-    scratch page 0, and NaN in every dead page."""
+    scratch page 0, and NaN in every dead page.  bf16 at D=40 and D=256
+    takes the CUDA-core path, and G=12 two clusters of query rows."""
     dev = _card()
     gen = torch.Generator().manual_seed(1)
-    b, kv, g, m = 6, 2, 4, 6
+    b, kv, m = 6, 2, 6
     n_pages = b * m + 1
     pos = torch.tensor([0, page - 1, page, page + 1, m * page - 1, 0],
                        dtype=torch.int32)
@@ -70,6 +80,9 @@ def test_paged_decode_kernel_matches_plain(dtype, d, page):
     assert tpd.paged_flash_decode.launches == before + 1
     assert bool(torch.isfinite(got.float()).all())
     assert _err(got, tpd.paged_decode_ref(q, k, v, table, pos)) <= TOL[dtype]
+    assert _err(got, tpd.paged_decode_split_ref(
+        q, k, v, table, pos, splits=_splits(q, k, table))) <= TOL[dtype]
+    assert torch.equal(got, tpd.paged_flash_decode(q, k, v, table, pos))
 
 
 @pytest.mark.gpu
@@ -102,6 +115,11 @@ def test_paged_decode_int8_kernel_matches_plain(dtype, d, page):
     assert bool(torch.isfinite(got.float()).all())
     ref = tpd.paged_decode_ref(q, k, v, table, pos, ks, vs)
     assert _err(got, ref) <= TOL[dtype]
+    assert _err(got, tpd.paged_decode_split_ref(
+        q, k, v, table, pos, ks, vs, splits=_splits(q, k, table, True))) \
+        <= TOL[dtype]
+    assert torch.equal(got, tpd.paged_flash_decode_int8(q, k, v, ks, vs,
+                                                        table, pos))
     with pytest.raises(ValueError, match="16-byte"):
         tpd.paged_flash_decode_int8(q[..., :d - 8],
                                     k[..., :d - 8].contiguous(),
@@ -158,9 +176,16 @@ def test_paged_decode_partials_kernels_match_plain(dtype, quant, n):
         ref = tpd.paged_decode_ref(q, k[sl], v[sl], table, pos,
                                    *(shard[2:] or [None, None]),
                                    page_offset=c * pn, partials=True)
-        for a, r in zip(got, ref):
+        split = tpd.paged_decode_split_ref(
+            q, k[sl], v[sl], table, pos, *(shard[2:] or [None, None]),
+            page_offset=c * pn, partials=True,
+            splits=_splits(q, k, table, quant))
+        for a, r, sp in zip(got, ref, split):
             assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
             assert _err(a, r) <= 1e-4 * max(1.0, float(r.abs().max()))
+            assert _err(a, sp) <= 1e-4 * max(1.0, float(sp.abs().max()))
+        again = fn(q, *shard, table, pos, c * pn)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
         empty = ref[2] == -1e30
         assert bool((got[2][empty] == -1e30).all())
         assert bool((got[1][empty] == 0).all())
@@ -172,6 +197,96 @@ def test_paged_decode_partials_kernels_match_plain(dtype, quant, n):
     whole = (tpd.paged_flash_decode_int8(q, k, v, ks, vs, table, pos) if quant
              else tpd.paged_flash_decode(q, k, v, table, pos))
     assert _err(merged, whole) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("positions", [
+    (4095,) * 8, (4095, 15, 16, 17, 130, 255, 511, 0)])
+def test_paged_decode_long_context_matches_plain(dtype, quant, positions):
+    """K1 at a 4,096-position context (B=8, KV=8, G=4, D=128, page 16,
+    M=256; every slot full, or ragged with a freed slot on scratch page 0
+    and NaN on every dead page), normalized and as partials of two shards:
+    against the plain version and the plain version of its split schedule,
+    one launch a call, two calls bitwise equal."""
+    from repro_torch.kernels.quant import quantize_kv
+    dev = _card()
+    gen = torch.Generator().manual_seed(4)
+    b, kv, g, d, page, m = 8, 8, 4, 128, 16, 256
+    n_pages = b * m + 2                  # two shards of b * m / 2 + 1 pages
+    pos = torch.tensor(positions, dtype=torch.int32)
+    table = (torch.randperm(n_pages - 1, generator=gen)[: b * m] + 1)
+    table = table.reshape(b, m).to(torch.int32)
+    if positions[-1] == 0:
+        table[-1] = 0                                 # freed slot
+    k = torch.randn(n_pages, page, kv, d, generator=gen)
+    v = torch.randn(n_pages, page, kv, d, generator=gen)
+    for s in range(b - 1):
+        dead = table[s, pos[s] // page + 1:].long()
+        k[dead] = float("nan")
+        v[dead] = float("nan")
+    q = torch.randn(b, kv, g, d, generator=gen).to(dev, DTYPES[dtype])
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = [ks.to(dev), vs.to(dev)]
+    else:
+        k, v, scales = k.to(DTYPES[dtype]), v.to(DTYPES[dtype]), []
+    k, v, table, pos = (x.to(dev) for x in (k, v, table, pos))
+    splits = _splits(q, k, table, quant)
+    fn = tpd.paged_flash_decode_int8 if quant else tpd.paged_flash_decode
+    before = fn.launches
+    got = fn(q, k, v, *scales, table, pos)
+    assert fn.launches == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    ref = tpd.paged_decode_ref(q, k, v, table, pos, *(scales or [None] * 2))
+    split = tpd.paged_decode_split_ref(q, k, v, table, pos,
+                                       *(scales or [None] * 2), splits=splits)
+    assert _err(got, ref) <= TOL[dtype] and _err(got, split) <= TOL[dtype]
+    assert torch.equal(got, fn(q, k, v, *scales, table, pos))
+    part = (tpd.paged_flash_decode_partials_int8 if quant
+            else tpd.paged_flash_decode_partials)
+    pn = n_pages // 2
+    for c in range(2):
+        shard = [t[c * pn:(c + 1) * pn] for t in [k, v, *scales]]
+        before = part.launches
+        got = part(q, *shard, table, pos, c * pn)
+        assert part.launches == before + 1
+        args = (q, shard[0], shard[1], table, pos,
+                *(shard[2:] or [None, None]), c * pn, True)
+        for want in (tpd.paged_decode_ref(*args),
+                     tpd.paged_decode_split_ref(*args, splits=splits)):
+            for a, r in zip(got, want):
+                assert _err(a, r) <= 1e-4 * max(1.0, float(r.abs().max()))
+        again = part(q, *shard, table, pos, c * pn)
+        assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_plan_matches_kernel(dtype, quant):
+    """K1's plan: its shared memory equals the kernel's own figure (C entry
+    ``paged_decode_smem_bytes``) over G, D and M; at the serve and long
+    shapes the split count puts about 2 blocks on every SM in one wave."""
+    from repro_torch.kernels import _build
+    _card()
+    entry = _build.entry("paged_decode_smem_bytes")
+    td = DTYPES[dtype]
+    n_sms = tpd._n_sms(0)
+    for g in (1, 2, 3, 4, 8, 12):
+        for d in ((16, 32, 64, 128, 256) if quant else (8, 32, 64, 96, 128,
+                                                        256)):
+            if d * (1 if quant else td.itemsize) % 16:
+                continue
+            for m in (1, 32, 256):
+                pl = tpd.plan(8, 8, g, d, 16, m, td, quant, False, n_sms)
+                assert pl.smem == entry(_DT[dtype], int(quant), g, d, m), \
+                    (g, d, m)
+    for m in (32, 256):
+        pl = tpd.plan(8, 8, 4, 128, 16, m, td, quant, False, n_sms)
+        assert pl.splits * 64 >= (2 if m == 256 else 1.9) * n_sms
+        assert pl.cluster <= 8 and pl.splits * 64 <= pl.blocks_per_sm * n_sms
 
 
 @pytest.mark.gpu
