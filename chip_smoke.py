@@ -27,15 +27,19 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    elements span ten orders of magnitude; a row pitch that is not 16-byte
    aligned is refused), and their times (CUDA events) beside the plain
    version, one PyTorch call as a yardstick, and the bound from shapes
-   (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32); K6 (the Mamba2 SSD scan;
-   bf16 on the tensor cores, fp32 on the CUDA cores) and K7 (the RWKV6 WKV
-   recurrence) at the eval shapes of zamba2-1.2b and rwkv6-1.6b (B=4,
-   S=2048) and at a ragged S=2000, fp32 and bf16, on inputs shaped as the
-   models make them (no PyTorch call computes either scan, so they have no
-   yardstick), K6 also on the model layout through ``ops.mamba2_ssd`` (equal
-   to the public layout's output, one profiled call must show K6 as its
+   (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32); K6 (the Mamba2 SSD scan)
+   and K7 (the RWKV6 WKV recurrence), each bf16 on the tensor cores and
+   fp32 on the CUDA cores, at the eval shapes of zamba2-1.2b and rwkv6-1.6b
+   (B=4, S=2048) and at a ragged S=2000, on inputs shaped as the models
+   make them (no PyTorch call computes either scan, so they have no
+   yardstick), bf16 also against the plain emulation of its rounding points
+   (equal in at least 99.9% of the elements), on the model layout through
+   ``ops.mamba2_ssd`` and ``ops.rwkv6_wkv`` (equal to the public layout's
+   output, K7 twice bitwise, one profiled call must show the scan as its
    only device kernel, the plan's shared memory and blocks per SM equal
-   the kernel's) and timed there; K2 in both modes (bf16 on the tensor
+   the kernel's) and timed there (K7 also in fp32); K3 timed over input
+   and output buffers in turn, 126 MB in all, beyond the L2; K2 in both
+   modes (bf16 on the tensor
    cores, fp32 on the CUDA cores) at D 32, 64, 128, G 1 and 4, S 16, 32,
    64, 128, 200, 256, 512, 2048, causal and not, with the plan's shared
    memory equal to the kernel's, on the model layout and on strided
@@ -87,7 +91,8 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    (rwkv6), K2 6 times and K3 89 times (zamba2: ln1 and the gated norm of
    38 Mamba2 layers, ln1 and ln2 of 6 shared-block calls, the final norm),
    and K4 once, and the plain path launches nothing; eval tok/s, forward
-   ms, peak memory, and one profiled forward;
+   ms, peak memory, and one profiled forward with the scan's and the
+   elementwise and copy kernels' share of its busy time;
 10. sharded pools: (a) K1's partials mode, native and int8, on n = 2 and 4
    shards of the phase-3 pools (global table, ``page_offset``): each
    shard's triple against the plain partials and the plain split schedule
@@ -649,6 +654,25 @@ def check_k2(report):
         128, torch.float32, gen)
 
 
+K3_BUFFERS = 6      # x and y of 2048 x 2560 bf16: 126 MB in turn
+
+
+def rotating(inputs, fn):
+    """A call of ``fn`` on the next of ``inputs`` in turn, keeping each
+    output until its slot comes round again: successive calls read and
+    write other buffers, so where those outgrow the L2 each call moves its
+    bytes to and from device memory (a graph capture cannot reuse a buffer
+    that is still held)."""
+    outs, turn = [None] * len(inputs), [0]
+
+    def call():
+        i = turn[0] % len(inputs)
+        turn[0] += 1
+        outs[i] = fn(inputs[i])
+
+    return call
+
+
 def check_k3(report):
     from repro_torch.kernels import rmsnorm as rn
     gen = torch.Generator().manual_seed(3)
@@ -663,17 +687,21 @@ def check_k3(report):
                 f"max_abs_err {err:.3e}")
             assert err <= TOL[dtype], "K3 disagrees with its plain version"
     n, d = 2048, 2560
-    x = (2 * torch.randn(n, d, generator=gen)).to(DEV, torch.bfloat16)
+    xs = [(2 * torch.randn(n, d, generator=gen)).to(DEV, torch.bfloat16)
+          for _ in range(K3_BUFFERS)]
+    x = xs[0]
     sc = (1 + 0.2 * torch.randn(d, generator=gen)).to(DEV)
     err = max_err(rn.rmsnorm_rows(x, sc), rn.rmsnorm_ref(x, sc))
-    ms = time_ms(lambda: rn.rmsnorm_rows(x, sc))
-    host_ms = eager_ms(lambda: rn.rmsnorm_rows(x, sc))
-    plain_ms = time_ms(lambda: rn.rmsnorm_ref(x, sc))
     sc16 = sc.to(torch.bfloat16)
-    lib_ms = time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), sc16,
-                                                          1e-5))
+    ms = time_ms(rotating(xs, lambda x: rn.rmsnorm_rows(x, sc)))
+    host_ms = eager_ms(rotating(xs, lambda x: rn.rmsnorm_rows(x, sc)))
+    plain_ms = time_ms(rotating(xs, lambda x: rn.rmsnorm_ref(x, sc)))
+    lib_ms = time_ms(rotating(xs, lambda x: torch.nn.functional.rms_norm(
+        x, (d,), sc16, 1e-5)))
     bms, by = bound(2 * x.numel() * 2 + 4 * d, 4 * n * d, torch.float32)
-    log(f"K3 timing bf16 N=2048 d=2560: kernel {ms:.4f} ms (eager "
+    log(f"K3 timing bf16 N=2048 d=2560, {K3_BUFFERS} input and output "
+        f"buffers in turn ({K3_BUFFERS * 2 * x.numel() * 2 / 1e6:.0f} MB, "
+        f"beyond the 50 MB L2): kernel {ms:.4f} ms (eager "
         f"back-to-back {host_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {bms:.5f} ms "
         f"({by})")
@@ -848,49 +876,16 @@ def k6_inputs(b, s, h, p, n, dtype, gen):
 
 
 def k7_inputs(b, s, h, kd, dtype, gen):
-    """Inputs at the scale that keeps |y| of order 1: r, k, v ~ N(0, 0.15^2);
-    lw = max(-exp(U[-6, 1.5]), -2.5), the model's decays (w0 spans
-    -exp(-6)..-exp(-1)) plus ones at the floor; u ~ N(0, 0.3^2)."""
-    r, k, v = (0.15 * torch.randn(b * h, s, kd, generator=gen)
+    """The model layout r, k, v, lw (B, S, H, K), u (H, K), at the scale
+    that keeps |y| of order 1: r, k, v ~ N(0, 0.15^2); lw = max(-exp(U[-6,
+    1.5]), -2.5), the model's decays (w0 spans -exp(-6)..-exp(-1)) plus ones
+    at the floor; u ~ N(0, 0.3^2)."""
+    r, k, v = (0.15 * torch.randn(b, s, h, kd, generator=gen)
                for _ in range(3))
-    lw = -torch.empty(b * h, s, kd).uniform_(-6.0, 1.5, generator=gen).exp()
+    lw = -torch.empty(b, s, h, kd).uniform_(-6.0, 1.5, generator=gen).exp()
     u = 0.3 * torch.randn(h, kd, generator=gen)
     return ([t.to(DEV, dtype) for t in (r, k, v)]
             + [lw.clamp(min=-2.5).to(DEV), u.to(DEV)])
-
-
-def check_scan(report, kernel, plain, chunk, inputs, shape, nbytes_fn,
-               flops_fn):
-    """A scan kernel against its plain version at the eval shape and at a
-    ragged S=2000, fp32 and bf16, then timed in bf16 at the eval shape."""
-    name, kw = kernel.__name__, {"chunk": chunk}
-    for dtype in (torch.float32, torch.bfloat16):
-        for s in (2048, 2000):
-            args = inputs(s, dtype)
-            out = kernel(*args, **kw)
-            ref = plain(*args, **kw)
-            torch.cuda.synchronize()
-            err = max_err(out, ref)
-            finite = bool(torch.isfinite(out.float()).all())
-            log(f"{name} {str(dtype)[6:]:8s} {shape} S={s}: max_abs_err "
-                f"{err:.3e} (tol {TOL[dtype]}; max |plain| "
-                f"{float(ref.float().abs().max()):.3f}), finite={finite}")
-            assert finite and err <= TOL[dtype], \
-                f"{name} disagrees with its plain version"
-            if s == 2048 and dtype == torch.bfloat16:
-                err_main, timed = err, args
-            del args, out, ref
-    ms = time_ms(lambda: kernel(*timed, **kw), iters=20)
-    host_ms = eager_ms(lambda: kernel(*timed, **kw), iters=20)
-    plain_ms = time_ms(lambda: plain(*timed, **kw), iters=5)
-    nbytes, flops = nbytes_fn(*timed), flops_fn(*timed)
-    bms, by = bound(nbytes, flops, torch.bfloat16)
-    log(f"{name} timing bf16 {shape} S=2048: kernel {ms:.4f} ms (eager "
-        f"back-to-back {host_ms:.4f} ms), plain {plain_ms:.4f} ms, no "
-        f"PyTorch call computes the scan, bound {bms:.5f} ms ({by}; "
-        f"{nbytes} bytes, {flops / 1e9:.2f} GFLOP)")
-    report[name] = dict(max_abs_err=err_main, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=None)
 
 
 def _nbytes(*ts):
@@ -914,40 +909,15 @@ def check_k6(report):
     b, h, p, n, chunk = 4, 64, 64, 64, 256
     shape = f"B={b} H={h} P={p} N={n} chunk={chunk}"
     # the model path's launch is the kernel alone: no permute or copy of x,
-    # da or y around it.  The profiler can miss the kernels of a window
-    # later in the script (PERF.md, open questions): so this runs at the
-    # start of the check, which phase 3 runs right after K2's, and the
-    # call sits between two marker kernels (a spin, a fill) that must both
-    # be recorded.  A window that misses one is taken again (at most three
-    # times).
+    # da or y around it.  This runs at the start of the check, which phase
+    # 3 runs right after K2's (see ``marked_profile``).
     x, da, bm, cm = k6_inputs(b, 2048, h, p, n, torch.bfloat16,
                               torch.Generator().manual_seed(12))
     args = (x.unflatten(0, (b, h)).transpose(1, 2).contiguous(),
             da.unflatten(0, (b, h)).transpose(1, 2).contiguous(), bm, cm)
-    flag = torch.zeros(1, device=DEV)
-    ops.mamba2_ssd(*args, chunk=chunk)
-    torch.cuda.synchronize()
-
-    def marked():
-        torch.cuda._sleep(1000)
-        ops.mamba2_ssd(*args, chunk=chunk)
-        flag.fill_(1.0)
-
-    for attempt in range(1, 4):
-        rows, _ = profiled_kernels(marked)
-        marks = [any(m in k for k, _, _ in rows)
-                 for m in ("spin_kernel", "FillFunctor")]
-        rows = [r for r in rows
-                if "spin_kernel" not in r[0] and "FillFunctor" not in r[0]]
-        log(f"K6 profiled one ops.mamba2_ssd on the model layout bf16 "
-            f"between marker kernels (profile {attempt}): markers recorded "
-            f"{marks}, other device kernels "
-            f"{[(k[:60], c) for k, _, c in rows]}")
-        if all(marks):
-            break
-    assert all(marks) and len(rows) == 1 and rows[0][2] == 1 \
-        and "ssd_scan_mma_kernel" in rows[0][0], \
-        "ops.mamba2_ssd launched more than K6, or the profiler saw nothing"
+    marked_profile("K6 profiled one ops.mamba2_ssd on the model layout bf16",
+                   lambda: ops.mamba2_ssd(*args, chunk=chunk),
+                   "ssd_scan_mma_kernel")
     del x, da, bm, cm, args
     gen = torch.Generator().manual_seed(10)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1027,18 +997,146 @@ def check_k6(report):
                                    bound_by=by, library_ms=None)
 
 
+def fold(t):
+    """The model layout (B, S, H, D) as the public (B*H, S, D), a copy."""
+    b, s, h, d = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+def marked_profile(what, fn, kernel):
+    """One call of ``fn`` profiled between two marker kernels (a spin, a
+    fill) that must both be recorded, which must show ``kernel`` as its only
+    device kernel, launched once.  The profiler can miss the kernels of a
+    window later in the script (PERF.md, open questions): a window that
+    misses a marker is taken again (at most three times)."""
+    flag = torch.zeros(1, device=DEV)
+    fn()
+    torch.cuda.synchronize()
+
+    def marked():
+        torch.cuda._sleep(1000)
+        fn()
+        flag.fill_(1.0)
+
+    for attempt in range(1, 4):
+        rows, _ = profiled_kernels(marked)
+        marks = [any(m in k for k, _, _ in rows)
+                 for m in ("spin_kernel", "FillFunctor")]
+        rows = [r for r in rows
+                if "spin_kernel" not in r[0] and "FillFunctor" not in r[0]]
+        log(f"{what} between marker kernels (profile {attempt}): markers "
+            f"recorded {marks}, other device kernels "
+            f"{[(k[:60], c) for k, _, c in rows]}")
+        if all(marks):
+            break
+    assert all(marks) and len(rows) == 1 and rows[0][2] == 1 \
+        and kernel in rows[0][0], \
+        f"{what} launched more than {kernel}, or the profiler saw nothing"
+
+
 def check_k7(report):
-    """rwkv6-1.6b's eval shape: B=4, H=32, K=V=64, chunk 32.  Bound: each
-    input read once, y written once; operations of the naive recurrence
-    (per step and head 3KV for the state update, 2KV for the output)."""
+    """rwkv6-1.6b's eval shape: B=4, H=32, K=V=64, chunk 32.  First one
+    profiled ``ops.rwkv6_wkv`` on the model layout, which must launch K7
+    alone (no permute or copy kernel); then both modes (bf16 on the tensor
+    cores, fp32 on the CUDA cores) against the plain version at S=2048 and
+    a ragged 2000, bf16 also against the plain emulation of its rounding
+    points; the model layout through ``ops.rwkv6_wkv``, which must equal
+    the public entry bitwise, twice, and return y contiguous; the plan's
+    shared memory and blocks per SM against the kernel's; then timed on
+    the model layout.  Bound: each input read once, y written once (r, k,
+    v, lw, u, y); operations of the naive recurrence (per step and head
+    3KV for the state update, 2KV for the output)."""
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels import rwkv6_wkv as wkv
+    b, h, kd, chunk = 4, 32, 64, 32
+    shape = f"B={b} H={h} K=V={kd} chunk={chunk}"
+    args = k7_inputs(b, 2048, h, kd, torch.bfloat16,
+                     torch.Generator().manual_seed(12))
+    marked_profile("K7 profiled one ops.rwkv6_wkv on the model layout bf16",
+                   lambda: ops.rwkv6_wkv(*args, chunk=chunk),
+                   "wkv6_mma_kernel")
+    del args
     gen = torch.Generator().manual_seed(11)
-    b, h, kd = 4, 32, 64
-    check_scan(report, wkv.wkv6_scan_bhsd, wkv.wkv6_scan_ref, 32,
-               lambda s, dtype: k7_inputs(b, s, h, kd, dtype, gen),
-               f"B={b} H={h} K=V={kd} chunk=32",
-               lambda r, k, v, lw, u: _nbytes(r, k, v, lw, u) + _nbytes(v),
-               lambda r, k, v, lw, u: 5 * v.numel() * kd)
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (2048, 2000):
+            args = k7_inputs(b, s, h, kd, dtype, gen)
+            u = args[4]
+            public = [fold(t) for t in args[:4]]
+            before = ops.launch_counts()
+            out = wkv.wkv6_scan_bhsd(*public, u, chunk=chunk)
+            ym = ops.rwkv6_wkv(*args, chunk=chunk)
+            again = ops.rwkv6_wkv(*args, chunk=chunk)
+            after = ops.launch_counts()
+            assert after["wkv6_scan_bhsd"] == before["wkv6_scan_bhsd"] + 3 \
+                and sum(after.values()) == sum(before.values()) + 3
+            ref = wkv.wkv6_scan_ref(*public, u, chunk=chunk)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            finite = bool(torch.isfinite(out.float()).all())
+            log(f"wkv6_scan_bhsd {str(dtype)[6:]:8s} {shape} S={s}: "
+                f"max_abs_err {err:.3e} (tol {TOL[dtype]}; max |plain| "
+                f"{float(ref.float().abs().max()):.3f}), finite={finite}")
+            assert finite and err <= TOL[dtype], \
+                "wkv6_scan_bhsd disagrees with its plain version"
+            if dtype == torch.bfloat16:
+                # the bf16 mode rounds where its source says: its y equals
+                # the plain emulation of those roundings, rounded to bf16,
+                # in nearly every element, and that emulation is within
+                # 1e-2 of the all-fp32 version
+                emu = wkv.wkv6_scan_mma_emu(*public, u)
+                same = float((out == emu.to(dtype)).float().mean())
+                emu_err = max_err(emu, wkv.wkv6_scan_ref(
+                    *(t.float() for t in public), u, chunk=chunk))
+                log(f"  bf16 rounding points: kernel equal to "
+                    f"wkv6_scan_mma_emu rounded to bf16 in {same:.5f} of "
+                    f"the elements (gate 0.999), which is {emu_err:.3e} from "
+                    f"the all-fp32 plain version (gate 1e-2); max |kernel - "
+                    f"emulation| {max_err(out, emu):.3e}")
+                assert same >= 0.999 and emu_err <= 1e-2, \
+                    "K7 bf16 rounds other than its source states"
+                del emu
+            same = bool(torch.equal(fold(ym), out))
+            twice = bool(torch.equal(ym, again))
+            log(f"  model layout (B, S, H, V) through ops.rwkv6_wkv: equal "
+                f"to the public layout's output {same}, two calls bitwise "
+                f"equal {twice}, y contiguous {ym.is_contiguous()}")
+            assert same and twice and ym.is_contiguous()
+            if s == 2048 and dtype == torch.bfloat16:
+                err_main, timed = err, args
+            del args, public, out, ref, ym, again
+    for dtype, mode in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        vs = wkv.vs_for(mode, kd)
+        code = wkv._DTYPES[dtype]
+        smem = _build.entry("rwkv6_wkv_smem_bytes")(code, kd, vs)
+        occupancy = _build.entry("rwkv6_wkv_blocks_per_sm")(code, kd, vs)
+        log(f"K7 {mode}: {vs}-column V slices, {b * h * -(-kd // vs)} "
+            f"blocks; shared memory kernel {smem} B, plan "
+            f"{wkv.smem_bytes(mode, kd, vs)} B; blocks per SM occupancy API "
+            f"{occupancy}, plan {wkv.blocks_per_sm(mode, kd, vs)}")
+        assert smem == wkv.smem_bytes(mode, kd, vs) <= wkv.SMEM_LIMIT \
+            and occupancy == wkv.blocks_per_sm(mode, kd, vs), \
+            f"K7 {mode}: the plan's figures are not the kernel's"
+    ms = time_ms(lambda: ops.rwkv6_wkv(*timed, chunk=chunk), iters=20)
+    host_ms = eager_ms(lambda: ops.rwkv6_wkv(*timed, chunk=chunk), iters=20)
+    public = [fold(t) for t in timed[:4]]
+    plain_ms = time_ms(lambda: wkv.wkv6_scan_ref(*public, timed[4],
+                                                 chunk=chunk), iters=5)
+    fp32 = [t.float() for t in timed[:3]] + list(timed[3:])
+    fp32_ms = time_ms(lambda: ops.rwkv6_wkv(*fp32, chunk=chunk), iters=20)
+    nbytes = _nbytes(*timed) + _nbytes(timed[2])
+    flops = 5 * timed[2].numel() * kd
+    bms, by = bound(nbytes, flops, torch.bfloat16)
+    fp32_bytes = _nbytes(*fp32) + _nbytes(fp32[2])
+    fp32_bms, _ = bound(fp32_bytes, flops, torch.float32)
+    log(f"wkv6_scan_bhsd timing bf16 {shape} S=2048, model layout: kernel "
+        f"{ms:.4f} ms (eager back-to-back {host_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, no PyTorch call computes the scan, bound "
+        f"{bms:.5f} ms ({by}; {nbytes} bytes, {flops / 1e9:.2f} GFLOP); "
+        f"fp32 mode {fp32_ms:.4f} ms (bound {fp32_bms:.5f} ms, {fp32_bytes} "
+        f"bytes)")
+    report["wkv6_scan_bhsd"] = dict(max_abs_err=err_main, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bms,
+                                    bound_by=by, library_ms=None)
 
 
 # ------------------------------------------------------------- phase 4 ----
@@ -1553,7 +1651,7 @@ KERNEL_GROUPS = (("K1 paged_decode", ("paged_decode_split_kernel",)),
                  ("K5 adamw", ("adamw_kernel",)),
                  ("K6 ssd_scan", ("ssd_scan_mma_kernel",
                                   "ssd_scan_fp32_kernel")),
-                 ("K7 wkv6", ("wkv6_kernel",)),
+                 ("K7 wkv6", ("wkv6_mma_kernel", "wkv6_fp32_kernel")),
                  ("matmul", ("gemm", "sm90_", "cutlass", "cublas", "xmma",
                              "nvjet")),
                  ("indexing", ("index", "scatter", "gather", "embedding")),
@@ -1585,13 +1683,14 @@ def profile_call(what: str, fn, top: int = 10) -> None:
     """Where the time of one call of ``fn`` goes: device time by kernel
     group (torch.profiler, CUPTI), the number of kernels it launched, the
     device's busy and idle share of the call's wall time, and the largest
-    kernels.  It runs after a counted run; its launches are not counted."""
+    kernels.  It runs after a counted run; its launches are not counted.
+    Returns the device ms by group and the busy ms."""
     rows, wall_ms = profiled_kernels(fn)
     busy = sum(ms for _, ms, _ in rows)
     if not busy:
         log(f"profiled {what}: wall {wall_ms:.2f} ms; the profiler "
             "recorded no device time (device breakdown not measured)")
-        return
+        return {}, 0.0
     log(f"profiled {what}: wall {wall_ms:.2f} ms, device busy "
         f"{busy:.2f} ms, device idle share {1 - busy / wall_ms:.3f}, "
         f"{sum(n for _, _, n in rows)} device kernels")
@@ -1604,11 +1703,13 @@ def profile_call(what: str, fn, top: int = 10) -> None:
         log(f"  {group:24s} {ms:9.3f} ms  {ms / busy * 100:5.1f}% of busy")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    return groups, busy
 
 
 # --------------------------------------------------------- phases 8, 9 ----
 
 RECURRENT = ("zamba2-1.2b", "rwkv6-1.6b")
+MIXER_GROUP = {"ssd_scan_bhsd": "K6 ssd_scan", "wkv6_scan_bhsd": "K7 wkv6"}
 
 
 def recurrent_opts():
@@ -1796,8 +1897,15 @@ def recurrent_eval(report):
             f"forward {fwd_ms:.2f} ms mean (min {fwd_min:.2f}); peak memory "
             f"{peak:.2f} GiB; plain-path eval {plain_eval_ms:.2f} ms mean "
             f"[{nvidia_smi_line()}]")
-        profile_call(f"[{name}] bf16 forward B={b} S={s}",
-                     lambda: forward("kernel"))
+        groups, busy = profile_call(f"[{name}] bf16 forward B={b} S={s}",
+                                    lambda: forward("kernel"))
+        if busy:
+            shares = ", ".join(
+                f"{g} {groups.get(g, 0.0):.3f} ms "
+                f"({groups.get(g, 0.0) / busy * 100:.1f}%)"
+                for g in (MIXER_GROUP[mixer], "elementwise and copies"))
+            log(f"[{name}] of the profiled forward's {busy:.2f} ms busy: "
+                f"{shares}")
         del params, evals
         free()
 
@@ -2175,10 +2283,10 @@ def main() -> int:
     check_k1_int8(report)
     check_k2(report)
     check_k6(report)
+    check_k7(report)
     check_k3(report)
     check_k4(report)
     check_k5(report)
-    check_k7(report)
     free()
 
     phase("4 full-width qwen3-4b fp32: kernel path vs plain path, native "

@@ -87,6 +87,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "ptx.cuh"
 
 struct Strides {  // element strides: q, out (b, kv, g, s); k, v (b, kv, s)
   long long qb, qkv, qg, qs, kb, kkv, ks, vb, vkv, vs, ob, okv, og, os;
@@ -245,10 +246,6 @@ template <int D> constexpr size_t tc_smem_bytes() {
          16 * kStages;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // The 16-byte chunk index (address bits 4-6) XOR the 128-byte row index
 // (bits 7-9), as many bits as the swizzle is wide (MASK 7: 128-byte, 3:
 // 64-byte): the layout TMA's swizzle modes write and wgmma's descriptors
@@ -257,12 +254,6 @@ template <int MASK> __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
   return off ^ (((off >> 7) & MASK) << 4);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -336,10 +327,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 p) {
-  return *reinterpret_cast<uint32_t*>(&p);  // .x in the low half
 }
 
 // P = hi + lo in two bf16 terms, two consecutive values (k, k + 1) a

@@ -87,6 +87,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "ptx.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -170,10 +171,8 @@ struct Params {
   Layout L;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared; `bytes` 0 zero-fills without reading
+// 16 bytes global -> shared; `bytes` 0 zero-fills without reading.  These
+// take a generic pointer into shared memory (ptx.cuh's take its address).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -187,12 +186,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(bytes)
                : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // 2^x (MUFU.EX2): the kernel keeps its scores in log2 units

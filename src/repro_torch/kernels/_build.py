@@ -46,7 +46,10 @@ ENTRIES = {
                           [_I] + [_P] * 5 + [_I] * 5 + [_P] * 2),
     "mamba2_ssd_smem_bytes": ("mamba2_ssd", [_I] * 3),
     "mamba2_ssd_blocks_per_sm": ("mamba2_ssd", []),
-    "rwkv6_wkv_launch": ("rwkv6_wkv", [_I] + [_P] * 6 + [_I] * 6 + [_P]),
+    "rwkv6_wkv_launch": ("rwkv6_wkv",
+                         [_I] + [_P] * 6 + [_I] * 7 + [_P] * 2),
+    "rwkv6_wkv_smem_bytes": ("rwkv6_wkv", [_I] * 3),
+    "rwkv6_wkv_blocks_per_sm": ("rwkv6_wkv", [_I] * 3),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

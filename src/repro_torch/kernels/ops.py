@@ -1,7 +1,8 @@
 """Model-layout wrappers around the port's kernels, and their launch counts.
 
 Model code calls these; each reshapes to its kernel's layout and back
-(K2 and K6 read and write the model layout themselves, through strides).
+(K2, K6 and K7 read and write the model layout themselves, through
+strides).
 On a CPU tensor the kernel module runs its plain version, on a CUDA tensor it
 launches the kernel (``repro_torch.kernels.{flash_attention,paged_decode,
 rmsnorm,softmax_xent,adamw_update,mamba2_ssd,rwkv6_wkv}``).  ``launch_counts()`` reads how often
@@ -23,7 +24,7 @@ from repro_torch.kernels.paged_decode import (
     paged_flash_decode, paged_flash_decode_int8, paged_flash_decode_partials,
     paged_flash_decode_partials_int8)
 from repro_torch.kernels.rmsnorm import rmsnorm_rows
-from repro_torch.kernels.rwkv6_wkv import wkv6_scan_bhsd
+from repro_torch.kernels.rwkv6_wkv import wkv6_scan_bhsd, wkv6_scan_model
 from repro_torch.kernels.softmax_xent import (SoftmaxXent, softmax_xent_bwd,
                                               softmax_xent_fwd)
 
@@ -121,13 +122,8 @@ def softmax_xent(logits, labels, vocab: int):
 mamba2_ssd = ssd_scan_model
 
 
-def rwkv6_wkv(r, k, v, lw, u, *, chunk: int = 32):
-    """Model layout: r, k, lw (B, S, H, K); v (B, S, H, V); lw fp32; u
-    (H, K) fp32.  Returns (B, S, H, V) like r."""
-    b, s, h, kd = r.shape
-
-    def fold(t):
-        return t.permute(0, 2, 1, 3).reshape(b * h, s, t.shape[-1])
-
-    o = wkv6_scan_bhsd(fold(r), fold(k), fold(v), fold(lw), u, chunk=chunk)
-    return o.reshape(b, h, s, v.shape[-1]).permute(0, 2, 1, 3)
+# r, k, lw (B, S, H, K), v (B, S, H, V); lw fp32, u (H, K) fp32 -> (B, S,
+# H, V) like r, contiguous on the card, so ``tmix_block`` reshapes it as a
+# view: K7 takes the model layout as it is.  Both of K7's modes count in
+# ``wkv6_scan_bhsd``.
+rwkv6_wkv = wkv6_scan_model

@@ -735,37 +735,197 @@ def test_ssd_scan_refuses_what_it_does_not_take():
     assert tssd.ssd_scan_bhsd.launches == before
 
 
+def _wkv_model_inputs(b, s, h, kd, vd, td, dev):
+    """The model layout r, k, lw (B, S, H, K), v (B, S, H, V), u (H, K):
+    r, k, v ~ N(0, 0.15^2) keep |y| below 4, where one bf16 unit is at most
+    1.6e-2 (see the K6 test); log decays span the model's range down to the
+    -2.5 floor."""
+    r, kk = (0.15 * torch.randn(b, s, h, kd, device=dev).to(td)
+             for _ in range(2))
+    vv = (0.15 * torch.randn(b, s, h, vd, device=dev)).to(td)
+    lw = (-torch.empty(b, s, h, kd, device=dev).uniform_(-6, 1.5).exp()) \
+        .clamp(min=-2.5)
+    u = 0.3 * torch.randn(h, kd, device=dev)
+    return r, kk, vv, lw, u
+
+
+def _fold(t):
+    b, s, h, d = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b * h, s, d)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,s,h,k,chunk", [
-    (1, 64, 1, 16, 16), (2, 128, 3, 32, 32), (1, 96, 2, 64, 32),
-    (2, 100, 4, 64, 32), (1, 1, 2, 64, 32)])
-def test_wkv6_kernel_matches_plain(b, s, h, k, chunk, dtype):
+@pytest.mark.parametrize("b,s,h,k,v,chunk", [
+    (1, 64, 1, 16, 16, 16), (2, 128, 3, 32, 32, 32), (1, 96, 2, 64, 64, 32),
+    (2, 100, 4, 64, 64, 32), (1, 1, 2, 64, 64, 32), (2, 300, 2, 128, 128, 32),
+    (2, 100, 3, 64, 48, 32), (1, 130, 2, 128, 40, 16)])
+def test_wkv6_kernel_matches_plain(b, s, h, k, v, chunk, dtype):
     """``tests/test_kernels.py``'s sweep shapes, a ragged S (100: three
-    full 32-step chunks and a tail) and a single step; log decays span the
-    model's range down to the -2.5 floor.  r, k, v ~ N(0, 0.15^2) keep |y|
-    below 4, where one bf16 unit is at most 1.6e-2 (see the K6 test)."""
+    full 32-step chunks and a tail), a single step, K = V = 128, and V
+    split unevenly over the blocks of a row (48 = 32 + 16, 40 = 32 + 8),
+    on the public layout: one launch a call, two calls bitwise equal."""
     dev = _card()
     td = DTYPES[dtype]
-    r, kk, vv = (0.15 * torch.randn(b * h, s, k, device=dev).to(td)
-                 for _ in range(3))
-    lw = (-torch.empty(b * h, s, k, device=dev).uniform_(-6, 1.5).exp()) \
-        .clamp(min=-2.5)
-    u = 0.3 * torch.randn(h, k, device=dev)
+    r, kk, vv, lw, u = (_fold(t) if t.dim() == 4 else t
+                        for t in _wkv_model_inputs(b, s, h, k, v, td, dev))
     before = twkv.wkv6_scan_bhsd.launches
     got = twkv.wkv6_scan_bhsd(r, kk, vv, lw, u, chunk=chunk)
     assert twkv.wkv6_scan_bhsd.launches == before + 1
     assert got.dtype == td and bool(torch.isfinite(got.float()).all())
+    assert torch.equal(got, twkv.wkv6_scan_bhsd(r, kk, vv, lw, u,
+                                                chunk=chunk))
     ref = twkv.wkv6_scan_ref(r, kk, vv, lw, u, chunk=chunk)
     assert float(ref.float().abs().max()) < 4
     assert _err(got, ref) <= TOL[dtype]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [2048, 2000])
+def test_wkv6_model_layout_equals_public_layout(s, dtype):
+    """``ops.rwkv6_wkv`` on the model layout at rwkv6-1.6b's shape (B=4,
+    H=32, K=V=64): one K7 launch, y (B, S, H, V) contiguous and bitwise
+    equal to the public entry's output on the folded inputs, and to itself
+    on a second call; both within the tolerance of the plain version."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    td = DTYPES[dtype]
+    b, h, kd = 4, 32, 64
+    args = _wkv_model_inputs(b, s, h, kd, kd, td, dev)
+    before = twkv.wkv6_scan_bhsd.launches
+    with torch.no_grad():
+        got = ops.rwkv6_wkv(*args, chunk=32)
+    assert twkv.wkv6_scan_bhsd.launches == before + 1
+    assert got.shape == (b, s, h, kd) and got.is_contiguous()
+    assert torch.equal(got, ops.rwkv6_wkv(*args, chunk=32))
+    public = twkv.wkv6_scan_bhsd(*(_fold(t) for t in args[:4]), args[4])
+    assert torch.equal(_fold(got), public)
+    ref = twkv.wkv6_scan_ref(*(_fold(t) for t in args[:4]), args[4])
+    assert _err(public, ref) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [2048, 2000])
+def test_wkv6_bf16_rounds_where_its_note_says(s):
+    """At rwkv6-1.6b's shape the bf16 mode's y equals ``wkv6_scan_mma_emu``
+    (the rounding points its source names and its 32-step tiles, emulated
+    in fp32 in the kernel's order of additions) rounded to bf16 in at least
+    99.9% of the elements, and that emulation is within 1e-2 of the
+    all-fp32 plain version: the kernel rounds there and nowhere else."""
+    dev = _card()
+    b, h, kd = 4, 32, 64
+    args = _wkv_model_inputs(b, s, h, kd, kd, torch.bfloat16, dev)
+    with torch.no_grad():
+        got = _fold(twkv.wkv6_scan_model(*args))
+    folded = [_fold(t) for t in args[:4]]
+    emu = twkv.wkv6_scan_mma_emu(*folded, args[4])
+    same = float((got == emu.to(torch.bfloat16)).float().mean())
+    assert same >= 0.999, same
+    ref = twkv.wkv6_scan_ref(*(t.float() for t in folded), args[4])
+    assert _err(emu, ref) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_wkv6_fp32_takes_unaligned_layouts():
+    """The fp32 mode reads scalars: K and V that are not multiples of 4, a
+    step stride of 56 bytes and a base off a 16-byte boundary launch as
+    they are and match the plain version."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    b, s, h, kd, vd = 2, 100, 3, 13, 6
+    r, kk, vv, lw, u = _wkv_model_inputs(b, s, h, kd, vd, torch.float32, dev)
+    wide = torch.zeros(b, s, h, kd + 1, device=dev)
+    wide[..., :kd] = r
+    flat = torch.zeros(b * s * h * vd + 1, device=dev)
+    flat[1:] = vv.flatten()
+    shifted = flat[1:].view(b, s, h, vd)
+    before = twkv.wkv6_scan_bhsd.launches
+    with torch.no_grad():
+        got = ops.rwkv6_wkv(wide[..., :kd], kk, shifted, lw, u, chunk=16)
+    assert twkv.wkv6_scan_bhsd.launches == before + 1
+    ref = twkv.wkv6_scan_ref(*(_fold(t) for t in (r, kk, vv, lw)), u,
+                             chunk=16)
+    assert _err(_fold(got), ref) <= TOL["float32"]
+
+
+@pytest.mark.gpu
+def test_wkv6_model_layout_launches_only_k7():
+    """One profiled ``ops.rwkv6_wkv`` on the model layout runs K7's device
+    kernel and nothing else: no permute, copy or contiguous kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    dev = _card()
+    args = _wkv_model_inputs(4, 2048, 32, 64, 64, torch.bfloat16, dev)
+    ops.rwkv6_wkv(*args)       # build and warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.rwkv6_wkv(*args)
+        torch.cuda.synchronize()
+    names = {ev.key for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and ev.self_device_time_total > 0}
+    assert names and all("wkv6_mma_kernel" in k for k in names), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kd,vd", [(64, 64), (128, 128), (16, 16), (64, 48)])
+def test_wkv6_plan_matches_the_kernel(dtype, kd, vd):
+    """The plan's shared memory and blocks per SM are the C entries'
+    (``rwkv6_wkv_smem_bytes``, and ``rwkv6_wkv_blocks_per_sm`` from the
+    occupancy API), and a launch as planned runs."""
+    from repro_torch.kernels import _build
+    dev = _card()
+    td = DTYPES[dtype]
+    r, kk, vv, lw, u = _wkv_model_inputs(1, 64, 2, kd, vd, td, dev)
+    pl = twkv.plan(r, kk, vv, lw, u, torch.empty_like(vv))
+    code = twkv._DTYPES[td]
+    assert pl.smem == _build.entry("rwkv6_wkv_smem_bytes")(code, kd, pl.vs)
+    assert pl.blocks_per_sm == \
+        _build.entry("rwkv6_wkv_blocks_per_sm")(code, kd, pl.vs)
+    twkv.wkv6_scan_model(r, kk, vv, lw, u)
+    torch.cuda.synchronize()
+    if (dtype, kd) == ("bfloat16", 64):
+        assert pl.blocks_per_sm == 2
+
+
+@pytest.mark.gpu
+def test_wkv6_refuses_what_it_does_not_take():
+    """The bf16 mode takes K and V in multiples of 8 up to 128 and loads
+    rows in 16-byte chunks: beyond that, another dtype, or a layout whose
+    rows are not 16-byte aligned, K7 raises; it never routes to the plain
+    version or to the fp32 mode, and counts no launch."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    bf = torch.bfloat16
+    before = twkv.wkv6_scan_bhsd.launches
+    for kd, vd in ((12, 64), (64, 20), (136, 64)):
+        args = _wkv_model_inputs(1, 64, 2, kd, vd, bf, dev)
+        with pytest.raises(ValueError, match="takes K and V"):
+            ops.rwkv6_wkv(*args)
+    r, kk, vv, lw, u = _wkv_model_inputs(1, 64, 2, 64, 64, bf, dev)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.rwkv6_wkv(r.half(), kk.half(), vv.half(), lw, u)
+    wide = torch.zeros(1, 64, 2, 68, device=dev, dtype=bf)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.rwkv6_wkv(wide[..., :64], kk, vv, lw, u)
+    lwide = torch.zeros(1, 64, 2, 65, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.rwkv6_wkv(r, kk, vv, lwide[..., :64], u)
+    flat = torch.zeros(64 * 2 * 64 + 1, device=dev, dtype=bf)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.rwkv6_wkv(r, kk, flat[1:].view(1, 64, 2, 64), lw, u)
+    assert twkv.wkv6_scan_bhsd.launches == before
+
+
+@pytest.mark.gpu
 def test_scan_kernels_refuse_autograd_and_bad_inputs():
     """K6 and K7 have no backward in either package: a CUDA input that
-    requires a gradient raises; so do a K7 chunk over 32 steps and a K6 B/C
-    of another dtype.  Under no_grad they run."""
+    requires a gradient raises; so do a K7 chunk over 32 steps, K7 strides
+    that break its 16-byte copies (bf16) and a K6 B/C of another dtype.
+    Under no_grad they run, one launch a call."""
     dev = _card()
     x = torch.randn(4, 64, 32, device=dev, requires_grad=True)
     da = -torch.rand(4, 64, device=dev)
@@ -779,11 +939,19 @@ def test_scan_kernels_refuse_autograd_and_bad_inputs():
     u = torch.randn(2, 32, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         twkv.wkv6_scan_bhsd(r, r, r, lw, u)
+    with pytest.raises(RuntimeError, match="no backward"):
+        twkv.wkv6_scan_model(*(t.unsqueeze(0) for t in (r, r, r, lw)), u)
     with torch.no_grad():
         with pytest.raises(ValueError, match="exact only for chunks"):
             twkv.wkv6_scan_bhsd(r, r, r, lw, u, chunk=64)
+        rb = torch.zeros(4, 64, 36, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="16-byte"):
+            twkv.wkv6_scan_bhsd(rb[..., :32], rb[..., :32], rb[..., :32],
+                                lw, u)
         tssd.ssd_scan_bhsd(x, da, bm, bm)
+        before = twkv.wkv6_scan_bhsd.launches
         twkv.wkv6_scan_bhsd(r, r, r, lw, u)
+        assert twkv.wkv6_scan_bhsd.launches == before + 1
 
 
 @pytest.mark.gpu
