@@ -56,13 +56,25 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    int8-vs-native logit difference and their greedy agreement are printed;
 5. serve: full-width qwen3-4b in bf16 through ``ServeEngine`` (16 requests,
    prompts of 16-200 tokens, some sharing a prefix, 32 new tokens each,
-   max_batch 8, max_seq 512, page 16), over native pages and then over int8
-   pages; in each run every request completes, one decode dispatch per
-   iteration, and the kernel launch counts match the decode steps, prefill
-   dispatches and norms of that run (the int8 run launches K1's int8 mode,
-   never the native one); the pools' bytes from ``memory_stats()`` and as
-   allocated on the card; one fused decode step of each run, and one
-   prefill forward of 8 prompts of bucket 256, profiled;
+   max_batch 8, max_seq 512, page 16), each decode step one replay of the
+   engine's CUDA graph: over native pages, over int8 pages, the same two
+   eagerly (``cuda_graph=False``), and over the contiguous cache (604 MB of
+   bf16 K/V); in each run every request completes, one decode dispatch per
+   iteration, one graph replay per decode iteration (none eagerly), and the
+   kernel launch counts match the decode steps, prefill dispatches and
+   norms of that run (the int8 run launches K1's int8 mode, never the
+   native one; the contiguous run no K1); the graph's streams equal the
+   eager ones token for token (native and int8), contiguous and int8
+   streams are reported against native; decode step ms, tok/s, TTFT, the
+   pools' bytes (``memory_stats()``, the tensors, as allocated at
+   construction) and the graph's capture ms and private pool bytes; one
+   replay timed with CUDA events; one fused decode step of each run
+   profiled, the window held to K1's 36 launches (kernels, busy ms, idle
+   share, K1's and K3's device time inside a replay), and one prefill
+   forward of 8 prompts of bucket 256; then, on 8 prompts
+   admitted together, one replayed step's (B, V) rows bitwise equal to the
+   same step run eagerly, and the contiguous cache's rows bitwise equal to
+   paged ``decode_impl="gather"`` rows;
 6. training parity: full-width qwen3-4b cut to 2 layers, fp32, two train
    steps through K4 and K5 and through their plain versions; loss,
    grad_norm and every parameter agree to a relative max error of 1e-3;
@@ -109,7 +121,8 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    logits against its own single-card cache (1e-4 relative max error);
    (c) the two ranks serve phase 5's workload (257 pages padded to 258)
    over native, then int8 pages, then native pages over 129 pages (padded
-   to 130), where the live slots outgrow one rank's shard: each rank
+   to 130), where the live slots outgrow one rank's shard, stepping
+   eagerly (the merge goes through the host): each rank
    launches ``paged_flash_decode_partials[_int8]`` exactly 36 times per
    decode step and the normalized K1 never, pins half the padded pool plus
    one sink page, and both ranks emit the same streams (how many equal
@@ -1281,11 +1294,13 @@ def serve_prompts(cfg):
 
 def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
     """Phase 5's served runs (phase 10's on one rank of a sharded pool):
-    after a two-request warm-up, the 16 requests over each (page format,
-    pool pages) of ``runs`` (``None``: the engine's default pool, 257
-    pages), each run gated on its own launch counts.  Returns {label:
-    {"streams", "launches", "decode_ms", "pool_bytes", ...}}, the label
-    the page format, with ``-<pages>`` for a pool of other than 257."""
+    after a two-request warm-up, the 16 requests through one engine per
+    ``(label, engine keywords)`` of ``runs`` (max_batch 8, max_seq 512, page
+    16; the default pool, 257 pages), each run gated on its own launch
+    counts and, on one card, on one graph replay per decode iteration
+    (none with ``cuda_graph=False``; a sharded pool steps eagerly).
+    Returns {label: {"streams", "launches", "decode_ms", "pool_bytes",
+    ...}}."""
     from repro_torch.kernels import ops
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.serve.kvcache import page_kv_bytes
@@ -1296,26 +1311,28 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
     def requests():
         return [Request(i, p, max_new_tokens=32) for i, p in enumerate(prompts)]
 
-    def engine(kv_dtype, num_pages=None):
+    def engine(**kw):
         return ServeEngine(lm, params, max_batch=8, max_seq=512,
-                           page_size=16, num_pages=num_pages, device=DEV,
-                           kv_dtype=kv_dtype, pool_group=pool_group)
+                           page_size=16, device=DEV, pool_group=pool_group,
+                           **kw)
 
-    warm = engine("native")                   # cuBLAS and allocator warm-up
+    warm = engine()                          # cuBLAS and allocator warm-up
     for r in requests()[:2]:
         warm.submit(r)
     warm.run_until_drained()
     del warm
     out = {}
-    for kv_dtype, num_pages in runs:
-        label = kv_dtype + (f"-{num_pages}" if num_pages else "")
+    for label, kw in runs:
         tag = f"[{log_name} {label}]"
         free()
         before = torch.cuda.memory_allocated()
-        eng = engine(kv_dtype, num_pages)
+        eng = engine(**kw)
         torch.cuda.synchronize()
         pool_bytes = torch.cuda.memory_allocated() - before
-        decode_ms, prefill_ms = [], []
+        graph = eng._graph is not None
+        assert graph == (not sharded and kw.get("cuda_graph", True)), \
+            f"{tag} captured a graph: {graph}"
+        decode_ms, prefill_ms, replays = [], [], []
 
         def timed(fn, sink):
             def run(*a):
@@ -1326,17 +1343,23 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
                 return out
             return run
 
+        def counted_replay(view, replay=eng._replay):
+            replays.append(1)
+            return replay(view)
+
         eng._fused = timed(eng._fused, decode_ms)
         eng._prefill_group = timed(eng._prefill_group, prefill_ms)
+        eng._replay = counted_replay
         per_chip = [0] * eng.kv.chips          # fresh pages handed out
 
-        def counted(need, take=eng.kv._take_fresh):
+        def counted(need, take=getattr(eng.kv, "_take_fresh", None)):
             pages = take(need)
             for pid in pages:
                 per_chip[pid // eng.kv.pages_per_chip] += 1
             return pages
 
-        eng.kv._take_fresh = counted
+        if eng.kv.backend == "paged":
+            eng.kv._take_fresh = counted
         reqs = requests()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1357,44 +1380,101 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
                                        len(r.out_tokens) == 32 for r in done)
         assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
         assert decodes == iters, (decodes, iters)
+        assert len(replays) == (decodes if graph else 0), \
+            f"{tag} {len(replays)} graph replays for {decodes} decode steps"
         L = cfg.num_layers
         norms = L * (2 + 2 * cfg.qk_norm) + 1
-        k1 = ("paged_flash_decode" + ("_partials" if sharded else "")
-              + ("_int8" if kv_dtype == "int8" else ""))
+        k1 = None
+        if eng.kv.backend == "paged" and eng.decode_impl == "kernel":
+            k1 = ("paged_flash_decode" + ("_partials" if sharded else "")
+                  + ("_int8" if eng.kv.quantized else ""))
         want = {name: 0 for name in launches}
-        want.update({k1: decodes * L,
-                     "flash_attention_bhsd": prefills * L,
+        want.update({"flash_attention_bhsd": prefills * L,
                      "rmsnorm_rows": (decodes + prefills) * norms})
+        if k1:
+            want[k1] = decodes * L
         log(f"{tag} launch counts {launches}, expected {want}")
         assert launches == want, "the main path did not run every kernel"
         ttft = reg.histogram("serve_ttft_seconds").quantile(0.5) * 1e3
         st = eng.kv.memory_stats()
+        gs = eng.graph_stats or {}
         log(f"{tag} served 16 requests, {tokens} tokens in {wall:.3f}s: "
             f"{tokens / wall:.1f} tok/s, TTFT p50 {ttft:.1f} ms, "
             f"{iters:.0f} iterations, {prefills:.0f} prefill dispatches, mean "
-            f"decode step {np.mean(decode_ms):.2f} ms, mean prefill dispatch "
+            f"decode step {np.mean(decode_ms):.2f} ms "
+            f"({'one CUDA graph replay' if graph else 'eager'}; "
+            f"{len(replays)} replays), mean prefill dispatch "
             f"{np.mean(prefill_ms):.2f} ms, pages shared "
             f"{reg.gauge('serve_kv_pages_shared').get():.0f} at last "
             f"admission, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"[{nvidia_smi_line()}]")
-        log(f"{tag} KV pool: memory_stats {st.bytes_total} B "
-            f"({st.pages_total + 1} pages of {st.page_size}, scales "
-            f"{st.bytes_scales} B; per chip {st.bytes_per_chip} B + sink "
-            f"{st.bytes_sink_per_chip} B), allocated on the card at "
-            f"construction {pool_bytes} B; saved vs bf16 pages "
+        pool_tensor_bytes = sum(t.numel() * t.element_size()
+                                for t in eng.kv.state["layers"].values())
+        log(f"{tag} KV cache [{st.backend}]: memory_stats {st.bytes_total} B "
+            f"({st.pages_total + 1 if st.page_size else 0} pages of "
+            f"{st.page_size}, scales {st.bytes_scales} B; per chip "
+            f"{st.bytes_per_chip} B + sink {st.bytes_sink_per_chip} B), "
+            f"pool tensors {pool_tensor_bytes} B, memory_allocated grew "
+            f"{pool_bytes} B at construction; CUDA graph: capture "
+            f"{gs.get('capture_ms', 0.0):.1f} ms, its private pool "
+            f"{gs.get('pool_bytes', 0)} B reserved; saved vs bf16 pages "
             f"{reg.gauge('serve_kv_quant_bytes_saved').get():.0f} B; fresh "
             f"pages handed out per chip {per_chip}")
-        # one more fused step, all slots parked on the scratch page: the
-        # same launches and host work as a step of the run (every rank of
-        # a sharded pool takes it, one profiled)
+        assert pool_tensor_bytes == st.bytes_total or sharded
+        # one more fused step, all slots parked (on the scratch page when
+        # paged): the same launches and host work as a step of the run, a
+        # graph replay where the run replayed one (every rank of a sharded
+        # pool takes it, one profiled)
         zeros = np.zeros(8, np.int64)
 
         def step():
             return ServeEngine._fused(eng, zeros, zeros).cpu()
 
+        prof = {}
+        if graph:
+            # the replay's device time alone (CUDA events over 20 replays,
+            # every slot parked): the step's busy time, whether or not the
+            # profiler records the window below
+            view = eng.kv.decode_view()
+            eng._replay(view)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                eng._replay(view)
+            end.record()
+            end.synchronize()
+            prof["replay_ms"] = start.elapsed_time(end) / 20
+            log(f"{tag} one replay on the device: {prof['replay_ms']:.3f} ms "
+                f"(CUDA events, 20 replays); of the run's mean decode step "
+                f"{np.mean(decode_ms):.2f} ms the device is idle "
+                f"{1 - prof['replay_ms'] / np.mean(decode_ms):.3f} "
+                f"[{nvidia_smi_line()}]")
         if profile:
-            profile_call(f"{tag} fused decode step (B=8)", step, top=6)
+            # the window must hold K1's launches (every rank of a sharded
+            # pool takes the step once, so it is not taken again there)
+            expect = ({"paged_decode_split_kernel": L}
+                      if k1 and not sharded else None)
+            groups, busy, rows, wall_ms = profile_call(
+                f"{tag} fused decode step (B=8), "
+                f"{'one graph replay' if graph else 'eager'}", step, top=6,
+                expect=expect)
+            if busy:
+                seen = {part: sum(n for key, _, n in rows if part in key)
+                        for part in ("paged_decode_split", "rmsnorm_kernel")}
+                prof.update(busy_ms=busy, wall_ms=wall_ms,
+                            kernels=sum(n for _, _, n in rows),
+                            idle=1 - busy / wall_ms,
+                            k1_ms=groups.get("K1 paged_decode", 0.0),
+                            k3_ms=groups.get("K3 rmsnorm", 0.0))
+                log(f"{tag} profiled step: {prof['kernels']} kernels, busy "
+                    f"{busy:.3f} ms, idle share {prof['idle']:.3f}; inside "
+                    f"it K1 {prof['k1_ms']:.4f} ms over the "
+                    f"{seen['paged_decode_split']} launches the profiler saw "
+                    f"({L if k1 else 0} launched), K3 {prof['k3_ms']:.4f} ms "
+                    f"over {seen['rmsnorm_kernel']} ({norms} launched) "
+                    f"[{nvidia_smi_line()}]")
         else:
             step()
         if profile and label == "native":
@@ -1410,39 +1490,97 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
             profile_call(f"{tag} prefill forward (8 x 256)", prefill, top=8)
         out[label] = dict(
             streams={r.id: r.out_tokens for r in done}, launches=launches,
-            per_chip=per_chip, pool_tensor_bytes=sum(
-                t.numel() * t.element_size()
-                for t in eng.kv.state["layers"].values()),
+            per_chip=per_chip, pool_tensor_bytes=pool_tensor_bytes,
             k1=k1, decode_ms=float(np.mean(decode_ms)), tok_s=tokens / wall,
-            pool_bytes=pool_bytes, stats=dataclasses.asdict(st),
-            page_bytes=page_kv_bytes(cfg, st.page_size, eng.kv.dtype,
-                                     kv_dtype))
+            ttft_ms=ttft, pool_bytes=pool_bytes, graph=graph,
+            replays=len(replays), stats=dataclasses.asdict(st),
+            page_bytes=page_kv_bytes(cfg, 16, eng.kv.dtype, st.kv_dtype),
+            capture_ms=gs.get("capture_ms"),
+            graph_pool_bytes=gs.get("pool_bytes"), **prof)
         del eng, done, reqs
     return out
 
 
+def one_step_checks(lm, params) -> None:
+    """Phase 5's one-step gates, on phase 5's first 8 prompts admitted
+    together and one decode step: (a) the replay's (B, V) rows bitwise
+    equal to the same step run eagerly on the same static inputs (its K/V
+    writes rewrite the same rows with the same values); (b) the contiguous
+    cache's rows bitwise equal to paged ``decode_impl="gather"`` rows (page
+    16, M·page == S = 512), both from their graphs."""
+    from repro_torch.serve import Request, ServeEngine
+    prompts = serve_prompts(lm.cfg)[:8]
+    rows = {}
+    for label, kw in (("native", {}), ("gather", {"decode_impl": "gather"}),
+                      ("contiguous", {"cache_backend": "contiguous"})):
+        eng = ServeEngine(lm, params, max_batch=8, max_seq=512, page_size=16,
+                          device=DEV, **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p, max_new_tokens=32))
+        eng.step()                            # admit all 8, one decode step
+        assert eng.active.all()
+        rows[label] = eng._graph_out[0].clone()
+        if label == "native":
+            view = eng.kv.decode_view()
+            eager, _ = eng._decode(view)
+            replayed, _ = eng._replay(view)
+            same = torch.equal(eager, replayed)
+            log(f"[serve one step] native: replay vs eager rows (8 x "
+                f"{lm.cfg.vocab_size}) bitwise equal {same}, max |diff| "
+                f"{max_err(eager, replayed):.3e}")
+            assert same, "a replayed step differs from the eager step"
+        del eng
+        free()
+    same = torch.equal(rows["gather"], rows["contiguous"])
+    log(f"[serve one step] contiguous vs paged gather rows bitwise equal "
+        f"{same}, max |diff| {max_err(rows['gather'], rows['contiguous']):.3e}"
+        f"; K1 vs gather max |diff| "
+        f"{max_err(rows['native'], rows['gather']):.3e} (reported)")
+    assert same, "contiguous and paged gather logits differ"
+
+
 def serve(report):
-    """The same 16 requests served over native bf16 pages, then over int8
-    pages; each run is gated on its own launch counts.  Returns the
-    streams of each page format."""
+    """The same 16 requests served through the graph over native bf16
+    pages, then over int8 pages, the same two eagerly, then over the
+    contiguous cache; each run is gated on its own launch counts, the
+    graph's streams on the eager ones.  Returns the streams of each page
+    format (the graph runs)."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     lm = LM(get_config("qwen3-4b"))
     params = lm.init(7, device=DEV)
-    runs = serve_runs(lm, params, (("native", None), ("int8", None)),
-                      "serve")
-    for kv_dtype, run in runs.items():
-        names = (run["k1"],) if kv_dtype == "int8" else (
-            run["k1"], "flash_attention_bhsd", "rmsnorm_rows")
+    # the graph runs first: their profiled steps are the ones to keep where
+    # the profiler starts missing windows (PERF.md, open questions)
+    runs = serve_runs(lm, params, (
+        ("native", {}), ("int8", {"kv_dtype": "int8"}),
+        ("contiguous", {"cache_backend": "contiguous"}),
+        ("native-eager", {"cuda_graph": False}),
+        ("int8-eager", {"kv_dtype": "int8", "cuda_graph": False})), "serve")
+    for label in ("native", "int8"):
+        run, names = runs[label], (runs[label]["k1"],)
+        if label == "native":
+            names += ("flash_attention_bhsd", "rmsnorm_rows")
         for name in names:
             report[name]["launches"] = run["launches"][name]
-    streams = {kv_dtype: run["streams"] for kv_dtype, run in runs.items()}
-    same = sum(a == b for i in streams["native"]
-               for a, b in zip(streams["native"][i], streams["int8"][i]))
-    first = sum(streams["native"][i][0] == streams["int8"][i][0]
-                for i in streams["native"])
-    log(f"int8 vs native streams (bf16, random weights): {same}/512 tokens "
-        f"equal, first tokens equal {first}/16 (reported, not a gate)")
+        same = run["streams"] == runs[label + "-eager"]["streams"]
+        log(f"[serve {label}] graph streams equal the eager streams token "
+            f"for token: {same}; decode step {run['decode_ms']:.2f} ms "
+            f"(graph) vs {runs[label + '-eager']['decode_ms']:.2f} ms "
+            f"(eager), {run['tok_s']:.1f} vs "
+            f"{runs[label + '-eager']['tok_s']:.1f} tok/s "
+            f"[{nvidia_smi_line()}]")
+        assert same, f"[{label}] graph streams differ from eager streams"
+    streams = {label: runs[label]["streams"]
+               for label in ("native", "int8", "contiguous")}
+    for other in ("int8", "contiguous"):
+        same = sum(a == b for i in streams["native"]
+                   for a, b in zip(streams["native"][i], streams[other][i]))
+        first = sum(streams["native"][i][0] == streams[other][i][0]
+                    for i in streams["native"])
+        log(f"{other} vs native streams (bf16, random weights): {same}/512 "
+            f"tokens equal, first tokens equal {first}/16 (reported, not a "
+            f"gate)")
+    one_step_checks(lm, params)
     return streams
 
 
@@ -1679,21 +1817,35 @@ def profiled_kernels(fn):
             and ev.self_device_time_total > 0], wall_ms
 
 
-def profile_call(what: str, fn, top: int = 10) -> None:
+def profile_call(what: str, fn, top: int = 10, expect=None):
     """Where the time of one call of ``fn`` goes: device time by kernel
     group (torch.profiler, CUPTI), the number of kernels it launched, the
     device's busy and idle share of the call's wall time, and the largest
-    kernels.  It runs after a counted run; its launches are not counted.
-    Returns the device ms by group and the busy ms."""
-    rows, wall_ms = profiled_kernels(fn)
+    kernels.  ``expect`` ({kernel-name part: launches}) holds the window to
+    the launches the call is known to make: the profiler can miss kernels
+    of a window (PERF.md, open questions), so a window short of them is
+    taken again, at most three times, then reported as not measured.  It
+    runs after a counted run; its launches are not counted.  Returns the
+    device ms by group, the busy ms, the (name, ms, count) rows and the
+    wall ms (nothing busy where the profiler saw nothing)."""
+    for attempt in range(1, 4):
+        rows, wall_ms = profiled_kernels(fn)
+        seen = {part: sum(n for key, _, n in rows if part in key)
+                for part in expect or {}}
+        if seen == (expect or {}):
+            break
+        log(f"profiled {what} (window {attempt}): {seen} of the expected "
+            f"launches {expect}")
+        rows = []
     busy = sum(ms for _, ms, _ in rows)
+    kernels = sum(n for _, _, n in rows)
     if not busy:
         log(f"profiled {what}: wall {wall_ms:.2f} ms; the profiler "
             "recorded no device time (device breakdown not measured)")
-        return {}, 0.0
+        return {}, 0.0, [], wall_ms
     log(f"profiled {what}: wall {wall_ms:.2f} ms, device busy "
         f"{busy:.2f} ms, device idle share {1 - busy / wall_ms:.3f}, "
-        f"{sum(n for _, _, n in rows)} device kernels")
+        f"{kernels} device kernels")
     groups = {}
     for key, ms, _ in rows:
         group = next((g for g, subs in KERNEL_GROUPS
@@ -1703,7 +1855,7 @@ def profile_call(what: str, fn, top: int = 10) -> None:
         log(f"  {group:24s} {ms:9.3f} ms  {ms / busy * 100:5.1f}% of busy")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}")
-    return groups, busy
+    return groups, busy, rows, wall_ms
 
 
 # --------------------------------------------------------- phases 8, 9 ----
@@ -1897,8 +2049,8 @@ def recurrent_eval(report):
             f"forward {fwd_ms:.2f} ms mean (min {fwd_min:.2f}); peak memory "
             f"{peak:.2f} GiB; plain-path eval {plain_eval_ms:.2f} ms mean "
             f"[{nvidia_smi_line()}]")
-        groups, busy = profile_call(f"[{name}] bf16 forward B={b} S={s}",
-                                    lambda: forward("kernel"))
+        groups, busy, _, _ = profile_call(
+            f"[{name}] bf16 forward B={b} S={s}", lambda: forward("kernel"))
         if busy:
             shares = ", ".join(
                 f"{g} {groups.get(g, 0.0):.3f} ms "
@@ -2171,8 +2323,9 @@ def rank_main(rank: int, n: int, port: int) -> int:
     params = lm.init(7, device=DEV)
     # phase 5's pool (257 pages) over native and int8 pages; then native
     # over 129 pages, where the live slots outgrow one rank's shard
-    runs = serve_runs(lm, params, (("native", None), ("int8", None),
-                                   ("native", 129)),
+    runs = serve_runs(lm, params, (("native", {}),
+                                   ("int8", {"kv_dtype": "int8"}),
+                                   ("native-129", {"num_pages": 129})),
                       f"sharded r{rank}", pool_group=group,
                       profile=rank == 0)
     for label, run in runs.items():
@@ -2294,7 +2447,8 @@ def main() -> int:
     model_check(report)
     free()
 
-    phase("5 serve full-width qwen3-4b bf16, native and int8 pages")
+    phase("5 serve full-width qwen3-4b bf16 through the CUDA-graph step: "
+          "native, int8, eager, contiguous")
     phase5_streams = serve(report)
     free()
 

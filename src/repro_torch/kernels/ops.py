@@ -9,10 +9,14 @@ rmsnorm,softmax_xent,adamw_update,mamba2_ssd,rwkv6_wkv}``).  ``launch_counts()``
 each kernel was launched; a launch is counted only where a kernel actually
 runs, never for a plain version.  K2 counts its two modes apart:
 ``flash_attention_bhsd`` (bf16, tensor cores) and ``flash_attention_bhsd_fp32``
-(fp32, CUDA cores).
+(fp32, CUDA cores).  A CUDA graph keeps the meaning: the wrapper calls made
+while it is captured launch nothing and are taken back out
+(``launches_recorded``), and each replay adds the counts recorded at
+capture (``count_replay``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 from repro_torch.kernels.adamw_update import adamw_fused
@@ -50,6 +54,29 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+@contextlib.contextmanager
+def launches_recorded():
+    """Yield a dict that receives, when the block ends, the launches counted
+    inside it, which are then taken back out of the counts: wrap a CUDA
+    graph's capture, which launches nothing."""
+    before = launch_counts()
+    recorded: Dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for name, fn in KERNELS.items():
+            if fn.launches != before[name]:
+                recorded[name] = fn.launches - before[name]
+            fn.launches = before[name]
+
+
+def count_replay(recorded: Dict[str, int]) -> None:
+    """Count the kernels one replay of a CUDA graph ran: ``recorded`` from
+    ``launches_recorded`` around its capture."""
+    for name, n in recorded.items():
+        KERNELS[name].launches += n
 
 
 # q (B, S, KV, G, D); k, v (B, S, KV, D) -> (B, S, KV, G, D), contiguous on

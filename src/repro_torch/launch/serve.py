@@ -1,15 +1,21 @@
 """Batched serving entry point of the port: the continuous-batching engine
-over the paged KV cache, on the card unless ``--device cpu``.
+over the paged (or ``--cache-backend contiguous``) KV cache, on the card
+unless ``--device cpu``.  On one card the engine replays one CUDA graph of
+the fused decode step per iteration.
 
     python -m repro_torch.launch.serve --no-reduced          # full width
     python -m repro_torch.launch.serve --no-reduced --kv-dtype int8
+    python -m repro_torch.launch.serve --no-reduced --cache-backend contiguous
     python -m repro_torch.launch.serve --device cpu --reduced
     python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.serve --device cpu --reduced --mesh 2
 
 It prints the same summary lines as ``repro.launch.serve``.  ``--reduced``
 (the default) serves the reduced config in fp32; ``--no-reduced`` serves the
-full-width config in its own dtype, with random weights from seed 0.
+full-width config in its own dtype, with random weights from seed 0.  The
+requests are the JAX launcher's (``draw_requests``); ``serve`` takes a
+parameter tree, so the same run can serve other weights
+(``repro_torch.models.params.from_jax``).
 
 ``--mesh N`` splits the KV pool over N ranks (the 1-D form of the JAX
 ``--mesh N``), one process per rank under ``torch.distributed.run``, which
@@ -25,6 +31,7 @@ import dataclasses
 import os
 import time
 from datetime import timedelta
+from typing import List
 
 import numpy as np
 import torch
@@ -75,7 +82,7 @@ def join_pool_group(n: int, device: str):
     return PoolGroup.of(), dev
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b", choices=archs("dense"))
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
@@ -93,6 +100,11 @@ def main(argv=None):
                     help="0 => greedy")
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--cache-backend", default="paged",
+                    choices=["paged", "contiguous"],
+                    help="'paged' (page pool, prefix sharing, admission "
+                         "control) or 'contiguous' (max_seq dense rows a "
+                         "slot); --kv-dtype int8 and --mesh need paged")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None,
                     help="physical page pool size (default: dense-equivalent"
@@ -112,7 +124,11 @@ def main(argv=None):
                          "python -m torch.distributed.run --nproc-per-node "
                          "N): each rank pins P/N pages and merges the "
                          "ranks' decode partials; 0 = one process")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     n = parse_mesh(args.mesh)
     pool_group, device = None, args.device
     if n:
@@ -124,30 +140,44 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
-def serve(args, pool_group, device):
+def draw_requests(args, vocab_size: int) -> List[Request]:
+    """The JAX launcher's workload: ``default_rng(0)``, prompts of 4-11
+    tokens, request i sampled with ``seed=i``."""
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(args.requests):
+        prompt = rng.integers(0, vocab_size,
+                              rng.integers(4, 12)).astype(np.int32)
+        reqs.append(Request(i, prompt, max_new_tokens=args.new_tokens,
+                            sampling=SamplingParams(
+                                temperature=args.temperature,
+                                top_k=args.top_k, top_p=args.top_p,
+                                seed=i)))
+    return reqs
+
+
+def serve(args, pool_group, device, params=None):
+    """Serve ``draw_requests`` and print the summary (rank 0); ``params``
+    defaults to random weights from seed 0.  Returns the engine."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     lm = LM(cfg)
-    params = lm.init(0, device=device)
+    if params is None:
+        params = lm.init(0, device=device)
     eng = ServeEngine(lm, params, args.max_batch, args.max_seq,
                       page_size=args.page_size, num_pages=args.num_pages,
                       prefix_sharing=not args.no_prefix_sharing,
                       device=device, kv_dtype=args.kv_dtype,
-                      decode_impl=args.decode_impl, pool_group=pool_group)
+                      decode_impl=args.decode_impl, pool_group=pool_group,
+                      cache_backend=args.cache_backend)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    for i in range(args.requests):
-        prompt = rng.integers(0, cfg.vocab_size,
-                              rng.integers(4, 12)).astype(np.int32)
-        eng.submit(Request(i, prompt, max_new_tokens=args.new_tokens,
-                           sampling=SamplingParams(
-                               temperature=args.temperature,
-                               top_k=args.top_k, top_p=args.top_p, seed=i)))
+    for req in draw_requests(args, cfg.vocab_size):
+        eng.submit(req)
     done = eng.run_until_drained()
     wall = time.perf_counter() - t0
     if pool_group is not None and pool_group.rank != 0:
-        return
+        return eng
     reg = eng.reg
     total_tokens = sum(len(r.out_tokens) for r in done)
     iters = reg.counter("serve_iterations_total").get()
@@ -171,13 +201,15 @@ def serve(args, pool_group, device):
         sharded = (f", sharded over {st.mesh_chips} ranks "
                    f"({st.bytes_per_chip/1e6:.2f} MB/rank + "
                    f"{st.bytes_sink_per_chip/1e6:.2f} MB sink page)")
-    print(f"kv cache [{st.backend}]: {st.bytes_total/1e6:.2f} MB pinned, "
-          f"{st.pages_total} pages of {st.page_size}{sharded}; admissions "
-          f"deferred={deferred:.0f}; prefill batch p50="
-          f"{pf_h.quantile(0.5):.0f}")
-    transient = reg.gauge("serve_decode_transient_bytes").get()
-    print(f"decode impl [{eng.decode_impl}]: per-step KV read "
-          f"transient {transient/1e3:.1f} kB/layer")
+    paged = st.backend == "paged"
+    print(f"kv cache [{st.backend}]: {st.bytes_total/1e6:.2f} MB pinned"
+          + (f", {st.pages_total} pages of {st.page_size}" if paged else "")
+          + f"{sharded}; admissions deferred={deferred:.0f}; prefill batch "
+          f"p50={pf_h.quantile(0.5):.0f}")
+    if paged:
+        transient = reg.gauge("serve_decode_transient_bytes").get()
+        print(f"decode impl [{eng.decode_impl}]: per-step KV read "
+              f"transient {transient/1e3:.1f} kB/layer")
     if st.kv_dtype == "int8":
         saved = reg.gauge("serve_kv_quant_bytes_saved").get()
         dense = str(eng.kv.dtype).removeprefix("torch.")
@@ -188,6 +220,7 @@ def serve(args, pool_group, device):
               f"{saved/1e6:.2f} MB saved vs {dense} pages "
               f"({(st.bytes_total + saved)/max(st.bytes_total, 1):.2f}x "
               f"positions per byte)")
+    return eng
 
 
 if __name__ == "__main__":

@@ -16,7 +16,12 @@ engine's default).  Physical page 0 is the scratch page: freed slots' table
 rows point at it, so masked writes of inactive slots land there.  Over int8
 pools the new row is quantized before it is written, its scale lands
 through the same table index, and the read dequantizes: in registers in K1's
-int8 mode, or the gathered view under ``"gather"``.
+int8 mode, or the gathered view under ``"gather"``.  Without a page table
+the caches are dense (B, S, KV, D) rows (the contiguous layout): each slot
+writes its row at its own position and attends over its rows with the
+gathered view's arithmetic, so paged ``"gather"`` and contiguous give
+bitwise-equal outputs when M·page == S; ``impl`` is ignored there, as in
+JAX, so no K1 runs.
 """
 from __future__ import annotations
 
@@ -187,23 +192,33 @@ def dequant_gathered(gathered, scale_pool, table, dtype):
     return dequantize_kv(gathered, sg, dtype)
 
 
-def decode_attention(q, k_pool, v_pool, positions, page_table,
+def decode_attention(q, k_cache, v_cache, positions, page_table=None,
                      impl: str = "kernel", k_scale=None, v_scale=None):
-    """q (B, 1, KV, G, D) attends to each slot's rows 0..pos through the
-    page table: ``"kernel"`` walks the table in K1, ``"gather"`` builds the
-    dense gathered view (the JAX engine's default path).  ``k_scale``/
-    ``v_scale`` (P, page, KV) fp32 go with int8 pools."""
-    if impl == "kernel":
-        return ops.paged_decode_attention(q, k_pool, v_pool, page_table,
-                                          positions, k_scale=k_scale,
-                                          v_scale=v_scale)
-    assert impl == "gather", impl
-    kg = gather_pages(k_pool, page_table, positions)
-    vg = gather_pages(v_pool, page_table, positions)
-    if k_scale is not None:
-        lt = live_table(page_table, positions, k_pool.shape[1])
-        kg = dequant_gathered(kg, k_scale, lt, q.dtype)
-        vg = dequant_gathered(vg, v_scale, lt, q.dtype)
+    """q (B, 1, KV, G, D) attends to each slot's rows 0..pos.  With
+    ``page_table`` (B, M) the caches are (P, page, KV, D) pools:
+    ``"kernel"`` walks the table in K1, ``"gather"`` builds the dense
+    gathered view (the JAX engine's default path); ``k_scale``/``v_scale``
+    (P, page, KV) fp32 go with int8 pools.  Without it they are dense
+    (B, S, KV, D) rows, attended with the gathered view's arithmetic
+    (``impl`` ignored)."""
+    if page_table is not None:
+        if impl == "kernel":
+            return ops.paged_decode_attention(q, k_cache, v_cache,
+                                              page_table, positions,
+                                              k_scale=k_scale,
+                                              v_scale=v_scale)
+        assert impl == "gather", impl
+        page = k_cache.shape[1]
+        kg = gather_pages(k_cache, page_table, positions)
+        vg = gather_pages(v_cache, page_table, positions)
+        if k_scale is not None:
+            lt = live_table(page_table, positions, page)
+            kg = dequant_gathered(kg, k_scale, lt, q.dtype)
+            vg = dequant_gathered(vg, v_scale, lt, q.dtype)
+    elif k_scale is not None:
+        raise ValueError("KV scales ride on the paged int8 page format")
+    else:
+        kg, vg = k_cache, v_cache
     s = torch.einsum("bqkgd,bskd->bkgqs", q, kg).float() / math.sqrt(
         q.shape[-1])
     valid = (torch.arange(kg.shape[1], device=q.device)[None, :]
@@ -212,6 +227,15 @@ def decode_attention(q, k_pool, v_pool, positions, page_table,
                     torch.full_like(s, NEG_INF))
     probs = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskd->bqkgd", probs, vg)
+
+
+def _scatter_decode_kv(cache, new, positions):
+    """In-place dense write (the JAX ``_scatter_decode_kv``): slot b's row
+    (B, 1, KV, D) lands at ``cache[b, pos[b]]`` of the (B, S, KV, D) rows.
+    Inactive slots decode at position 0, so their writes land in row 0 of
+    their own rows, which the next prefill into the slot rewrites."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, positions.long()] = new[:, 0].to(cache.dtype)
 
 
 def _scatter_paged_kv(pool, new, page_table, positions):
@@ -348,8 +372,8 @@ def merge_paged_partials(acc, l, m, pool_group):
     return packed[..., :d] / torch.clamp(packed[..., d:], min=1e-30)
 
 
-def attention_decode_block(p, cfg, x, k_pool, v_pool, positions, page_table,
-                           decode_impl: str = "kernel",
+def attention_decode_block(p, cfg, x, k_pool, v_pool, positions,
+                           page_table=None, decode_impl: str = "kernel",
                            norm_impl: str = "kernel", k_scale=None,
                            v_scale=None, pool_group=None):
     """One-token decode at per-slot (B,) positions.  x (B, 1, d).  The new
@@ -360,8 +384,18 @@ def attention_decode_block(p, cfg, x, k_pool, v_pool, positions, page_table,
     from int8, as the JAX model does.  With ``pool_group`` the pools are
     this rank's shards (with their sink pages) of pools split over the
     group, and the write and attention go through
-    ``repro_torch.parallel.pagedkv.sharded_paged_decode_attention``."""
+    ``repro_torch.parallel.pagedkv.sharded_paged_decode_attention``.
+    Without ``page_table`` the caches are the dense (B, S, KV, D) rows of
+    the contiguous layout, written in place (``decode_impl`` ignored)."""
     q, k, v = project_qkv(p, cfg, x, positions[:, None], norm_impl)
+    if page_table is None:
+        if k_scale is not None or pool_group is not None:
+            raise ValueError("int8 pages and pool groups are paged-backend "
+                             "formats; the contiguous layout has no pages")
+        _scatter_decode_kv(k_pool, k, positions)
+        _scatter_decode_kv(v_pool, v, positions)
+        return output_proj(p, cfg, decode_attention(q, k_pool, v_pool,
+                                                    positions))
     if pool_group is not None:
         from repro_torch.parallel.pagedkv import \
             sharded_paged_decode_attention

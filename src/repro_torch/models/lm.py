@@ -57,25 +57,48 @@ class LM:
                                        pool_group=pool_group)
 
     def init_cache(self, batch_size: int, max_seq: int,
-                   backend: str = "paged", page_size: int = 16,
+                   backend: Optional[str] = "paged", page_size: int = 16,
                    num_pages: Optional[int] = None,
                    prefix_sharing: bool = True, device="cuda", dtype=None,
                    kv_dtype: str = "native", pool_group=None,
                    locality_chips: Optional[int] = None):
-        """A managed paged KV cache (``repro_torch.serve.kvcache``); the
-        paged backend is the only one the port has.  ``kv_dtype="int8"``
-        stores int8 pages with per-row fp32 scales.  ``pool_group`` (the
-        counterpart of the JAX ``mesh``/``kv_axis``) splits the pool over
-        its ranks; ``locality_chips`` partitions only the free list.  The
+        """Decode cache construction (the JAX ``LM.init_cache``).
+        ``backend=None`` returns the raw dense cache, ``{"layers": {"k":
+        (L, B, S, KV, D), "v": ...}}``, which ``decode_step`` takes
+        directly; ``"contiguous"`` or ``"paged"`` a managed cache of
+        ``repro_torch.serve.kvcache`` for the serve engine.  The port's
+        default is ``"paged"`` (JAX's is ``None``): its callers are serve
+        caches.  ``kv_dtype="int8"`` (paged only) stores int8 pages with
+        per-row fp32 scales; ``pool_group`` (paged only, the counterpart of
+        the JAX ``mesh``/``kv_axis``) splits the pool over its ranks;
+        ``locality_chips`` (paged only) partitions only the free list.  The
         recurrent families have no KV cache: refused."""
         refuse_recurrent(self.cfg, "init_cache")
-        if backend != "paged":
-            raise ValueError(f"the port has the paged cache backend only "
-                             f"(got {backend!r})")
-        from repro_torch.serve.kvcache import PagedCache
-        return PagedCache(self.cfg, batch_size, max_seq, page_size=page_size,
-                          num_pages=num_pages, prefix_sharing=prefix_sharing,
-                          device=device,
-                          dtype=dtype or DTYPES[self.cfg.dtype],
-                          kv_dtype=kv_dtype, pool_group=pool_group,
-                          locality_chips=locality_chips)
+        dtype = dtype or DTYPES[self.cfg.dtype]
+        if backend == "paged":
+            from repro_torch.serve.kvcache import PagedCache
+            return PagedCache(self.cfg, batch_size, max_seq,
+                              page_size=page_size, num_pages=num_pages,
+                              prefix_sharing=prefix_sharing, device=device,
+                              dtype=dtype, kv_dtype=kv_dtype,
+                              pool_group=pool_group,
+                              locality_chips=locality_chips)
+        if backend not in (None, "contiguous"):
+            raise ValueError(f"cache backend {backend!r} not in (None, "
+                             "'contiguous', 'paged')")
+        if kv_dtype != "native":
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r}: the int8 page format quantizes "
+                "fixed-size pages with per-row scales; the dense layout has "
+                "no pages (use backend='paged')")
+        if pool_group is not None or locality_chips is not None:
+            raise ValueError(
+                "pool_group and locality_chips split the paged pool's pages; "
+                "the dense layout has no pages (use backend='paged')")
+        dev = resolve_device(device)
+        if backend is None:
+            return transformer.init_cache(self.cfg, batch_size, max_seq, dev,
+                                          dtype)
+        from repro_torch.serve.kvcache import ContiguousCache
+        return ContiguousCache(self.cfg, batch_size, max_seq, device=dev,
+                               dtype=dtype)

@@ -7,8 +7,9 @@ Python loop.  Two entry points share the weights:
 * ``forward``     — full sequence (training and eval; prefill when
   ``collect_cache``, for the dense family only)
 * ``decode_step`` — one token per slot at (B,) positions over a paged cache,
-  whose pools it updates in place (dense family only), or over this rank's
-  shards of pools split over a ``PoolGroup``
+  whose pools it updates in place (dense family only), over this rank's
+  shards of pools split over a ``PoolGroup``, or over the dense cache of
+  ``init_cache`` (the contiguous layout)
 
 The recurrent families run forward only: their prefill (final states) and
 decode step wait for ROADMAP Queue 1 item 16's "decode states".
@@ -176,6 +177,17 @@ def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
     return logits, cache
 
 
+def init_cache(cfg, batch_size: int, max_seq: int, device, dtype):
+    """The dense decode cache (the JAX ``transformer.init_cache`` of the
+    dense family): ``{"layers": {"k": (L, B, S, KV, D), "v": ...}}`` of
+    zeros, the contiguous layout that ``decode_step`` takes directly."""
+    refuse_recurrent(cfg, "init_cache")
+    shape = (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"layers": {name: torch.zeros(shape, dtype=dtype, device=device)
+                       for name in "kv"}}
+
+
 def decode_step(params, cfg, tokens, cache, positions,
                 decode_impl: str = "kernel", norm_impl: str = "kernel",
                 pool_group=None):
@@ -187,10 +199,12 @@ def decode_step(params, cfg, tokens, cache, positions,
     (the counterpart of the JAX ``mesh``/``kv_axis``) the pools are this
     rank's (L, P/n + 1, page, ...) shards with their sink pages, the table
     holds global ids, and every layer's attention merges across the group,
-    so the logits are the same on every rank.  Returns (logits
-    (B, 1, Vp), cache)."""
+    so the logits are the same on every rank.  A cache with no
+    ``"page_table"`` is the dense (L, B, S, KV, D) layout of
+    ``init_cache``, written in place, each slot at its own position
+    (``decode_impl`` ignored).  Returns (logits (B, 1, Vp), cache)."""
     refuse_recurrent(cfg, "decode_step")
-    page_table = cache["page_table"]
+    page_table = cache.get("page_table")
     pools = cache["layers"]
     quantized = "k_scale" in pools
     h = embed(params, cfg, tokens)

@@ -1,22 +1,36 @@
 """Continuous-batching serve engine of the port: one fused decode+sample call
-per iteration over a paged KV cache (counterpart of the core of the JAX
-``repro.serve.engine``: whole-prompt admission, bucketed batched prefill,
-the fused step, and the metrics of ``docs/telemetry.md`` for what this
-engine does).
+per iteration over a paged or contiguous KV cache (counterpart of the core
+of the JAX ``repro.serve.engine``: whole-prompt admission, bucketed batched
+prefill, the fused step, and the metrics of ``docs/telemetry.md`` for what
+this engine does).
 
 * **B fixed slots**, each holding one request at its own depth.  The fused
   step decodes every slot at its own position (``decode_step`` with (B,)
-  positions and the (B, M) page table), samples on the device, and brings
-  one (B,) vector of token ids to the host.
+  positions and, paged, the (B, M) page table), samples on the device, and
+  brings one (B,) vector of token ids to the host.
+* **One CUDA graph a step**: on a single card the fused step (decode, the
+  (B, V) fp32 rows, argmax, the non-finite guard and the active mask) is
+  captured once, when the engine is built, and replayed every iteration
+  (the JAX engine jits it into one dispatch).  Its inputs are static
+  device buffers (tokens, positions, active, the cache's page table),
+  refreshed each iteration from pinned host copies; the pools are written
+  in place and never re-allocated, which each replay checks.  Rows with
+  temperature > 0 are sampled eagerly from the graph's rows after the
+  replay.  ``cuda_graph=False`` runs the same step eagerly on the card;
+  the CPU and a sharded pool (whose merge goes through the host) always do,
+  over the same static buffers.  A capture that fails raises.
 * **Batched bucketed prefill**: admitted prompts are grouped by
   power-of-two length bucket (capped at ``max_seq``); each group is one
   ``forward(collect_cache=True)`` whose K/V block is scattered into every
-  admitted slot's pages.
+  admitted slot's pages (paged) or rows (contiguous).
 * **Admission control**: a request reserves its whole footprint (prompt +
   max_new_tokens) in the page pool; when the pool or the slots are short,
-  admission stops in FIFO order and the request waits.
+  admission stops in FIFO order and the request waits.  The contiguous
+  cache reserves ``max_seq`` positions a slot up front and never defers.
 * **Scratch-routed inactive writes**: free slots decode at position 0
-  behind all-zero table rows, so their writes land in scratch page 0.
+  behind all-zero table rows, so their writes land in scratch page 0
+  (contiguous: in row 0 of their own rows, which the next prefill
+  rewrites).
 * **Non-finite guard**: a logit row with NaN/Inf yields the token -1; fault
   recovery is not ported yet, so the engine raises on it.
 
@@ -26,7 +40,8 @@ every norm.  ``kv_dtype="int8"`` stores the pages as int8 rows with per-row
 fp32 scales: the prefill block is quantized before it is written and each
 decode row in the attention block; prefill attends over the float K/V, so
 its logits are the native ones.  ``decode_impl`` is ``"kernel"`` (K1) or
-``"gather"`` (the dense gathered view).
+``"gather"`` (the dense gathered view); the contiguous cache ignores it, as
+in JAX, and runs no K1.
 
 **Sharded pools** (``pool_group``, the counterpart of the JAX ``mesh=``):
 the engine runs SPMD, one process per rank of a ``torch.distributed``
@@ -47,9 +62,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import LM
 from repro_torch.models.common import resolve_device
-from repro_torch.serve.kvcache import decode_transient_bytes, page_kv_bytes
+from repro_torch.serve.kvcache import (StagedBuffer, decode_transient_bytes,
+                                       page_kv_bytes)
 from repro_torch.serve.sampling import sample_batch
 from repro_torch.telemetry import MetricsRegistry
 
@@ -90,8 +107,12 @@ class ServeEngine:
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefix_sharing: bool = True, device="cuda",
                  kv_dtype: str = "native", decode_impl: str = "kernel",
-                 pool_group=None):
+                 pool_group=None, cache_backend: str = "paged",
+                 cuda_graph: bool = True):
         assert lm.cfg.family == "dense", lm.cfg.family
+        if cache_backend not in ("paged", "contiguous"):
+            raise ValueError(f"cache_backend {cache_backend!r} not in "
+                             "('paged', 'contiguous')")
         if decode_impl not in ("kernel", "gather"):
             raise ValueError(f"decode_impl {decode_impl!r} not in "
                              "('kernel', 'gather')")
@@ -107,8 +128,8 @@ class ServeEngine:
         self.reg = MetricsRegistry()
         self.finished: List[Request] = []
         dtype = torch.float32 if lm.cfg.dtype == "float32" else torch.bfloat16
-        self.kv = lm.init_cache(max_batch, max_seq, page_size=page_size,
-                                num_pages=num_pages,
+        self.kv = lm.init_cache(max_batch, max_seq, backend=cache_backend,
+                                page_size=page_size, num_pages=num_pages,
                                 prefix_sharing=prefix_sharing,
                                 device=self.device, dtype=dtype,
                                 kv_dtype=kv_dtype, pool_group=pool_group)
@@ -123,7 +144,17 @@ class ServeEngine:
         self.top_ks = np.zeros(max_batch, np.int32)
         self.top_ps = np.ones(max_batch, np.float32)
         self.seeds = np.zeros(max_batch, np.int64)
+        # the fused step's static device inputs
+        self._tokens = StagedBuffer((max_batch, 1), torch.long, self.device)
+        self._positions = StagedBuffer((max_batch,), torch.int32,
+                                       self.device)
+        self._active = StagedBuffer((max_batch,), torch.bool, self.device)
         self._declare_metrics()
+        self._graph = None
+        # {"capture_ms", "pool_bytes"} once captured
+        self.graph_stats = None
+        if cuda_graph and self.device.type == "cuda" and pool_group is None:
+            self._capture()
 
     def _declare_metrics(self):
         """Register every metric the engine emits, eagerly, so the surface
@@ -163,6 +194,8 @@ class ServeEngine:
           "model dtype, scales included (0 when not quantized)")
 
     def _tensor(self, a, dtype=None):
+        """A fresh device tensor, for the prefill and the eager sampling of
+        rows with temperature > 0 (the fused step's inputs are static)."""
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
 
     # ------------------------------------------------------------- intake ----
@@ -216,12 +249,16 @@ class ServeEngine:
         n = len(group)
         tokens = np.zeros((n, bucket), np.int32)
         last_idx = np.zeros(n, np.int64)
-        dest = np.zeros((n, bucket), np.int32)
+        # the write spec: flat pool rows per position (paged) or one slot
+        # id per request (contiguous), the JAX engine's ``write_spec``
+        paged = self.kv.backend == "paged"
+        dest = np.zeros((n, bucket) if paged else n, np.int32)
         for j, (slot, req, _, shared) in enumerate(group):
             plen = len(req.prompt)
             tokens[j, :plen] = req.prompt
             last_idx[j] = plen - 1
-            dest[j] = self.kv.prefill_dest(slot, bucket, plen, shared)
+            dest[j] = (self.kv.prefill_dest(slot, bucket, plen, shared)
+                       if paged else slot)
         sp = [r.sampling for _, r, _, _ in group]
         logits, cache = self.lm.forward(self.params,
                                         self._tensor(tokens, torch.long),
@@ -251,8 +288,14 @@ class ServeEngine:
             self.reg.counter("serve_prefill_tokens_total").inc(
                 len(req.prompt))
 
+    @staticmethod
+    def _guard(rows, tok):
+        """The non-finite guard: -1 on a row with any NaN/Inf."""
+        return torch.where(torch.isfinite(rows).all(dim=-1), tok,
+                           torch.full_like(tok, -1))
+
     def _sample(self, rows, temps, top_ks, top_ps, seeds, steps):
-        """Sample (n, V) fp32 rows; a row with any NaN/Inf yields -1."""
+        """Sample (n, V) fp32 rows through ``_guard``."""
         if all(t <= 0 for t in temps):
             tok = torch.argmax(rows, dim=-1).to(torch.int32)
         else:
@@ -261,23 +304,92 @@ class ServeEngine:
                                self._tensor(top_ps, torch.float32),
                                self._tensor(seeds, torch.int64),
                                self._tensor(steps, torch.int64))
-        return torch.where(torch.isfinite(rows).all(dim=-1), tok,
-                           torch.full_like(tok, -1))
+        return self._guard(rows, tok)
 
     # ------------------------------------------------------------- decode ----
-    def _fused(self, positions, steps):
-        """The fused step: decode all B slots at their own positions, then
-        sample every slot.  Returns the (B,) ids (0 on inactive slots)."""
+    def _decode(self, view):
+        """Decode all B slots over the static inputs: the (B, V) fp32 logit
+        rows and their greedy ids through ``_guard``, 0 on inactive slots.
+        The CUDA graph captures this call; the eager step runs it as it
+        is."""
         logits, _ = self.lm.decode_step(
-            self.params, self._tensor(self.next_token[:, None], torch.long),
-            self.kv.decode_view(), self._tensor(positions, torch.int32),
+            self.params, self._tokens.dev, view, self._positions.dev,
             decode_impl=self.decode_impl, pool_group=self.pool_group)
         rows = logits[:, -1, :self.lm.cfg.vocab_size].float()
-        tok = self._sample(rows, self.temps.tolist(), self.top_ks.tolist(),
-                           self.top_ps.tolist(), self.seeds.tolist(),
-                           steps.tolist())
-        return torch.where(self._tensor(self.active), tok,
-                           torch.zeros_like(tok))
+        tok = self._guard(rows, torch.argmax(rows, dim=-1).to(torch.int32))
+        return rows, torch.where(self._active.dev, tok, torch.zeros_like(tok))
+
+    @staticmethod
+    def _operand_ptrs(view):
+        ptrs = {name: t.data_ptr() for name, t in view["layers"].items()}
+        if "page_table" in view:
+            ptrs["page_table"] = view["page_table"].data_ptr()
+        return ptrs
+
+    def _capture(self):
+        """Capture ``_decode`` in one CUDA graph.  No slot is live yet: the
+        static inputs and the table hold their initial zeros, so every slot
+        is parked (token 0, position 0, inactive) and the writes land on
+        scratch page 0 or row 0 of empty slots.  Two eager steps on a side
+        stream first build the kernels, compile the Triton ones and fill
+        the model's host-side caches (RoPE frequencies, whose upload could
+        not be captured); their launches count, the capture's do not (each
+        replay adds them)."""
+        dev = self.device
+        view = self.kv.decode_view()
+        try:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self._decode(view)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            with ops.launches_recorded() as launches:
+                with torch.cuda.graph(graph):
+                    out = self._decode(view)
+            torch.cuda.synchronize(dev)
+        except Exception as e:
+            raise RuntimeError("capturing the fused decode step in a CUDA "
+                               f"graph failed: {e}") from e
+        self._graph, self._graph_out = graph, out
+        self._graph_launches = launches
+        self._graph_ptrs = self._operand_ptrs(view)
+        self.graph_stats = {
+            "capture_ms": (time.perf_counter() - t0) * 1e3,
+            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
+
+    def _replay(self, view):
+        """One replay of the captured step; the pools and the table must
+        still be the tensors it captured."""
+        if self._operand_ptrs(view) != self._graph_ptrs:
+            raise RuntimeError(
+                "the KV pools or the page table were re-allocated after the "
+                "decode step was captured: its CUDA graph would read memory "
+                "they no longer own")
+        self._graph.replay()
+        ops.count_replay(self._graph_launches)
+        return self._graph_out
+
+    def _fused(self, positions, steps):
+        """The fused step: refresh the static inputs, replay the graph (or
+        run the step eagerly), then sample the rows with temperature > 0 from
+        its rows.  Returns the (B,) ids (0 on inactive slots)."""
+        self._tokens.set(self.next_token[:, None])
+        self._positions.set(positions)
+        self._active.set(self.active)
+        view = self.kv.decode_view()
+        rows, tok = (self._replay(view) if self._graph is not None
+                     else self._decode(view))
+        if np.any(self.temps[self.active] > 0):
+            tok = torch.where(self._active.dev, self._sample(
+                rows, self.temps, self.top_ks, self.top_ps, self.seeds,
+                steps), torch.zeros_like(tok))
+        return tok
 
     def step(self) -> bool:
         """One engine iteration: admit (and prefill), then one fused
@@ -344,10 +456,12 @@ class ServeEngine:
         self.reg.gauge("serve_kv_pages_shared").set(st.pages_shared)
         self.reg.gauge("serve_kv_bytes_per_chip").set(
             st.bytes_per_chip + st.bytes_sink_per_chip)
+        # dense rows gather nothing: only the paged read has a transient
         self.reg.gauge("serve_decode_transient_bytes").set(
             decode_transient_bytes(self.lm.cfg, self.B, self.kv.max_pages,
                                    st.page_size, self.kv.dtype,
-                                   self.decode_impl, st.kv_dtype))
+                                   self.decode_impl, st.kv_dtype)
+            if st.backend == "paged" else 0)
         quant = st.kv_dtype == "int8"
         self.reg.gauge("serve_kv_quant_enabled").set(int(quant))
         self.reg.gauge("serve_kv_quant_scale_bytes").set(st.bytes_scales)

@@ -1,6 +1,8 @@
-"""Paged KV cache of the port (counterpart of ``PagedCache`` in the JAX
-``repro.serve.kvcache``, without its quotas, eviction, chunked allocation,
-host tier, chip failure and 2-D meshes).
+"""KV caches of the port: the paged cache (counterpart of ``PagedCache`` in
+the JAX ``repro.serve.kvcache``, without its quotas, eviction, chunked
+allocation, host tier, chip failure and 2-D meshes) and the contiguous one
+(``ContiguousCache``: dense (L, B, S, KV, D) rows, every slot reserving
+``max_seq`` positions, written in place).
 
 Storage is a per-layer (L, P, page, KV, D) K and V pool on the device; each
 slot owns a row of a host-side (B, M) int32 page table mapping logical page
@@ -31,7 +33,10 @@ the tensors (the JAX cache's mesh-free knob).
 
 All bookkeeping is host-side numpy.  Unlike the JAX cache, whose pools are
 immutable values threaded through each dispatch, the pools here are written
-in place by the prefill scatter and the decode step.
+in place by the prefill scatter and the decode step, and never
+re-allocated.  The device page table is one tensor for the life of the
+cache (a ``StagedBuffer``), refreshed from the numpy table when alloc or
+free has changed it, so a CUDA graph of the decode step reads it.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import torch
 
 from repro_torch.kernels.quant import check_pool_write, quantize_kv
 from repro_torch.models.common import resolve_device
+from repro_torch.models.transformer import init_cache
 from repro_torch.parallel.pagedkv import (chip_of_page, chip_page_range,
                                           sharded_write_prefill)
 
@@ -66,6 +72,13 @@ def kv_position_bytes(cfg, dtype: torch.dtype,
         return 2 * l * kvh * (hd + SCALE_BYTES)
     assert kv_dtype == "native", kv_dtype
     return 2 * l * kvh * hd * _itemsize(dtype)
+
+
+def contiguous_kv_bytes(cfg, batch: int, max_seq: int,
+                        dtype: torch.dtype) -> int:
+    """Device bytes of a dense cache: every slot reserves max_seq
+    positions."""
+    return batch * max_seq * kv_position_bytes(cfg, dtype)
 
 
 def page_kv_bytes(cfg, page_size: int, dtype: torch.dtype,
@@ -100,6 +113,28 @@ def decode_transient_bytes(cfg, batch: int, max_pages: int, page_size: int,
     return 2 * page_size * hd * itemsize + 4 * g * (hd + 2)
 
 
+class StagedBuffer:
+    """A device tensor of fixed shape, refreshed from a host copy.  ``dev``
+    is the same tensor for the life of the buffer, so a CUDA graph can read
+    it; ``set`` writes the host copy (pinned on CUDA) and enqueues its copy
+    to the device without blocking the host.  On CUDA an event makes
+    ``set`` wait until the previous copy has read the host copy."""
+
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(shape, dtype=dtype, pin_memory=cuda)
+        self.dev = torch.zeros(shape, dtype=dtype, device=device)
+        self._copied = torch.cuda.Event() if cuda else None
+
+    def set(self, values) -> None:
+        if self._copied is not None:
+            self._copied.synchronize()
+        self.host.numpy()[...] = values
+        self.dev.copy_(self.host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+
 class CacheInvariantError(AssertionError):
     """Raised by ``PagedCache.verify`` when the allocator's bookkeeping
     breaks an invariant."""
@@ -110,16 +145,18 @@ class MemoryStats:
     backend: str
     bytes_total: int          # device bytes pinned by the pools
     bytes_reserved: int       # portion reserved by live requests
-    page_size: int
-    pages_total: int          # usable pages (scratch excluded)
-    pages_in_use: int
-    pages_shared: int         # pages with refcount > 1 (prefix sharing)
+    page_size: int = 0        # paged only
+    pages_total: int = 0      # usable pages (scratch excluded)
+    pages_in_use: int = 0
+    pages_shared: int = 0     # pages with refcount > 1 (prefix sharing)
     kv_dtype: str = "native"  # page element format ("native" / "int8")
     bytes_scales: int = 0     # portion of bytes_total pinned by int8 scales
     mesh_chips: int = 1       # chips (ranks) the pool is split over
     bytes_per_chip: int = 0   # bytes_total / mesh_chips
     bytes_scales_per_chip: int = 0
     bytes_sink_per_chip: int = 0  # a sharded rank's sink page, beside it
+    slots_total: int = 0
+    slots_in_use: int = 0     # slots holding a request
 
 
 class PagedCache:
@@ -171,7 +208,9 @@ class PagedCache:
                                            device=self.device)
         self.state = {"layers": layers}
         self.page_table = np.zeros((batch, self.max_pages), np.int32)
-        self._page_table_dev: Optional[torch.Tensor] = None
+        self._table = StagedBuffer(self.page_table.shape, torch.int32,
+                                   self.device)
+        self._table_stale = False
         # per-chip free stacks, pop() handing out the chip's lowest id;
         # scratch 0 (chip 0) never listed
         self._free_chip: List[List[int]] = [
@@ -293,7 +332,7 @@ class PagedCache:
                     self._page_to_hash[pages[i]] = key
         self.page_table[slot, :] = 0
         self.page_table[slot, :n_pages] = pages
-        self._page_table_dev = None
+        self._table_stale = True
         self._slot_pages[slot] = pages
         self._slot_shared[slot] = len(shared)
         return len(shared) * self.page
@@ -356,14 +395,15 @@ class PagedCache:
 
     # ------------------------------------------------------------ decode ----
     def decode_view(self):
-        """Pools plus the (B, M) page table on the device; the table's
-        device copy is reused until the next alloc or free.  Sharded, the
-        pools are this rank's shards with their sink pages and the table
-        holds global ids."""
-        if self._page_table_dev is None:
-            self._page_table_dev = torch.from_numpy(self.page_table).to(
-                self.device)
-        return {**self.state, "page_table": self._page_table_dev}
+        """Pools plus the (B, M) page table on the device: the same table
+        tensor for the life of the cache, its contents refreshed here when
+        an alloc or free has changed the numpy table.  Sharded, the pools
+        are this rank's shards with their sink pages and the table holds
+        global ids."""
+        if self._table_stale:
+            self._table.set(self.page_table)
+            self._table_stale = False
+        return {**self.state, "page_table": self._table.dev}
 
     # -------------------------------------------------------------- free ----
     def free(self, slot: int) -> None:
@@ -379,7 +419,7 @@ class PagedCache:
         self._slot_shared[slot] = 0
         self._slot_need[slot] = 0
         self.page_table[slot, :] = 0    # point the freed slot at scratch
-        self._page_table_dev = None
+        self._table_stale = True
 
     # ----------------------------------------------------------- checks ----
     def verify(self) -> None:
@@ -450,4 +490,71 @@ class PagedCache:
             bytes_scales=scale_b, mesh_chips=self.chips,
             bytes_per_chip=self.P * pb // self.chips,
             bytes_scales_per_chip=scale_b // self.chips,
-            bytes_sink_per_chip=pb if self.pool_group is not None else 0)
+            bytes_sink_per_chip=pb if self.pool_group is not None else 0,
+            slots_total=self.B,
+            slots_in_use=sum(bool(p) for p in self._slot_pages))
+
+
+class ContiguousCache:
+    """Dense (L, B, S, KV, D) K and V rows, one row of ``max_seq`` positions
+    per slot (the JAX ``ContiguousCache``).  ``alloc`` always succeeds
+    (capacity is reserved up front, the memory ``PagedCache`` exists to
+    save) and nothing is shared, so ``bytes_reserved == bytes_total``.  The
+    rows are written in place by the prefill scatter and the decode step,
+    and never re-allocated; ``decode_view`` is the cache ``decode_step``
+    takes directly (no page table).  Inactive slots decode at position 0
+    into row 0 of their own rows, which the next prefill rewrites."""
+
+    backend = "contiguous"
+    quantized = False           # int8 pages are a paged-format feature
+    chips = 1
+
+    def __init__(self, cfg, batch: int, max_seq: int, device="cuda",
+                 dtype=torch.bfloat16):
+        self.cfg, self.B, self.S = cfg, batch, max_seq
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.state = init_cache(cfg, batch, max_seq, self.device, dtype)
+        self._in_use = np.zeros(batch, bool)
+        self._bytes = sum(t.numel() * t.element_size()
+                          for t in self.state["layers"].values())
+
+    def can_ever_fit(self, length: int) -> bool:
+        return length <= self.S
+
+    def alloc(self, slot: int, length: int,
+              prefix: Optional[np.ndarray] = None) -> Optional[int]:
+        """Reserve ``slot`` (its rows are always there): never defers, and
+        no position is shared."""
+        assert not self._in_use[slot], f"slot {slot} already allocated"
+        assert 0 < length <= self.S, (length, self.S)
+        self._in_use[slot] = True
+        return 0
+
+    def quantize_block(self, kv_block):
+        return kv_block
+
+    def staged_write_prefill(self, kv_block, slots) -> None:
+        """Write a prefill block into its slots' rows in place.  kv_block:
+        ``{"k": (L, n, Sblk, KV, D), "v": ...}``; slots (n,) slot ids.  Rows
+        [0, Sblk) of each slot are overwritten, prompt padding included,
+        which stays behind the decode mask until decode rewrites it."""
+        slots = slots.long()
+        rows = torch.arange(next(iter(kv_block.values())).shape[2],
+                            device=slots.device)
+        for name, cache in self.state["layers"].items():
+            small = kv_block[name]
+            check_pool_write(cache, small, f"staged_write_prefill[{name}]")
+            cache[:, slots[:, None], rows[None, :]] = small.to(cache.dtype)
+
+    def decode_view(self):
+        return self.state
+
+    def free(self, slot: int) -> None:
+        self._in_use[slot] = False
+
+    def memory_stats(self) -> MemoryStats:
+        return MemoryStats(backend=self.backend, bytes_total=self._bytes,
+                           bytes_reserved=self._bytes,
+                           bytes_per_chip=self._bytes, slots_total=self.B,
+                           slots_in_use=int(self._in_use.sum()))
