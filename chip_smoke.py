@@ -54,18 +54,44 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    page format logits agree to a relative max error of 1e-3 and greedy
    tokens agree wherever the plain top-2 gap exceeds the error; the largest
    int8-vs-native logit difference and their greedy agreement are printed;
+   then the same prompts landed again through ``LM.prefill_chunk`` in
+   chunks of 48 (rounds of up to 4 x 48, K3 exactly 145 times a dispatch,
+   no K2) over native and int8 pages, with the same 16 decode steps from
+   the chunked pools: native against the bucketed prefill to a relative
+   max error of 1e-3; int8 against the whole prompt landed as one chunk (a
+   chunk reads its rows back from int8, the bucketed forward attends the
+   float K/V: that difference is reported) on prompts from three seeds, to
+   a relative 1e-2 with layer 0's int8 levels equal but for at most 0.1%
+   of them, one level apart (fp32 rounding differs between the two
+   chunkings' matmul shapes, a value near an int8 boundary takes the next
+   level, later layers read it); two faulty chunk paths (one layer's
+   scales unwritten, quantizing by truncation) must fail that gate, and
+   the same inputs in fp64 must pass it at 1e-3; greedy tokens agree
+   wherever the top-2 gap exceeds the error, against the bucketed int8
+   prefill too;
 5. serve: full-width qwen3-4b in bf16 through ``ServeEngine`` (16 requests,
    prompts of 16-200 tokens, some sharing a prefix, 32 new tokens each,
    max_batch 8, max_seq 512, page 16), each decode step one replay of the
    engine's CUDA graph: over native pages, over int8 pages, the same two
-   eagerly (``cuda_graph=False``), and over the contiguous cache (604 MB of
-   bf16 K/V); in each run every request completes, one decode dispatch per
-   iteration, one graph replay per decode iteration (none eagerly), and the
-   kernel launch counts match the decode steps, prefill dispatches and
-   norms of that run (the int8 run launches K1's int8 mode, never the
-   native one; the contiguous run no K1); the graph's streams equal the
-   eager ones token for token (native and int8), contiguous and int8
-   streams are reported against native; decode step ms, tok/s, TTFT, the
+   eagerly (``cuda_graph=False``), over the contiguous cache (604 MB of
+   bf16 K/V), and with chunked prefill (``prefill_chunk=64,
+   prefill_budget=128``, the chunk rounds eager between graph replays)
+   over native and int8 pages, and, with staggered lengths (8-56 new
+   tokens, so admissions land among live streams), whole-prompt and
+   chunked over native pages; in each run every request completes, one
+   decode dispatch per iteration, one graph replay per decode iteration
+   (none eagerly), and the kernel launch counts match the decode steps,
+   prefill dispatches and norms of that run (the int8 runs launch K1's
+   int8 mode, never the native one; the contiguous run no K1; a chunked
+   run no K2 and K3 145 times a chunk dispatch); a chunked run's chunks
+   equal the prompts' chunks less those skipped on landed shared pages,
+   and its decode stall counter is 0 (by construction: a round spends at
+   most the budget; the longest wait between two tokens, reported, is what
+   a stream feels); the graph's streams equal the eager
+   ones token for token (native and int8), contiguous, int8 and chunked
+   streams are reported against whole-prompt ones; chunk and prefill
+   dispatch ms, the longest wait between two tokens of one stream, decode
+   step ms, tok/s, TTFT, the
    pools' bytes (``memory_stats()``, the tensors, as allocated at
    construction) and the graph's capture ms and private pool bytes; one
    replay timed with CUDA events; one fused decode step of each run
@@ -121,13 +147,16 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    logits against its own single-card cache (1e-4 relative max error);
    (c) the two ranks serve phase 5's workload (257 pages padded to 258)
    over native, then int8 pages, then native pages over 129 pages (padded
-   to 130), where the live slots outgrow one rank's shard, stepping
-   eagerly (the merge goes through the host): each rank
+   to 130), where the live slots outgrow one rank's shard, then with
+   phase 5's chunked prefill over native pages (each chunk's attention
+   merged across the ranks too), stepping eagerly (the merge goes through
+   the host): each rank
    launches ``paged_flash_decode_partials[_int8]`` exactly 36 times per
    decode step and the normalized K1 never, pins half the padded pool plus
    one sink page, and both ranks emit the same streams (how many equal
-   phase 5's, the pages each rank handed out, and the decode step time
-   are reported); then the gloo merge's time per layer.
+   phase 5's, the chunked run's against phase 5's chunked run, the pages
+   each rank handed out, and the decode step time are reported); then the
+   gloo merge's time per layer.
 
 It then prints a ``kernels`` JSON line (K1's entries at the serve shape,
 with the long shape's numbers under ``long``), the card's name and power
@@ -1223,6 +1252,23 @@ def model_check(report):
         f" written elements differ, by at most "
         f"{max(int(d.max()) for d in moved)} level")
     del moved
+    # the same prompts landed again through LM.prefill_chunk in chunks of
+    # 48 (rounds of up to 4 slots, (n, 48) each, uneven against the bucket
+    # of 128) over native and int8 pages, and over int8 pages as one chunk
+    # per prompt: K3 at every norm, no K2
+    norms = cfg.num_layers * (2 + 2 * cfg.qk_norm) + 1
+    for name, kv_dtype, chunk in (("chunked", "native", 48),
+                                  ("chunked-int8", "int8", 48),
+                                  ("one-chunk-int8", "int8", bucket)):
+        kv, rows, rounds, k3 = chunked_prefill(lm, params, tokens, lens,
+                                               kv_dtype, chunk, steps)
+        log(f"fp32 {name} prefill: {rounds} chunk dispatches of up to {n} x "
+            f"{chunk} tokens, K3 launches {k3} (expected {rounds} x "
+            f"{norms}), K2 none")
+        assert k3 == rounds * norms, "a chunk dispatch skipped a K3 norm"
+        caches[name] = kv
+        logits[name] = [rows]
+        paths[name] = ("chunked", "kernel", "kernel", kv_dtype)
     pos = np.array(lens, np.int32)
     nxt = logits["plain"][0].argmax(-1)
     for t in range(steps):
@@ -1265,6 +1311,256 @@ def model_check(report):
     log(f"fp32 int8 pages vs native pages (plain paths, same tokens): largest "
         f"|logit difference| {worst_abs:.4e} (rel max err {worst_rel:.3e}), "
         f"greedy agree {agree}/{checked} (reported, not a gate)")
+    # chunked vs whole-prompt prefill, then 16 decode steps from each pool.
+    # Native: against the bucketed prefill, to 1e-3.  int8: a chunk reads
+    # its own rows and its earlier chunks' back from int8, where the
+    # bucketed forward attends the float K/V (reported, not a gate); see
+    # int8_chunk_gates for the whole prompt landed as one chunk
+    for chunked, whole, limit in (("chunked", "kernel", 1e-3),
+                                  ("chunked-int8", "kernel-int8", None)):
+        worst_rel, worst_abs, agree, checked = compare(chunked, whole, True)
+        first = compare_rows(logits[chunked][0], logits[whole][0], cfg)
+        log(f"fp32 {chunked} vs {whole} path: final chunk rows rel max err "
+            f"{first:.3e}, with {steps} decode steps {worst_rel:.3e} "
+            f"({f'limit {limit:.0e}' if limit else 'reported, not a gate'}"
+            f"), largest |logit difference| {worst_abs:.4e}, greedy agree "
+            f"{agree}/{checked}")
+        assert limit is None or worst_rel <= limit, \
+            f"{chunked} prefill disagrees with {whole} prefill"
+    int8_chunk_gates(lm, params, tokens, lens, steps, caches, logits,
+                     compare)
+
+
+#: chunked int8 prefill (chunks of 48) against the prompt landed as one
+#: chunk, fp32, 16 decode steps: the largest relative max error allowed.
+#: Readings on the H100 at full width (PERF.md §6): 3.8e-3 to 5.8e-3 on
+#: three seeds, the faulty chunk paths 9.7e-2 and more; both controls below
+#: must fail the gate
+INT8_CHUNK_LIMIT = 1e-2
+#: ... and in layer 0, which reads the same embeddings on both sides, the
+#: share of the prompts' int8 K/V elements whose level may differ (by one)
+INT8_LAYER0_SHARE = 1e-3
+
+
+def int8_chunk_gates(lm, params, tokens, lens, steps, caches, logits,
+                     compare) -> None:
+    """Phase 4's int8 chunk gates.  Chunks of 48 and one chunk a prompt
+    run different matmul shapes, so their fp32 K/V differ in rounding; a
+    value near an int8 rounding boundary takes the next level on one side,
+    and the later layers of both chunkings read that level.  The gate: the
+    logits within ``INT8_CHUNK_LIMIT``, and layer 0's levels within one of
+    each other in at most ``INT8_LAYER0_SHARE`` of its elements.
+
+    * fp32, prompts drawn from seeds 4 (phase 4's), 5 and 6, pass;
+    * two faulty chunk paths fail: one layer's scales left unwritten, and
+      every chunk's K/V quantized by truncation instead of rounding to
+      nearest;
+    * the witness that the fp32 error is rounding: the same seed-4 inputs
+      in fp64 (plain norms, gathered decode) pass with the logit limit at
+      1e-3.
+
+    Every reading prints before any gate asserts."""
+    from repro_torch.models import attention as attn
+    cfg = lm.cfg
+    mid = cfg.num_layers // 2
+
+    def scales_unwritten(kv):
+        skip = {kv.state["layers"][k][mid].data_ptr()
+                for k in ("k_scale", "v_scale")}
+        real = attn._scatter_chunk_paged
+
+        def scatter(pool, new, dest):
+            if pool.data_ptr() not in skip:
+                real(pool, new, dest)
+        return _patched(attn, "_scatter_chunk_paged", scatter)
+
+    def truncated(kv):
+        real = attn.quantize_kv
+
+        def quantize(x):
+            _, scale = real(x)
+            t = torch.trunc(x.float() / scale[..., None])
+            return t.clamp(-127, 127).to(torch.int8), scale
+        return _patched(attn, "quantize_kv", quantize)
+
+    readings = [("fp32 seed 4", True,
+                 compare("chunked-int8", "one-chunk-int8", True)[0],
+                 INT8_CHUNK_LIMIT, caches["chunked-int8"],
+                 caches["one-chunk-int8"])]
+    for seed in (5, 6):
+        toks = _draw(cfg, lens, tokens.shape[1], seed)
+        readings.append((f"fp32 seed {seed}", True, *int8_chunk_pair(
+            lm, params, toks, lens, steps)))
+    for name, fault in ((f"scales of layer {mid} unwritten",
+                         scales_unwritten),
+                        ("quantized by truncation", truncated)):
+        readings.append((f"fp32 seed 4, {name}", False, *int8_chunk_pair(
+            lm, params, tokens, lens, steps, fault=fault)))
+    lm64 = type(lm)(dataclasses.replace(cfg, dtype="float64"))
+    rel64, limit, a, b = int8_chunk_pair(
+        lm64, params, tokens, lens, steps, norm_impl="plain",
+        decode_impl="gather", dtype=torch.float64)
+    readings.append(("fp64 seed 4 (plain norms, gathered decode)", True,
+                     rel64, 1e-3, a, b))
+    verdicts = []
+    for name, sound, rel, limit, a, b in readings:
+        every, first = _level_flips(a, b, lens)
+        ok = (rel <= limit and first[2] <= 1
+              and first[0] <= INT8_LAYER0_SHARE * first[1])
+        verdicts.append((name, sound, ok))
+        log(f"int8 chunks of 48 vs one chunk, {name}: rel max err over the "
+            f"final chunk rows and {steps} decode steps {rel:.3e} (limit "
+            f"{limit:.0e}); int8 levels that differ: {every[0]} of "
+            f"{every[1]} written (by at most {every[2]}), layer 0 {first[0]} "
+            f"of {first[1]} (by at most {first[2]}; limit "
+            f"{INT8_LAYER0_SHARE:.0e} of them, by 1): "
+            f"{'passes' if ok else 'fails'}"
+            f"{'' if sound else ' (a control: must fail)'}")
+    del readings, a, b
+    for name, sound, ok in verdicts:
+        assert ok == sound, (f"int8 chunked prefill disagrees ({name})"
+                             if sound else "the int8 chunk gate passes a "
+                             f"faulty chunk path ({name})")
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _draw(cfg, lens, bucket, seed):
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((len(lens), bucket), np.int64)
+    for j, plen in enumerate(lens):
+        tokens[j, :plen] = rng.integers(0, cfg.vocab_size, plen)
+    return tokens
+
+
+def _level_flips(a, b, lens):
+    """Two int8 caches holding the same prompts: over the prompts' rows,
+    (elements differing, elements compared, largest level difference) in
+    every layer and in layer 0.  Rows are read through each cache's own
+    table, since the two chunkings claim pages in another order."""
+    every, first = [0, 0, 0], [0, 0, 0]
+    for j, plen in enumerate(lens):
+        rows = []
+        for kv in (a, b):
+            table = torch.as_tensor(kv.table_row(j), device=DEV).long()
+            pools = kv.state["layers"]
+            rows.append([pools[k][:, table].flatten(1, 2)[:, :plen].int()
+                         for k in ("k", "v")])
+        for ra, rb in zip(*rows):
+            d = (ra - rb).abs()
+            for acc, part in ((every, d), (first, d[0])):
+                acc[0] += int((part > 0).sum())
+                acc[1] += part.numel()
+                acc[2] = max(acc[2], int(part.max()))
+    return every, first
+
+
+def int8_chunk_pair(lm, params, tokens, lens, steps, *, norm_impl="kernel",
+                    decode_impl="kernel", dtype=torch.float32, fault=None):
+    """The prompts landed over int8 pages in chunks of 48 (under ``fault``,
+    a context factory given the cache) and as one chunk each, then
+    ``steps`` decode steps from each pool, both fed the one-chunk side's
+    greedy tokens.  Returns (relative max error over the final chunk rows
+    and every step's rows, ``INT8_CHUNK_LIMIT``, the chunked cache, the
+    one-chunk cache)."""
+    cfg = lm.cfg
+    n, bucket = tokens.shape
+    sides = []
+    for chunk, f in ((48, fault), (bucket, None)):
+        kv, rows, _, _ = chunked_prefill(lm, params, tokens, lens, "int8",
+                                         chunk, steps, norm_impl=norm_impl,
+                                         dtype=dtype, fault=f)
+        sides.append((kv, [rows]))
+    pos = np.array(lens, np.int32)
+    nxt = sides[1][1][0].argmax(-1)
+    for t in range(steps):
+        for kv, out in sides:
+            lg, _ = lm.decode_step(params, nxt[:, None], kv.decode_view(),
+                                   torch.as_tensor(pos + t, device=DEV),
+                                   decode_impl=decode_impl,
+                                   norm_impl=norm_impl)
+            out.append(lg[:, -1])
+        nxt = sides[1][1][-1].argmax(-1)
+    rel = max(compare_rows(a, b, cfg)
+              for a, b in zip(sides[0][1], sides[1][1]))
+    return rel, INT8_CHUNK_LIMIT, sides[0][0], sides[1][0]
+
+
+def compare_rows(a, b, cfg) -> float:
+    a, b = a[:, :cfg.vocab_size].float(), b[:, :cfg.vocab_size].float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def chunked_prefill(lm, params, tokens, lens, kv_dtype, chunk, steps,
+                    norm_impl="kernel", dtype=torch.float32, fault=None):
+    """Land ``tokens`` (n, bucket; prompt j of ``lens[j]`` tokens) in
+    ``chunk``-token chunks through ``LM.prefill_chunk`` over a fresh paged
+    cache (``dtype``, page 16, max_seq 256), each round one (n', chunk)
+    dispatch of the slots that still have a chunk, pages claimed by
+    ``alloc_chunked``/``extend``; ``fault``, given the cache, returns a
+    context the dispatches run in.  Returns (cache, each prompt's
+    final-chunk logit row (n, Vp), dispatches, K3 launches during them)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.kvcache import PagedCache
+    cfg = lm.cfg
+    n = len(lens)
+    kv = PagedCache(cfg, n, 256, page_size=16, device=DEV, dtype=dtype,
+                    kv_dtype=kv_dtype)
+    for j, plen in enumerate(lens):
+        assert kv.alloc_chunked(j, plen + steps, min(chunk, plen)) == 0
+    rows = [None] * n
+    done = [0] * n
+    rounds = 0
+    ops.reset_launch_counts()
+    with fault(kv) if fault else contextlib.nullcontext():
+        while any(d < plen for d, plen in zip(done, lens)):
+            rounds += _chunk_round(lm, params, kv, tokens, lens, chunk,
+                                   steps, done, rows, norm_impl)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bhsd"] == \
+        counts["flash_attention_bhsd_fp32"] == 0
+    kv.verify()
+    return kv, torch.stack(rows), rounds, counts["rmsnorm_rows"]
+
+
+def _chunk_round(lm, params, kv, tokens, lens, chunk, steps, done, rows,
+                 norm_impl) -> int:
+    """One (n', chunk) ``LM.prefill_chunk`` dispatch of the slots that
+    still have a chunk; advances ``done`` and fills ``rows`` as prompts
+    finish.  Returns 1."""
+    n = len(lens)
+    slots = [j for j in range(n) if done[j] < lens[j]]
+    tok = np.zeros((len(slots), chunk), np.int64)
+    dest = np.zeros((len(slots), chunk), np.int32)
+    table = np.zeros((len(slots), kv.max_pages), np.int32)
+    start, last = np.zeros(len(slots), np.int64), np.zeros(len(slots),
+                                                           np.int64)
+    for i, j in enumerate(slots):
+        end = min(done[j] + chunk, lens[j])
+        assert kv.extend(j, lens[j] + steps if end == lens[j] else end)
+        tok[i, :end - done[j]] = tokens[j, done[j]:end]
+        dest[i] = kv.chunk_dest(j, done[j], end, chunk)
+        table[i] = kv.table_row(j)
+        start[i], last[i] = done[j], end - 1
+    lg, _ = lm.prefill_chunk(
+        params, torch.as_tensor(tok, device=DEV),
+        {**kv.state, "page_table": torch.as_tensor(table, device=DEV)},
+        torch.as_tensor(start, device=DEV), torch.as_tensor(dest, device=DEV),
+        torch.as_tensor(last, device=DEV), norm_impl=norm_impl)
+    for i, j in enumerate(slots):
+        done[j] = int(last[i]) + 1
+        if done[j] == lens[j]:
+            rows[j] = lg[i, -1]
+    return 1
 
 
 def _leaves(tree):
@@ -1308,8 +1604,11 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
     prompts = serve_prompts(cfg)
     sharded = pool_group is not None
 
-    def requests():
-        return [Request(i, p, max_new_tokens=32) for i, p in enumerate(prompts)]
+    def requests(staggered=False):
+        # staggered: 8-56 new tokens, so streams finish at different
+        # iterations and later admissions land among live streams
+        return [Request(i, p, max_new_tokens=8 + 13 * i % 49 if staggered
+                        else 32) for i, p in enumerate(prompts)]
 
     def engine(**kw):
         return ServeEngine(lm, params, max_batch=8, max_seq=512,
@@ -1325,6 +1624,8 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
     for label, kw in runs:
         tag = f"[{log_name} {label}]"
         free()
+        kw = dict(kw)
+        staggered = kw.pop("staggered", False)
         before = torch.cuda.memory_allocated()
         eng = engine(**kw)
         torch.cuda.synchronize()
@@ -1347,8 +1648,10 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
             replays.append(1)
             return replay(view)
 
+        captured = eng._graph
         eng._fused = timed(eng._fused, decode_ms)
         eng._prefill_group = timed(eng._prefill_group, prefill_ms)
+        eng._chunk_group = timed(eng._chunk_group, prefill_ms)
         eng._replay = counted_replay
         per_chip = [0] * eng.kv.chips          # fresh pages handed out
 
@@ -1358,9 +1661,36 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
                 per_chip[pid // eng.kv.pages_per_chip] += 1
             return pages
 
+        shared = {}                             # prompt length -> shared
+
+        def chunk_alloc(slot, length, first, prefix=None,
+                        alloc=getattr(eng.kv, "alloc_chunked", None)):
+            got = alloc(slot, length, first, prefix=prefix)
+            if got is not None:
+                shared[len(prefix)] = shared.get(len(prefix), []) + [got]
+            return got
+
         if eng.kv.backend == "paged":
             eng.kv._take_fresh = counted
-        reqs = requests()
+            eng.kv.alloc_chunked = chunk_alloc
+        reqs = requests(staggered)
+        # the host time of each token of each stream (every step ends in a
+        # synchronizing copy of the sampled ids), for the longest wait
+        # between two tokens of one stream
+        seen, gaps = {}, []
+
+        def stepped(step=eng.step):
+            live = step()
+            now = time.perf_counter()
+            for r in reqs:
+                k = len(r.out_tokens)
+                if k and seen.get(r.id, (0,))[0] != k:
+                    if r.id in seen:
+                        gaps.append((now - seen[r.id][1]) * 1e3)
+                    seen[r.id] = (k, now)
+            return live
+
+        eng.step = stepped
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -1376,12 +1706,14 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
         decodes = reg.counter("serve_decode_dispatches_total").get()
         prefills = reg.counter("serve_prefill_dispatches_total").get()
         tokens = sum(len(r.out_tokens) for r in done)
-        assert len(done) == 16 and all(r.status == "completed" and
-                                       len(r.out_tokens) == 32 for r in done)
+        assert len(done) == 16 and all(
+            r.status == "completed" and len(r.out_tokens) == r.max_new_tokens
+            for r in done)
         assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
         assert decodes == iters, (decodes, iters)
         assert len(replays) == (decodes if graph else 0), \
             f"{tag} {len(replays)} graph replays for {decodes} decode steps"
+        assert eng._graph is captured, f"{tag} the decode step was recaptured"
         L = cfg.num_layers
         norms = L * (2 + 2 * cfg.qk_norm) + 1
         k1 = None
@@ -1389,12 +1721,41 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
             k1 = ("paged_flash_decode" + ("_partials" if sharded else "")
                   + ("_int8" if eng.kv.quantized else ""))
         want = {name: 0 for name in launches}
-        want.update({"flash_attention_bhsd": prefills * L,
+        # a chunk dispatch runs every norm through K3 and no K2
+        want.update({"flash_attention_bhsd": 0 if eng.chunk else prefills * L,
                      "rmsnorm_rows": (decodes + prefills) * norms})
         if k1:
             want[k1] = decodes * L
         log(f"{tag} launch counts {launches}, expected {want}")
         assert launches == want, "the main path did not run every kernel"
+        chunks = {}
+        if eng.chunk:
+            c = eng.chunk
+            # each prompt's chunks, less the leading ones that lie wholly on
+            # the landed shared pages its admission found
+            lens = sorted(len(p) for p in prompts)
+            assert sorted(k for k, v in shared.items() for _ in v) == lens
+            skip = sum(min(sh, plen - 1) // c
+                       for plen, v in shared.items() for sh in v)
+            chunks = {k: reg.counter(f"serve_prefill_{k}").get()
+                      for k in ("chunks_total", "chunk_stalls_total",
+                                "chunks_skipped_total")}
+            stall_iters = reg.counter("serve_decode_stall_iters").get()
+            want_chunks = sum(-(-plen // c) for plen in lens) - skip
+            log(f"{tag} {chunks['chunks_total']:.0f} chunks of {c} in "
+                f"{prefills:.0f} dispatches (budget {eng.budget}), expected "
+                f"{want_chunks} from the prompt lengths less {skip} skipped "
+                f"on shared pages (counted "
+                f"{chunks['chunks_skipped_total']:.0f}); "
+                f"{chunks['chunk_stalls_total']:.0f} page-grant stalls, "
+                f"decode stall iterations {stall_iters:.0f} (0 by "
+                f"construction: a chunk round never spends past the budget; "
+                f"the wait between tokens is the measure of the stall)")
+            assert chunks["chunks_total"] == want_chunks \
+                and chunks["chunks_skipped_total"] == skip, \
+                "the chunk count is not what the prompts predict"
+            assert stall_iters == 0, \
+                "a chunk round spent more prefill tokens than the budget"
         ttft = reg.histogram("serve_ttft_seconds").quantile(0.5) * 1e3
         st = eng.kv.memory_stats()
         gs = eng.graph_stats or {}
@@ -1403,8 +1764,10 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
             f"{iters:.0f} iterations, {prefills:.0f} prefill dispatches, mean "
             f"decode step {np.mean(decode_ms):.2f} ms "
             f"({'one CUDA graph replay' if graph else 'eager'}; "
-            f"{len(replays)} replays), mean prefill dispatch "
-            f"{np.mean(prefill_ms):.2f} ms, pages shared "
+            f"{len(replays)} replays), mean prefill "
+            f"{'chunk ' if eng.chunk else ''}dispatch "
+            f"{np.mean(prefill_ms):.2f} ms, longest wait between two tokens "
+            f"of one stream {max(gaps):.2f} ms, pages shared "
             f"{reg.gauge('serve_kv_pages_shared').get():.0f} at last "
             f"admission, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -1451,7 +1814,7 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
                 f"{np.mean(decode_ms):.2f} ms the device is idle "
                 f"{1 - prof['replay_ms'] / np.mean(decode_ms):.3f} "
                 f"[{nvidia_smi_line()}]")
-        if profile:
+        if profile and not eng.chunk and not staggered:
             # the window must hold K1's launches (every rank of a sharded
             # pool takes the step once, so it is not taken again there)
             expect = ({"paged_decode_split_kernel": L}
@@ -1493,6 +1856,9 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
             per_chip=per_chip, pool_tensor_bytes=pool_tensor_bytes,
             k1=k1, decode_ms=float(np.mean(decode_ms)), tok_s=tokens / wall,
             ttft_ms=ttft, pool_bytes=pool_bytes, graph=graph,
+            prefill_ms=float(np.mean(prefill_ms)), max_gap_ms=max(gaps),
+            prefills=prefills, chunks=chunks, budget=eng.budget,
+            stall_iters=reg.counter("serve_decode_stall_iters").get(),
             replays=len(replays), stats=dataclasses.asdict(st),
             page_bytes=page_kv_bytes(cfg, 16, eng.kv.dtype, st.kv_dtype),
             capture_ms=gs.get("capture_ms"),
@@ -1541,19 +1907,30 @@ def one_step_checks(lm, params) -> None:
 
 def serve(report):
     """The same 16 requests served through the graph over native bf16
-    pages, then over int8 pages, the same two eagerly, then over the
-    contiguous cache; each run is gated on its own launch counts, the
-    graph's streams on the eager ones.  Returns the streams of each page
-    format (the graph runs)."""
+    pages, then over int8 pages, then over the contiguous cache, then with
+    chunked prefill (chunks of 64, budget 128) over native and int8 pages,
+    then with staggered lengths (8-56 new tokens) whole-prompt and chunked
+    (budget 128, and 64: one chunk an iteration) over native pages, then
+    the first two eagerly; each run is gated on its own launch counts
+    (and a chunked run on its chunk count and its stall counter), the
+    graph's streams on the eager ones.  Returns the streams of each run
+    through the graph."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     lm = LM(get_config("qwen3-4b"))
     params = lm.init(7, device=DEV)
     # the graph runs first: their profiled steps are the ones to keep where
     # the profiler starts missing windows (PERF.md, open questions)
+    chunked = {"prefill_chunk": 64, "prefill_budget": 128}
     runs = serve_runs(lm, params, (
         ("native", {}), ("int8", {"kv_dtype": "int8"}),
         ("contiguous", {"cache_backend": "contiguous"}),
+        ("chunked", chunked),
+        ("chunked-int8", dict(chunked, kv_dtype="int8")),
+        ("staggered", {"staggered": True}),
+        ("chunked-staggered", dict(chunked, staggered=True)),
+        ("chunked-staggered-64", dict(chunked, staggered=True,
+                                      prefill_budget=64)),
         ("native-eager", {"cuda_graph": False}),
         ("int8-eager", {"kv_dtype": "int8", "cuda_graph": False})), "serve")
     for label in ("native", "int8"):
@@ -1571,17 +1948,88 @@ def serve(report):
             f"[{nvidia_smi_line()}]")
         assert same, f"[{label}] graph streams differ from eager streams"
     streams = {label: runs[label]["streams"]
-               for label in ("native", "int8", "contiguous")}
-    for other in ("int8", "contiguous"):
-        same = sum(a == b for i in streams["native"]
-                   for a, b in zip(streams["native"][i], streams[other][i]))
-        first = sum(streams["native"][i][0] == streams[other][i][0]
-                    for i in streams["native"])
-        log(f"{other} vs native streams (bf16, random weights): {same}/512 "
+               for label in ("native", "int8", "contiguous", "chunked",
+                             "chunked-int8")}
+    for other, base in (("int8", "native"), ("contiguous", "native"),
+                        ("chunked", "native"), ("chunked-int8", "int8")):
+        same = sum(a == b for i in streams[base]
+                   for a, b in zip(streams[base][i], streams[other][i]))
+        first = sum(streams[base][i][0] == streams[other][i][0]
+                    for i in streams[base])
+        log(f"{other} vs {base} streams (bf16, random weights): {same}/512 "
             f"tokens equal, first tokens equal {first}/16 (reported, not a "
             f"gate)")
+    for label, base in (("chunked", "native"), ("chunked-int8", "int8"),
+                        ("chunked-staggered", "staggered"),
+                        ("chunked-staggered-64", "staggered")):
+        run, whole = runs[label], runs[base]
+        log(f"[serve {label}] vs whole-prompt [{base}]: prefill dispatch "
+            f"{run['prefill_ms']:.2f} ms ({run['prefills']:.0f} chunk "
+            f"rounds) vs {whole['prefill_ms']:.2f} ms ({whole['prefills']:.0f}"
+            f" bucketed); decode step {run['decode_ms']:.2f} vs "
+            f"{whole['decode_ms']:.2f} ms; {run['tok_s']:.1f} vs "
+            f"{whole['tok_s']:.1f} tok/s; TTFT p50 {run['ttft_ms']:.1f} vs "
+            f"{whole['ttft_ms']:.1f} ms; longest wait between two tokens of "
+            f"one stream {run['max_gap_ms']:.2f} vs {whole['max_gap_ms']:.2f}"
+            f" ms (budget {run['budget']}); decode stall iterations "
+            f"{run['stall_iters']:.0f} (0 by construction) vs "
+            f"{whole['stall_iters']:.0f} [{nvidia_smi_line()}]")
     one_step_checks(lm, params)
+    chunk_attention_time()
     return streams
+
+
+def chunk_attention_time() -> None:
+    """One layer's chunk attention, which has no kernel (as JAX's has
+    none): the gather of each slot's live pages and the masked fp32
+    softmax over them (``gather_pages`` + ``chunk_attention``) at phase
+    5's chunk round of two 64-token chunks (positions 64-127 and 128-191,
+    a 257-page pool, M = 32), bf16; timed as a CUDA graph of 50 calls and
+    back to back eagerly, beside its bound (the live rows read once, the
+    causal work each query row needs) and SDPA on the same gathered view.
+    Reported, not a gate."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import chunk_attention, gather_pages
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    n, c, kv, g, d, page, m, pages = 2, 64, 8, 4, 128, 16, 32, 257
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV,
+                           dtype=torch.bfloat16)
+
+    k, v, q = randn(pages, page, kv, d), randn(pages, page, kv, d), \
+        randn(n, c, kv, g, d)
+    table = (torch.randperm(pages - 1, generator=gen, device=DEV)[:n * m]
+             + 1).view(n, m).int()
+    last = torch.tensor([127, 191], device=DEV)
+    qpos = last[:, None] - c + 1 + torch.arange(c, device=DEV)
+
+    def plain():
+        return chunk_attention(q, gather_pages(k, table, last),
+                               gather_pages(v, table, last), qpos, last)
+
+    kg, vg = gather_pages(k, table, last), gather_pages(v, table, last)
+    mask = (torch.arange(m * page, device=DEV)[None, None, :]
+            <= qpos[:, :, None])[:, None]                   # (n, 1, C, S)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.flatten(2, 3).transpose(1, 2), kg.transpose(1, 2),
+            vg.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+    ref = plain().flatten(2, 3).transpose(1, 2).float()
+    err = max_err(library(), ref)
+    live = int(((last // page) + 1).sum()) * page
+    cols = int((qpos + 1).sum())
+    nbytes = 2 * (2 * live * kv * d + n * c * kv * g * d) + 4 * n * m
+    t_bound, by = bound(nbytes, 4 * cols * kv * g * d, torch.bfloat16)
+    ms, eager, lib = time_ms(plain), eager_ms(plain), time_ms(library)
+    log(f"chunk attention (no kernel), one layer, 2 chunks of 64 over 32 "
+        f"table pages ({live} live rows), bf16: {ms:.4f} ms (eager back to "
+        f"back {eager:.4f} ms; x 36 layers = {36 * eager:.2f} ms a chunk "
+        f"dispatch), SDPA on the gathered view {lib:.4f} ms (max_abs_err "
+        f"{err:.3e} against it), bound {t_bound:.5f} ms ({by}; {nbytes} B)"
+        f" [{nvidia_smi_line()}]")
 
 
 # ------------------------------------------------------------- phase 6 ----
@@ -2221,7 +2669,7 @@ def sharded_ranks(report, phase5_streams, n: int = 2,
     results = [json.loads(next(l for l in out.splitlines()
                                if l.startswith("RESULT "))[7:])
                for out in outs]
-    for label in ("native", "int8", "native-129"):
+    for label in ("native", "int8", "native-129", "chunked"):
         runs = [r["serve"][label] for r in results]
         assert all(run["streams"] == runs[0]["streams"] for run in runs), \
             f"[{label}] the ranks' streams differ"
@@ -2235,7 +2683,7 @@ def sharded_ranks(report, phase5_streams, n: int = 2,
             f"rank {runs[0]['per_chip']}; mean decode step "
             f"{runs[0]['decode_ms']:.2f} ms on rank 0")
         name = runs[0]["k1"]
-        if label != "native-129":
+        if label in ("native", "int8"):
             report[name]["launches"] = runs[0]["launches"][name]
 
 
@@ -2244,8 +2692,9 @@ def rank_main(rank: int, n: int, port: int) -> int:
     one decode step over the sharded pool, rank 0 holding the logits
     against its own single-card cache (relative max error 1e-4: the two
     differ only in the order of the attention sums); (c) phase 5's bf16
-    workload over sharded native, then int8, pages; then the gloo merge's
-    cost per layer."""
+    workload over sharded native, then int8, pages, then native pages over
+    a smaller pool, then with phase 5's chunked prefill; then the gloo
+    merge's cost per layer."""
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2322,10 +2771,13 @@ def rank_main(rank: int, n: int, port: int) -> int:
     lm = LM(get_config("qwen3-4b"))
     params = lm.init(7, device=DEV)
     # phase 5's pool (257 pages) over native and int8 pages; then native
-    # over 129 pages, where the live slots outgrow one rank's shard
+    # over 129 pages, where the live slots outgrow one rank's shard; then
+    # phase 5's chunked prefill over native pages
     runs = serve_runs(lm, params, (("native", {}),
                                    ("int8", {"kv_dtype": "int8"}),
-                                   ("native-129", {"num_pages": 129})),
+                                   ("native-129", {"num_pages": 129}),
+                                   ("chunked", {"prefill_chunk": 64,
+                                                "prefill_budget": 128})),
                       f"sharded r{rank}", pool_group=group,
                       profile=rank == 0)
     for label, run in runs.items():

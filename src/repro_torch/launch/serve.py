@@ -6,6 +6,8 @@ the fused decode step per iteration.
     python -m repro_torch.launch.serve --no-reduced          # full width
     python -m repro_torch.launch.serve --no-reduced --kv-dtype int8
     python -m repro_torch.launch.serve --no-reduced --cache-backend contiguous
+    python -m repro_torch.launch.serve --no-reduced --prefill-chunk 64 \
+        --prefill-budget 128
     python -m repro_torch.launch.serve --device cpu --reduced
     python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.serve --device cpu --reduced --mesh 2
@@ -119,6 +121,15 @@ def parse_args(argv=None):
                     choices=["kernel", "gather"],
                     help="paged decode read path: 'kernel' (K1, walks the "
                          "page table) or 'gather' (dense gathered view)")
+    ap.add_argument("--prefill-chunk", type=int, default=0, metavar="C",
+                    help="chunked prefill: admitted prompts land in C-token "
+                         "chunks interleaved with the decode steps, claiming "
+                         "pages chunk by chunk; 0 = whole-prompt prefill.  "
+                         "Needs --cache-backend paged")
+    ap.add_argument("--prefill-budget", type=int, default=0, metavar="T",
+                    help="max prefill tokens per engine iteration (>= one "
+                         "chunk; default: one chunk), the bound on how long "
+                         "a decode iteration waits on prefill")
     ap.add_argument("--mesh", default="0", metavar="N",
                     help="split the KV pool over N ranks (run under "
                          "python -m torch.distributed.run --nproc-per-node "
@@ -170,7 +181,9 @@ def serve(args, pool_group, device, params=None):
                       prefix_sharing=not args.no_prefix_sharing,
                       device=device, kv_dtype=args.kv_dtype,
                       decode_impl=args.decode_impl, pool_group=pool_group,
-                      cache_backend=args.cache_backend)
+                      cache_backend=args.cache_backend,
+                      prefill_chunk=args.prefill_chunk,
+                      prefill_budget=args.prefill_budget)
     t0 = time.perf_counter()
     for req in draw_requests(args, cfg.vocab_size):
         eng.submit(req)
@@ -220,6 +233,15 @@ def serve(args, pool_group, device, params=None):
               f"{saved/1e6:.2f} MB saved vs {dense} pages "
               f"({(st.bytes_total + saved)/max(st.bytes_total, 1):.2f}x "
               f"positions per byte)")
+    if args.prefill_chunk:
+        chunks = reg.counter("serve_prefill_chunks_total").get()
+        stalls = reg.counter("serve_prefill_chunk_stalls_total").get()
+        stall_it = reg.counter("serve_decode_stall_iters").get()
+        skipped = reg.counter("serve_prefill_chunks_skipped_total").get()
+        print(f"chunked prefill [{args.prefill_chunk} tok/chunk, budget "
+              f"{eng.budget}]: {chunks:.0f} chunks, {stalls:.0f} page-grant "
+              f"stalls, decode stall iters={stall_it:.0f}")
+        print(f"  {skipped:.0f} fully-shared chunks skipped their forward")
     return eng
 
 

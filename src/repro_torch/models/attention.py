@@ -16,7 +16,11 @@ engine's default).  Physical page 0 is the scratch page: freed slots' table
 rows point at it, so masked writes of inactive slots land there.  Over int8
 pools the new row is quantized before it is written, its scale lands
 through the same table index, and the read dequantizes: in registers in K1's
-int8 mode, or the gathered view under ``"gather"``.  Without a page table
+int8 mode, or the gathered view under ``"gather"``.  Chunked prefill
+(``attention_prefill_chunk_block``) writes a (B, C) chunk's K/V at flat
+pool rows and attends over the slot's pages through the gathered view
+with a position-exact causal mask: no kernel, as in JAX, whose chunk
+attention is plain XLA too.  Without a page table
 the caches are dense (B, S, KV, D) rows (the contiguous layout): each slot
 writes its row at its own position and attends over its rows with the
 gathered view's arithmetic, so paged ``"gather"`` and contiguous give
@@ -192,6 +196,23 @@ def dequant_gathered(gathered, scale_pool, table, dtype):
     return dequantize_kv(gathered, sg, dtype)
 
 
+def chunk_attention(q, kg, vg, qpos, last_pos):
+    """Queries q (B, C, KV, G, D) at positions qpos (B, C) over gathered
+    rows kg, vg (B, S, KV, D): row i sees columns ``<= min(qpos[:, i],
+    last_pos)``, so a chunk's padding rows past ``last_pos`` (B,) stay
+    inside the claimed pages; a decode step is the one-row case.  Scores
+    and softmax in fp32, the probabilities cast to q's dtype before PV, as
+    in ``dense_attention``."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q, kg).float() / math.sqrt(
+        q.shape[-1])
+    cols = torch.arange(kg.shape[1], device=q.device)
+    valid = (cols[None, None, :] <= torch.minimum(
+        qpos.long(), last_pos.long()[:, None])[:, :, None])   # (B, C, S)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, vg)
+
+
 def decode_attention(q, k_cache, v_cache, positions, page_table=None,
                      impl: str = "kernel", k_scale=None, v_scale=None):
     """q (B, 1, KV, G, D) attends to each slot's rows 0..pos.  With
@@ -219,14 +240,7 @@ def decode_attention(q, k_cache, v_cache, positions, page_table=None,
         raise ValueError("KV scales ride on the paged int8 page format")
     else:
         kg, vg = k_cache, v_cache
-    s = torch.einsum("bqkgd,bskd->bkgqs", q, kg).float() / math.sqrt(
-        q.shape[-1])
-    valid = (torch.arange(kg.shape[1], device=q.device)[None, :]
-             <= positions.long()[:, None])
-    s = torch.where(valid[:, None, None, None, :], s,
-                    torch.full_like(s, NEG_INF))
-    probs = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bkgqs,bskd->bqkgd", probs, vg)
+    return chunk_attention(q, kg, vg, positions[:, None], positions)
 
 
 def _scatter_decode_kv(cache, new, positions):
@@ -251,6 +265,63 @@ def _scatter_paged_kv(pool, new, page_table, positions):
     pos = positions.long()
     page_ids = page_table.long().gather(1, (pos // page)[:, None])[:, 0]
     flat[page_ids * page + pos % page] = new[:, 0].to(pool.dtype)
+
+
+def _scatter_chunk_paged(pool, new, dest):
+    """In-place chunk write (the JAX ``_scatter_chunk_paged``): ``new``
+    (B, C, KV, D), or its scales (B, C, KV) into a scale pool, lands at
+    ``dest`` (B, C) flat pool rows (page * page_size + row, from
+    ``PagedCache.chunk_dest``).  Padding and shared-prefix positions arrive
+    routed to flat row 0 of the scratch page; those duplicate writes race
+    on CUDA, harmlessly."""
+    check_pool_write(pool, new, "_scatter_chunk_paged")
+    flat = pool.view(-1, *pool.shape[2:])
+    flat[dest.reshape(-1).long()] = new.reshape(
+        -1, *new.shape[2:]).to(pool.dtype)
+
+
+def attention_prefill_chunk_block(p, cfg, x, k_pool, v_pool, start_pos, dest,
+                                  page_table, last_pos,
+                                  norm_impl: str = "kernel", k_scale=None,
+                                  v_scale=None, pool_group=None):
+    """One layer of chunked prefill (the JAX
+    ``attention_prefill_chunk_block``): a (B, C) chunk at per-request
+    offsets ``start_pos`` (B,) writes its K/V into the pools in place at
+    ``dest`` (B, C) flat rows and attends over everything its slot has
+    written, earlier chunks and itself, through ``page_table`` (B, M), the
+    slots' real rows (``PagedCache.table_row``).  ``last_pos`` (B,) is each
+    chunk's last valid position: it limits the gather to claimed pages and
+    clamps padding rows.  Int8 pools (``k_scale``/``v_scale``): the chunk's
+    K/V are quantized before the write, their scales land at the same rows,
+    and the gathered view is dequantized, so a chunk reads its own rows as
+    a later decode step will.  With ``pool_group`` the write and the
+    attention go through
+    ``repro_torch.parallel.pagedkv.sharded_prefill_chunk_attention``.
+    Returns y (B, C, d)."""
+    qpos = start_pos.long()[:, None] + torch.arange(x.shape[1],
+                                                    device=x.device)
+    q, k, v = project_qkv(p, cfg, x, qpos, norm_impl)
+    if pool_group is not None:
+        from repro_torch.parallel.pagedkv import \
+            sharded_prefill_chunk_attention
+        y = sharded_prefill_chunk_attention(
+            pool_group, q, k, v, dest, k_pool, v_pool, page_table, qpos,
+            last_pos, k_scale=k_scale, v_scale=v_scale)
+        return output_proj(p, cfg, y)
+    if k_scale is not None:
+        k, sk = quantize_kv(k)
+        v, sv = quantize_kv(v)
+        _scatter_chunk_paged(k_scale, sk, dest)
+        _scatter_chunk_paged(v_scale, sv, dest)
+    _scatter_chunk_paged(k_pool, k, dest)
+    _scatter_chunk_paged(v_pool, v, dest)
+    kg = gather_pages(k_pool, page_table, last_pos)
+    vg = gather_pages(v_pool, page_table, last_pos)
+    if k_scale is not None:
+        lt = live_table(page_table, last_pos, k_pool.shape[1])
+        kg = dequant_gathered(kg, k_scale, lt, x.dtype)
+        vg = dequant_gathered(vg, v_scale, lt, x.dtype)
+    return output_proj(p, cfg, chunk_attention(q, kg, vg, qpos, last_pos))
 
 
 # ---------------------------------------------- sharded pools (one rank) ----
@@ -307,39 +378,13 @@ def paged_gather_partials(q, k_pool, v_pool, page_table, positions,
                           page_offset: int, k_scale=None, v_scale=None):
     """One shard's partial paged decode through a gathered view (counterpart
     of the JAX ``paged_gather_partials``; K1's partials mode walks the table
-    instead).  q (B, 1, KV, G, D); pools the shard's window (P/n, page, KV,
-    D), global ids from ``page_offset``; page_table (B, M) GLOBAL ids.
-    Entries outside the window are masked like dead pages: gathered through
-    local page 0, scores NEG_INF.  Returns the raw fp32 triple (acc (B, 1,
-    KV, G, D), l (B, KV, G), m (B, KV, G)); the explicit ``where`` on p
-    makes a shard with no live row of a slot give (0, 0, NEG_INF), where
-    ``exp(s - max)`` alone would give exp(0) = 1.  Int8 shards dequantize
-    the gathered rows to fp32 through their scale shards."""
-    hd = q.shape[-1]
-    b, m = page_table.shape
-    pn, page = k_pool.shape[:2]
-    live = (torch.arange(m, device=q.device)[None, :]
-            <= (positions.long() // page)[:, None])
-    local = page_table.long() - page_offset
-    ok = live & (local >= 0) & (local < pn)
-    lt = torch.where(ok, local, torch.zeros_like(local))
-    kg = k_pool[lt].reshape(b, m * page, *k_pool.shape[2:])
-    vg = v_pool[lt].reshape(b, m * page, *v_pool.shape[2:])
-    if k_scale is not None:
-        kg = dequant_gathered(kg, k_scale, lt, torch.float32)
-        vg = dequant_gathered(vg, v_scale, lt, torch.float32)
-    ct = torch.promote_types(q.dtype, kg.dtype)
-    s = torch.einsum("bkgd,bskd->bkgs", q[:, 0].to(ct), kg.to(ct)).float()
-    s = s / math.sqrt(hd)
-    valid = ((torch.arange(m * page, device=q.device)[None, :]
-              <= positions.long()[:, None])
-             & ok[:, :, None].expand(b, m, page).reshape(b, m * page)
-             )[:, None, None, :]
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    mx = s.amax(dim=-1)
-    p = torch.where(valid, torch.exp(s - mx[..., None]), torch.zeros_like(s))
-    acc = torch.einsum("bkgs,bskd->bkgd", p, vg.float())
-    return acc[:, None], p.sum(dim=-1), mx
+    instead): the one-row case of ``paged_gather_chunk_partials``.  q (B, 1,
+    KV, G, D) at (B,) ``positions``.  Returns the raw fp32 triple (acc (B,
+    1, KV, G, D), l (B, KV, G), m (B, KV, G))."""
+    acc, l, m = paged_gather_chunk_partials(
+        q, k_pool, v_pool, page_table, positions[:, None], positions,
+        page_offset, k_scale=k_scale, v_scale=v_scale)
+    return acc, l[..., 0], m[..., 0]
 
 
 def merge_partials_local(triples):
@@ -356,20 +401,73 @@ def merge_partials_local(triples):
     return num / torch.clamp(den, min=1e-30)[:, None, :, :, None]
 
 
-def merge_paged_partials(acc, l, m, pool_group):
-    """``merge_partials_local`` across the ranks of ``pool_group`` (a
-    ``repro_torch.parallel.pagedkv.PoolGroup``; counterpart of the JAX
-    ``merge_paged_partials``): one all_reduce MAX of m, then one all_reduce
-    SUM of acc·w and l·w packed into one (B, 1, KV, G, D + 1) tensor.  The
-    result is the same on every rank.  The denominator vanishes only if no
-    rank saw a live row, which the scratch-page convention rules out
-    (logical page 0 is live at every position)."""
+def paged_gather_chunk_partials(q, k_pool, v_pool, page_table, qpos,
+                                last_pos, page_offset: int, k_scale=None,
+                                v_scale=None):
+    """One shard's partial chunk attention through a gathered view (the JAX
+    ``paged_gather_chunk_partials``).  q (B, C, KV, G, D); pools the
+    shard's window (P/n, page, KV, D), global ids from ``page_offset``;
+    page_table (B, M) GLOBAL ids; qpos (B, C) each row's position; last_pos
+    (B,).  Entries outside the window or past ``last_pos`` are masked like
+    dead pages (gathered through local page 0, scores NEG_INF) and each row
+    sees columns ``<= min(qpos, last_pos)``.  Int8 shards dequantize the
+    gathered rows to fp32 through their scale shards.  Returns the raw fp32
+    triple (acc (B, C, KV, G, D), l (B, KV, G, C), m (B, KV, G, C)); the
+    explicit ``where`` on p makes a shard with no live row of a slot give
+    (0, 0, NEG_INF), where ``exp(s - max)`` alone would give exp(0) = 1."""
+    hd = q.shape[-1]
+    b, m = page_table.shape
+    pn, page = k_pool.shape[:2]
+    last = last_pos.long()
+    live = (torch.arange(m, device=q.device)[None, :]
+            <= (last // page)[:, None])
+    local = page_table.long() - page_offset
+    ok = live & (local >= 0) & (local < pn)
+    lt = torch.where(ok, local, torch.zeros_like(local))
+    kg = k_pool[lt].reshape(b, m * page, *k_pool.shape[2:])
+    vg = v_pool[lt].reshape(b, m * page, *v_pool.shape[2:])
+    if k_scale is not None:
+        kg = dequant_gathered(kg, k_scale, lt, torch.float32)
+        vg = dequant_gathered(vg, v_scale, lt, torch.float32)
+    ct = torch.promote_types(q.dtype, kg.dtype)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(ct), kg.to(ct)).float()
+    s = s / math.sqrt(hd)
+    cols = torch.arange(m * page, device=q.device)
+    valid = ((cols[None, None, :]
+              <= torch.minimum(qpos.long(), last[:, None])[:, :, None])
+             & ok.repeat_interleave(page, dim=1)[:, None, :]
+             )[:, None, None]                                # (B,1,1,C,S)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    mx = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - mx[..., None]), torch.zeros_like(s))
+    acc = torch.einsum("bkgqs,bskd->bqkgd", p, vg.float())
+    return acc, p.sum(dim=-1), mx
+
+
+def merge_paged_chunk_partials(acc, l, m, pool_group):
+    """The cross-rank merge of C-row partials (the JAX
+    ``merge_paged_chunk_partials``): acc (B, C, KV, G, D), l and m
+    (B, KV, G, C).  One all_reduce MAX of m, then one all_reduce SUM of
+    acc·w and l·w packed into one (B, C, KV, G, D + 1) tensor, ``w = exp(m
+    - max m)``; the result is the same on every rank.  Only padding rows,
+    whose outputs are discarded, can see no live row on any rank."""
     gm = pool_group.all_max(m.clone())
-    w = torch.exp(m - gm)[:, None, :, :, None]
+    w = torch.exp(m - gm).permute(0, 3, 1, 2)[..., None]
     d = acc.shape[-1]
-    packed = torch.cat([acc * w, l[:, None, :, :, None] * w], dim=-1)
+    packed = torch.cat([acc * w, l.permute(0, 3, 1, 2)[..., None] * w],
+                       dim=-1)
     pool_group.all_sum(packed)
     return packed[..., :d] / torch.clamp(packed[..., d:], min=1e-30)
+
+
+def merge_paged_partials(acc, l, m, pool_group):
+    """The decode merge (counterpart of the JAX ``merge_paged_partials``):
+    the one-row case of ``merge_paged_chunk_partials``, acc (B, 1, KV, G,
+    D), l and m (B, KV, G).  The denominator vanishes only if no rank saw
+    a live row, which the scratch-page convention rules out (logical page
+    0 is live at every position)."""
+    return merge_paged_chunk_partials(acc, l[..., None], m[..., None],
+                                      pool_group)
 
 
 def attention_decode_block(p, cfg, x, k_pool, v_pool, positions,

@@ -26,7 +26,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.rmsnorm import rmsnorm_ref
 from repro_torch.kernels.softmax_xent import softmax_xent_ref
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: Compute dtypes by config name; float64 runs the plain paths only (no
+#: kernel takes it): a witness that removes fp32 rounding from a comparison.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
 
 
 def resolve_device(device) -> torch.device:

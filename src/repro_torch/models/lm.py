@@ -56,6 +56,17 @@ class LM:
                                        norm_impl=norm_impl,
                                        pool_group=pool_group)
 
+    def prefill_chunk(self, params, tokens, cache, start_pos, dest, last_pos,
+                      norm_impl: str = "kernel", pool_group=None):
+        """One chunk of chunked prefill over a paged cache view whose
+        ``"page_table"`` holds the slots' real rows; pools written in
+        place.  Returns (logits (B, 1, Vp) at each chunk's last valid row,
+        cache).  See ``transformer.prefill_chunk``."""
+        return transformer.prefill_chunk(params, self.cfg, tokens, cache,
+                                         start_pos, dest, last_pos,
+                                         norm_impl=norm_impl,
+                                         pool_group=pool_group)
+
     def init_cache(self, batch_size: int, max_seq: int,
                    backend: Optional[str] = "paged", page_size: int = 16,
                    num_pages: Optional[int] = None,

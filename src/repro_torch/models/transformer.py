@@ -2,7 +2,7 @@
 (rwkv6) families of the JAX ``repro.models.transformer``.
 
 Layers are stacked along a leading dim of every parameter and applied in a
-Python loop.  Two entry points share the weights:
+Python loop.  Three entry points share the weights:
 
 * ``forward``     — full sequence (training and eval; prefill when
   ``collect_cache``, for the dense family only)
@@ -10,6 +10,8 @@ Python loop.  Two entry points share the weights:
   whose pools it updates in place (dense family only), over this rank's
   shards of pools split over a ``PoolGroup``, or over the dense cache of
   ``init_cache`` (the contiguous layout)
+* ``prefill_chunk`` — a (B, C) chunk of prompt tokens at per-request
+  offsets over a paged cache (dense family only), the chunked prefill
 
 The recurrent families run forward only: their prefill (final states) and
 decode step wait for ROADMAP Queue 1 item 16's "decode states".
@@ -220,3 +222,38 @@ def decode_step(params, cfg, tokens, cache, positions,
         f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, norm_impl)
         h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
     return unembed(params, cfg, h, norm_impl), cache
+
+
+def prefill_chunk(params, cfg, tokens, cache, start_pos, dest, last_pos,
+                  norm_impl: str = "kernel", pool_group=None):
+    """One chunk of chunked prefill (the JAX ``transformer.prefill_chunk``):
+    tokens (B, C) at global offsets ``start_pos`` (B,) through the stack;
+    each layer writes the chunk's K/V into the paged pools in place at
+    ``dest`` (B, C) flat rows and attends over the slot's earlier chunks
+    and the chunk itself (``attention.attention_prefill_chunk_block``).
+    ``cache`` is ``{"layers": pools, "page_table": (B, M)}`` holding the
+    slots' REAL table rows; ``last_pos`` (B,) is each chunk's last valid
+    position.  Only the hidden row at ``last_pos`` is unembedded, so a
+    chunk pays one vocab projection.  Returns (logits (B, 1, Vp), cache).
+    Dense family only: recurrent state has no position-indexed cache."""
+    if cfg.family != "dense":
+        raise ValueError("chunked prefill is dense-FFN attention-cache "
+                         f"families only (family={cfg.family})")
+    page_table = cache["page_table"]
+    pools = cache["layers"]
+    quantized = "k_scale" in pools
+    h = embed(params, cfg, tokens)
+    for i in range(cfg.num_layers):
+        lp = layer_params(params, i)
+        a_in = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps, norm_impl)
+        scales = ({"k_scale": pools["k_scale"][i],
+                   "v_scale": pools["v_scale"][i]} if quantized else {})
+        h = h + attn.attention_prefill_chunk_block(
+            lp["attn"], cfg, a_in, pools["k"][i], pools["v"][i], start_pos,
+            dest, page_table, last_pos, norm_impl=norm_impl,
+            pool_group=pool_group, **scales)
+        f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, norm_impl)
+        h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
+    take = (last_pos - start_pos).long()
+    h_last = h[torch.arange(h.shape[0], device=h.device), take][:, None]
+    return unembed(params, cfg, h_last, norm_impl), cache

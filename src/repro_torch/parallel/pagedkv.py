@@ -21,8 +21,10 @@ Every pool access is built from three verbs:
    and skips the rest like dead pages, giving the raw online-softmax
    triple (acc, l, m): K1's partials mode
    (``ops.paged_decode_partials``) or the gathered view
-   (``attention.paged_gather_partials``).
-3. **Merge** — ``attention.merge_paged_partials``: one all_reduce MAX and
+   (``attention.paged_gather_partials``; ``paged_gather_chunk_partials``
+   for a prefill chunk's C rows).
+3. **Merge** — ``attention.merge_paged_partials`` (C rows:
+   ``merge_paged_chunk_partials``): one all_reduce MAX and
    one all_reduce SUM give ``sum(acc·w) / sum(l·w)``, ``w = exp(m - max
    m)``, the same on every rank, so everything downstream is too.
 
@@ -30,7 +32,7 @@ The merge moves B·KV·G·(D+2) fp32 per layer, independent of the pool and
 of the sequence length.  Backends: ``nccl`` when each rank has its own card;
 ``gloo`` on the CPU, and when ranks share one card (gloo's all_reduce takes
 CUDA tensors and stages them through the host itself).  ``dp_axis`` (2-D
-batch × pages meshes) and the chunked-prefill attention are not ported.
+batch × pages meshes) is not ported.
 """
 from __future__ import annotations
 
@@ -146,3 +148,33 @@ def sharded_write_prefill(pool_group: PoolGroup, layers, kv_block, dest):
         for i in range(pool.shape[0]):
             attn.scatter_chunk_paged_local(pool[i], block[i], dest,
                                            pool_group.rank * rows)
+
+
+def sharded_prefill_chunk_attention(pool_group: PoolGroup, q, k_new, v_new,
+                                    dest, k_pool, v_pool, page_table, qpos,
+                                    last_pos, k_scale=None, v_scale=None):
+    """One layer's chunked-prefill write and attention on this rank (the
+    JAX ``sharded_prefill_chunk_attention``): the chunk's rows land in the
+    owning rank's shard (the rest in each rank's sink), then this shard's
+    C-row partials, then the merge.  q (B, C, KV, G, D); k_new/v_new
+    (B, C, KV, D), the same on every rank; dest (B, C) GLOBAL flat pool
+    rows; pools this rank's (P/n + 1, page, KV, D) shards with their sink;
+    page_table (B, M) the slots' real rows, global ids; qpos (B, C) each
+    row's position; last_pos (B,).  Int8 pools: every rank quantizes the
+    rows and their scales land through the same rows.  Returns y (B, C, KV,
+    G, D) in q's dtype, the same on every rank."""
+    pn, page = k_pool.shape[0] - 1, k_pool.shape[1]
+    off = pool_group.rank * pn
+    if k_scale is not None:
+        k_new, sk = quantize_kv(k_new)
+        v_new, sv = quantize_kv(v_new)
+        attn.scatter_chunk_paged_local(k_scale, sk, dest, off * page)
+        attn.scatter_chunk_paged_local(v_scale, sv, dest, off * page)
+    attn.scatter_chunk_paged_local(k_pool, k_new, dest, off * page)
+    attn.scatter_chunk_paged_local(v_pool, v_new, dest, off * page)
+    ks, vs = ((None, None) if k_scale is None
+              else (k_scale[:pn], v_scale[:pn]))
+    acc, l, m = attn.paged_gather_chunk_partials(
+        q, k_pool[:pn], v_pool[:pn], page_table, qpos, last_pos, off,
+        k_scale=ks, v_scale=vs)
+    return attn.merge_paged_chunk_partials(acc, l, m, pool_group).to(q.dtype)

@@ -1,8 +1,8 @@
 """Continuous-batching serve engine of the port: one fused decode+sample call
 per iteration over a paged or contiguous KV cache (counterpart of the core
 of the JAX ``repro.serve.engine``: whole-prompt admission, bucketed batched
-prefill, the fused step, and the metrics of ``docs/telemetry.md`` for what
-this engine does).
+prefill, chunked prefill, the fused step, and the metrics of
+``docs/telemetry.md`` for what this engine does).
 
 * **B fixed slots**, each holding one request at its own depth.  The fused
   step decodes every slot at its own position (``decode_step`` with (B,)
@@ -23,6 +23,20 @@ this engine does).
   power-of-two length bucket (capped at ``max_seq``); each group is one
   ``forward(collect_cache=True)`` whose K/V block is scattered into every
   admitted slot's pages (paged) or rows (contiguous).
+* **Chunked prefill** (``prefill_chunk=C``, paged only): an admitted
+  prompt lands in C-token chunks that interleave with the decode steps,
+  at most ``prefill_budget`` tokens (default one chunk) an iteration, so
+  no decode iteration waits on more than that.  A round stacks at most
+  one chunk per mid-prefill slot into one (n, C) ``LM.prefill_chunk``
+  dispatch, eager on the card (graphing it is ROADMAP item 22); chunk k
+  attends the pages chunks 0..k-1 wrote.  Pages are claimed chunk by
+  chunk (``PagedCache.alloc_chunked`` / ``extend``, banker-safe: a grant
+  that is not safe stalls the chunk until completions free pages), and a
+  chunk whose positions all lie on landed shared pages skips its forward.
+  A mid-prefill slot is inactive and shielded, so it decodes as a parked
+  slot into scratch, and the decode step stays one replay of the same
+  graph.  Tenancy, faults and the host tier, which JAX's chunked path
+  also serves, raise ``NotImplementedError`` naming their ROADMAP items.
 * **Admission control**: a request reserves its whole footprint (prompt +
   max_new_tokens) in the page pool; when the pool or the slots are short,
   admission stops in FIFO order and the request waits.  The contiguous
@@ -93,6 +107,19 @@ class Request:
     status: str = "pending"          # terminal: completed
 
 
+@dataclass
+class _PrefillState:
+    """A slot mid-chunked-prefill, resumable across iterations."""
+    req: Request
+    done: int = 0            # prompt positions landed so far
+    shared: int = 0          # leading positions backed by shared pages
+
+
+#: the JAX engine's keywords the port does not serve yet, and their items
+UNPORTED = {"tenancy": 11, "fault_plan": 12, "watchdog_iters": 12,
+            "host_pages": 13}
+
+
 class NonFiniteLogitsError(RuntimeError):
     """A logit row was NaN/Inf.  The JAX engine recovers such streams by
     recompute; the port has no fault recovery yet, so it stops."""
@@ -108,8 +135,17 @@ class ServeEngine:
                  prefix_sharing: bool = True, device="cuda",
                  kv_dtype: str = "native", decode_impl: str = "kernel",
                  pool_group=None, cache_backend: str = "paged",
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True, prefill_chunk: int = 0,
+                 prefill_budget: int = 0, **unported):
         assert lm.cfg.family == "dense", lm.cfg.family
+        for name, value in unported.items():
+            if name not in UNPORTED:
+                raise TypeError(f"ServeEngine got an unexpected keyword "
+                                f"argument {name!r}")
+            if value:
+                raise NotImplementedError(
+                    f"ServeEngine({name}=...) is not ported yet (ROADMAP "
+                    f"Queue 1 item {UNPORTED[name]})")
         if cache_backend not in ("paged", "contiguous"):
             raise ValueError(f"cache_backend {cache_backend!r} not in "
                              "('paged', 'contiguous')")
@@ -133,6 +169,26 @@ class ServeEngine:
                                 prefix_sharing=prefix_sharing,
                                 device=self.device, dtype=dtype,
                                 kv_dtype=kv_dtype, pool_group=pool_group)
+        # chunked prefill: C-token chunks, at most `budget` prefill tokens
+        # an iteration (0: whole-prompt prefill); JAX's messages
+        self.chunk = int(prefill_chunk)
+        self.budget = int(prefill_budget) or self.chunk
+        if prefill_budget and not self.chunk:
+            raise ValueError(
+                "prefill_budget bounds *chunked* prefill per iteration; "
+                "without prefill_chunk the whole prompt lands in one "
+                "dispatch and no budget applies (set prefill_chunk)")
+        if self.chunk:
+            if cache_backend != "paged":
+                raise ValueError(
+                    "chunked prefill is page-aware: chunks claim pages "
+                    "incrementally and mid-prefill slots shield their table "
+                    "rows from decode (use cache_backend='paged')")
+            if self.chunk < 1 or self.budget < self.chunk:
+                raise ValueError(
+                    f"prefill budget {self.budget} below one chunk "
+                    f"({self.chunk}): no chunk could ever dispatch")
+        self.prefilling: dict = {}       # slot -> _PrefillState, FIFO
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int32)   # next write index
         self.queue: List[Request] = []
@@ -163,10 +219,18 @@ class ServeEngine:
         c("serve_requests_total", "requests accepted by submit()")
         c("serve_admission_deferred_total",
           "admissions deferred by page-pool or slot admission control")
-        c("serve_prefill_dispatches_total", "bucketed prefill dispatches")
+        c("serve_prefill_dispatches_total",
+          "prefill dispatches (bucketed groups + chunk rounds)")
         c("serve_prefill_tokens_total", "prompt tokens prefilled")
+        c("serve_prefill_chunks_total", "chunked-prefill chunk dispatches")
+        c("serve_prefill_chunk_stalls_total",
+          "prefill chunks deferred because a page grant was not banker-safe")
+        c("serve_prefill_chunks_skipped_total",
+          "prefill chunks whose forward was skipped because every position "
+          "was already backed by landed shared pages")
         c("serve_decode_stall_iters",
-          "iterations where live decode streams waited on prefill work")
+          "iterations where live decode streams waited on prefill work "
+          "exceeding the per-iteration budget")
         c("serve_decode_dispatches_total", "fused decode+sample dispatches")
         c("serve_iterations_total", "engine iterations")
         c("serve_tokens_total", "tokens emitted by finished requests")
@@ -223,7 +287,11 @@ class ServeEngine:
     def _admit(self):
         """Admit queued requests in FIFO order while a slot and the pages
         of the request's footprint are free, then prefill them: one
-        dispatch per power-of-two prompt bucket."""
+        dispatch per power-of-two prompt bucket (chunked: ``_admit_chunked``
+        instead)."""
+        if self.chunk:
+            self._admit_chunked()
+            return
         free = [i for i, r in enumerate(self.slot_req) if r is None]
         admitted = []                           # (slot, req, bucket, shared)
         for req in list(self.queue):
@@ -277,16 +345,143 @@ class ServeEngine:
             if toks[j] == -1:
                 raise NonFiniteLogitsError(
                     f"request {req.id}: non-finite logits in prefill")
-            self.slot_req[slot] = req
-            self.slot_pos[slot] = len(req.prompt)
-            self.next_token[slot] = toks[j]
-            self.active[slot] = True
-            self.temps[slot] = req.sampling.temperature
-            self.top_ks[slot] = req.sampling.top_k
-            self.top_ps[slot] = req.sampling.top_p
-            self.seeds[slot] = req.sampling.seed
+            self._start_decoding(slot, req, toks[j])
             self.reg.counter("serve_prefill_tokens_total").inc(
                 len(req.prompt))
+
+    def _admit_chunked(self):
+        """Chunked admission in FIFO order: a request claims only its first
+        chunk's pages (``kv.alloc_chunked``), takes a slot inactive with its
+        decode shield up and joins ``prefilling``; its chunks dispatch from
+        ``_run_prefill_chunks``.  A deny stops admission."""
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        admitted = False
+        for req in list(self.queue):
+            shared = (self.kv.alloc_chunked(
+                free[0], self._footprint(req),
+                min(self.chunk, len(req.prompt)),
+                prefix=np.asarray(req.prompt, np.int32)) if free else None)
+            if shared is None:
+                self.reg.counter("serve_admission_deferred_total").inc()
+                break
+            slot = free.pop(0)
+            self.queue.remove(req)
+            self.slot_req[slot] = req
+            self.active[slot] = False           # not decodable yet
+            self.kv.set_decode_shield(slot, True)
+            self.prefilling[slot] = _PrefillState(req, shared=shared)
+            admitted = True
+        if admitted:
+            self._export_memory()
+
+    def _run_prefill_chunks(self, budget: int, skip=()):
+        """Spend up to ``budget`` tokens on prefill chunks in rounds: each
+        round takes at most one chunk per mid-prefill slot (a slot's chunks
+        depend on each other) in admission order and dispatches them as one
+        (n, C) ``_chunk_group``; rounds repeat while budget and chunks
+        remain.  A non-final chunk whose positions all lie below the slot's
+        shared prefix is skipped.  Each chunk first ``extend``s its slot to
+        the chunk's end (the final one to the whole footprint); a grant
+        that is not banker-safe stalls the slot for this call.  When a
+        slot's last chunk lands it is unshielded and made active with its
+        sampled first token pending, and decodes this iteration.  Returns
+        (budget tokens spent, slots that stalled); ``skip`` holds slots a
+        first pass this iteration saw stall."""
+        spent = 0
+        stalled: set = set()
+        landed = False
+        done_slots = set(skip)
+        while budget >= self.chunk and self.prefilling:
+            group = []                          # (slot, state, end, final)
+            for slot in [s for s in self.prefilling if s not in done_slots]:
+                if (len(group) + 1) * self.chunk > budget:
+                    break
+                st = self.prefilling[slot]
+                plen = len(st.req.prompt)
+                skipped = 0
+                while (st.done + self.chunk < plen
+                       and st.done + self.chunk <= st.shared):
+                    st.done += self.chunk
+                    skipped += 1
+                if skipped:
+                    self.reg.counter(
+                        "serve_prefill_chunks_skipped_total").inc(skipped)
+                end = min(st.done + self.chunk, plen)
+                final = end == plen
+                if not self.kv.extend(
+                        slot, self._footprint(st.req) if final else end):
+                    self.reg.counter(
+                        "serve_prefill_chunk_stalls_total").inc()
+                    stalled.add(slot)
+                    done_slots.add(slot)
+                    continue                    # defer and resume later
+                group.append((slot, st, end, final))
+            if not group:
+                break
+            toks = self._chunk_group(group)
+            for j, (slot, st, end, final) in enumerate(group):
+                req = st.req
+                self.reg.counter("serve_prefill_tokens_total").inc(
+                    end - st.done)
+                budget -= self.chunk
+                spent += self.chunk
+                if toks[j] == -1:
+                    raise NonFiniteLogitsError(
+                        f"request {req.id}: non-finite logits in the prefill "
+                        f"chunk at position {st.done}")
+                self.kv.register_landed(
+                    slot, np.asarray(req.prompt, np.int32), end)
+                landed = True
+                st.done = end
+                if final:
+                    del self.prefilling[slot]
+                    self.kv.set_decode_shield(slot, False)
+                    self._start_decoding(slot, req, toks[j])
+        if landed:
+            self._export_memory()
+        return spent, stalled
+
+    def _chunk_group(self, group):
+        """One chunk round: the stacked (n, C) chunks forwarded by
+        ``LM.prefill_chunk`` over the slots' real table rows, and a first
+        token sampled from each chunk's last valid row (used only when the
+        chunk is its prompt's last).  Returns the (n,) ids on the host."""
+        n, c = len(group), self.chunk
+        tokens = np.zeros((n, c), np.int64)
+        dest = np.zeros((n, c), np.int32)
+        rows = np.zeros((n, self.kv.max_pages), np.int32)
+        starts = np.zeros(n, np.int64)
+        lasts = np.zeros(n, np.int64)
+        for j, (slot, st, end, _) in enumerate(group):
+            tokens[j, :end - st.done] = st.req.prompt[st.done:end]
+            dest[j] = self.kv.chunk_dest(slot, st.done, end, c, st.shared)
+            rows[j] = self.kv.table_row(slot)
+            starts[j], lasts[j] = st.done, end - 1
+        cache = {**self.kv.state, "page_table": self._tensor(rows)}
+        logits, _ = self.lm.prefill_chunk(
+            self.params, self._tensor(tokens), cache, self._tensor(starts),
+            self._tensor(dest), self._tensor(lasts),
+            pool_group=self.pool_group)
+        sp = [st.req.sampling for _, st, _, _ in group]
+        toks = self._sample(logits[:, -1, :self.lm.cfg.vocab_size].float(),
+                            [s.temperature for s in sp],
+                            [s.top_k for s in sp], [s.top_p for s in sp],
+                            [s.seed for s in sp], [0] * n)
+        self.reg.counter("serve_prefill_chunks_total").inc(n)
+        self.reg.counter("serve_prefill_dispatches_total").inc()
+        return toks.cpu().numpy()
+
+    def _start_decoding(self, slot: int, req: Request, first_token) -> None:
+        """Make ``slot`` a live decode stream of ``req`` with its sampled
+        first token pending."""
+        self.slot_req[slot] = req
+        self.slot_pos[slot] = len(req.prompt)
+        self.next_token[slot] = first_token
+        self.active[slot] = True
+        self.temps[slot] = req.sampling.temperature
+        self.top_ks[slot] = req.sampling.top_k
+        self.top_ps[slot] = req.sampling.top_p
+        self.seeds[slot] = req.sampling.seed
 
     @staticmethod
     def _guard(rows, tok):
@@ -393,22 +588,35 @@ class ServeEngine:
 
     def step(self) -> bool:
         """One engine iteration: admit (and prefill), then one fused
-        decode+sample call for every slot.  Returns whether work ran."""
+        decode+sample call for every slot.  Chunked: in-flight chunks
+        first (a stalled slot has first claim on pages freed since), then
+        admission, then the leftover budget on the new admissions' chunks.
+        ``serve_decode_stall_iters`` counts iterations where live streams
+        waited on more prefill tokens than the budget (any, unchunked).
+        Returns whether work ran or is in flight."""
         streams_waiting = bool(np.any(self.active))
         pf0 = self.reg.counter("serve_prefill_tokens_total").get()
-        self._admit()
-        if streams_waiting and \
-                self.reg.counter("serve_prefill_tokens_total").get() > pf0:
+        if self.chunk:
+            spent, stalled = self._run_prefill_chunks(self.budget)
+            self._admit()
+            if spent < self.budget:
+                self._run_prefill_chunks(self.budget - spent, skip=stalled)
+        else:
+            self._admit()
+        if streams_waiting and self.reg.counter(
+                "serve_prefill_tokens_total").get() - pf0 > self.budget:
             self.reg.counter("serve_decode_stall_iters").inc()
-        active_idx = [i for i, r in enumerate(self.slot_req) if r is not None]
+        active_idx = [i for i, r in enumerate(self.slot_req)
+                      if r is not None and i not in self.prefilling]
         if not active_idx:
-            return False
+            return bool(self.prefilling)    # chunks still in flight
         # the token sampled now is len(out_tokens) + 1 deep in its stream
         # (the pending token, sampled earlier, is emitted this iteration)
         steps = np.zeros(self.B, np.int64)
         for i in active_idx:
             steps[i] = len(self.slot_req[i].out_tokens) + 1
-        # inactive slots decode at position 0: their writes land in scratch
+        # inactive slots, mid-prefill ones too, decode at position 0: their
+        # writes land in scratch
         positions = np.where(self.active,
                              np.minimum(self.slot_pos, self.S - 1), 0)
         sampled = self._fused(positions, steps).cpu().numpy()

@@ -1,6 +1,6 @@
 """KV caches of the port: the paged cache (counterpart of ``PagedCache`` in
-the JAX ``repro.serve.kvcache``, without its quotas, eviction, chunked
-allocation, host tier, chip failure and 2-D meshes) and the contiguous one
+the JAX ``repro.serve.kvcache``, without its quotas, eviction, host tier,
+chip failure and 2-D meshes) and the contiguous one
 (``ContiguousCache``: dense (L, B, S, KV, D) rows, every slot reserving
 ``max_seq`` positions, written in place).
 
@@ -221,9 +221,9 @@ class PagedCache:
         self._page_to_hash: Dict[int, bytes] = {}
         self._slot_pages: List[List[int]] = [[] for _ in range(batch)]
         self._slot_shared: List[int] = [0] * batch    # leading shared pages
-        # pages each slot was promised but has not claimed: always 0 while
-        # ``alloc`` claims whole footprints (chunked allocation is later work)
+        # pages each chunked slot will still claim (``extend``)
         self._slot_need: List[int] = [0] * batch
+        self._shielded: set = set()       # mid-prefill slots (decode_view)
 
     # ------------------------------------------------------------ sizing ----
     def pages_needed(self, length: int) -> int:
@@ -259,13 +259,17 @@ class PagedCache:
         assert len(out) == need, (len(out), need)
         return out
 
-    def _banker_items(self):
-        """(remaining need, pages freed on completion) per live slot;
-        shared pages may outlive the slot, so only refcount-1 pages count."""
-        return [(self._slot_need[s],
-                 sum(int(self._ref[p] == 1) for p in self._slot_pages[s]))
+    def _freeable(self, slot: int) -> int:
+        """Pages ``free(slot)`` would return: shared pages may outlive the
+        slot, so only refcount-1 pages count."""
+        return sum(int(self._ref[p] == 1) for p in self._slot_pages[slot])
+
+    def _banker_items(self, skip: Optional[int] = None):
+        """(remaining need, pages freed on completion) per live slot but
+        ``skip``."""
+        return [(self._slot_need[s], self._freeable(s))
                 for s in range(self.B)
-                if self._slot_pages[s] or self._slot_need[s]]
+                if s != skip and (self._slot_pages[s] or self._slot_need[s])]
 
     @staticmethod
     def _safe(free: int, items) -> bool:
@@ -277,14 +281,18 @@ class PagedCache:
             free += freeable
         return True
 
-    def _grant_safe(self, take: int, remaining: int) -> bool:
-        """Would granting ``take`` fresh pages to a new slot that will still
-        need ``remaining`` more leave the pool banker-safe?"""
+    def _grant_safe(self, take: int, remaining: int,
+                    skip: Optional[int] = None,
+                    extra_freeable: int = 0) -> bool:
+        """Would granting ``take`` fresh pages to a slot that will still
+        need ``remaining`` more leave the pool banker-safe?  ``skip`` names
+        the grantee when it is live already: its entry is replaced by the
+        post-grant one, which frees ``extra_freeable`` more pages."""
         free = self._free_count()
         if take > free:
             return False
-        return self._safe(free - take,
-                          self._banker_items() + [(remaining, take)])
+        return self._safe(free - take, self._banker_items(skip)
+                          + [(remaining, take + extra_freeable)])
 
     def _key(self, prefix: np.ndarray, page_idx: int) -> bytes:
         # K/V in page i depend on tokens[: (i + 1) * page] and nothing else
@@ -299,17 +307,9 @@ class PagedCache:
         assert not self._slot_pages[slot], f"slot {slot} already allocated"
         assert 0 < length <= self.S, (length, self.S)
         n_pages = self.pages_needed(length)
-        shared: List[int] = []
-        full = 0
-        if self.prefix_sharing and prefix is not None:
-            # only pages wholly inside the prompt are shareable: the page
-            # holding the first decode write is always private
-            full = min(len(prefix) // self.page, n_pages)
-            for i in range(full):
-                pid = self._hash_to_page.get(self._key(prefix, i))
-                if pid is None:
-                    break
-                shared.append(pid)
+        # only pages wholly inside the prompt are shareable: the page
+        # holding the first decode write is always private
+        shared = self._match_shared(prefix, n_pages)
         # bump shared refs before the check: a page going ref 1 -> 2 stops
         # being freeable by its first owner (rolled back on deferral)
         for pid in shared:
@@ -322,20 +322,108 @@ class PagedCache:
         for pid in fresh:
             self._ref[pid] = 1
         pages = shared + fresh
-        # register this request's new full prompt pages (their content
-        # lands in the same admission's prefill)
-        if self.prefix_sharing and prefix is not None:
-            for i in range(len(shared), full):
-                key = self._key(prefix, i)
-                if key not in self._hash_to_page:
-                    self._hash_to_page[key] = pages[i]
-                    self._page_to_hash[pages[i]] = key
         self.page_table[slot, :] = 0
         self.page_table[slot, :n_pages] = pages
         self._table_stale = True
         self._slot_pages[slot] = pages
         self._slot_shared[slot] = len(shared)
+        # register this request's new full prompt pages now: their content
+        # lands in the same admission's prefill
+        if prefix is not None:
+            self.register_landed(slot, prefix, len(prefix))
         return len(shared) * self.page
+
+    def _match_shared(self, prefix: Optional[np.ndarray],
+                      n_pages: int) -> List[int]:
+        """The registered pages of the prompt's leading full pages, in
+        order, up to the first miss."""
+        shared: List[int] = []
+        if self.prefix_sharing and prefix is not None:
+            for i in range(min(len(prefix) // self.page, n_pages)):
+                pid = self._hash_to_page.get(self._key(prefix, i))
+                if pid is None:
+                    break
+                shared.append(pid)
+        return shared
+
+    # ------------------------------------------------- chunked allocation ----
+    def alloc_chunked(self, slot: int, length: int, first: int,
+                      prefix: Optional[np.ndarray] = None) -> Optional[int]:
+        """Admit ``slot`` for chunked prefill: claim the pages covering its
+        first ``first`` positions now and record the rest of the
+        ``length``-position footprint as the slot's remaining need, which
+        ``extend`` claims chunk by chunk.  Admission needs the pool to stay
+        banker-safe after the grant, a weaker demand than ``alloc``'s.
+        Sharing matches only registered pages, whose content has landed.
+        Returns the shared leading positions, or ``None`` to defer."""
+        assert not self._slot_pages[slot], f"slot {slot} already allocated"
+        assert 0 < first <= length <= self.S, (first, length, self.S)
+        n_total = self.pages_needed(length)
+        shared = self._match_shared(prefix, n_total)
+        n_first = max(self.pages_needed(first) - len(shared), 0)
+        remaining = n_total - len(shared) - n_first
+        for pid in shared:          # bumped before the check, as in alloc
+            self._ref[pid] += 1
+        if not self._grant_safe(n_first, remaining):
+            for pid in shared:
+                self._ref[pid] -= 1
+            return None
+        fresh = self._take_fresh(n_first)
+        for pid in fresh:
+            self._ref[pid] = 1
+        pages = shared + fresh
+        self.page_table[slot, :] = 0
+        self.page_table[slot, :len(pages)] = pages
+        self._table_stale = True
+        self._slot_pages[slot] = pages
+        self._slot_shared[slot] = len(shared)
+        self._slot_need[slot] = remaining
+        return len(shared) * self.page
+
+    def extend(self, slot: int, cover: int) -> bool:
+        """Grow ``slot``'s pages to cover ``cover`` positions (the next
+        chunk's end, or the whole footprint on the final chunk).  Returns
+        ``False`` when the grant is not banker-safe now: the chunk waits for
+        completions to free pages, and some live slot can always
+        complete."""
+        have = len(self._slot_pages[slot])
+        assert have > 0, f"slot {slot} has no chunked allocation"
+        need = self.pages_needed(cover) - have
+        if need <= 0:
+            return True
+        assert need <= self._slot_need[slot], (need, self._slot_need[slot])
+        if not self._grant_safe(need, self._slot_need[slot] - need,
+                                skip=slot,
+                                extra_freeable=self._freeable(slot)):
+            return False
+        fresh = self._take_fresh(need)
+        for pid in fresh:
+            self._ref[pid] = 1
+        self.page_table[slot, have:have + need] = fresh
+        self._table_stale = True
+        self._slot_pages[slot].extend(fresh)
+        self._slot_need[slot] -= need
+        return True
+
+    def register_landed(self, slot: int, prefix: np.ndarray,
+                        upto: int) -> None:
+        """Register ``slot``'s full prompt pages whose content has landed
+        (positions [0, upto) written) for prefix sharing; idempotent."""
+        if not self.prefix_sharing or prefix is None:
+            return
+        pages = self._slot_pages[slot]
+        full = min(min(upto, len(prefix)) // self.page, len(pages))
+        for i in range(self._slot_shared[slot], full):
+            key, pid = self._key(prefix, i), pages[i]
+            if key not in self._hash_to_page and \
+                    pid not in self._page_to_hash:
+                self._hash_to_page[key] = pid
+                self._page_to_hash[pid] = key
+
+    def table_row(self, slot: int) -> np.ndarray:
+        """The slot's real (M,) table row, which a chunk dispatch reads
+        (``decode_view`` may be shielding it)."""
+        return self.page_table[slot].copy()
 
     # ----------------------------------------------------------- prefill ----
     def prefill_dest(self, slot: int, block_len: int, valid_len: int,
@@ -394,14 +482,29 @@ class PagedCache:
                                         *small.shape[3:]).to(pool.dtype)
 
     # ------------------------------------------------------------ decode ----
+    def set_decode_shield(self, slot: int, shielded: bool) -> None:
+        """Hide or expose ``slot``'s table row in ``decode_view``.  The
+        decode step writes every slot, parked ones at position 0, which for
+        a mid-prefill slot is its own first page; a shielded row reads as
+        scratch, so that write lands there."""
+        if shielded:
+            self._shielded.add(slot)
+        else:
+            self._shielded.discard(slot)
+        self._table_stale = True
+
     def decode_view(self):
         """Pools plus the (B, M) page table on the device: the same table
         tensor for the life of the cache, its contents refreshed here when
-        an alloc or free has changed the numpy table.  Sharded, the pools
-        are this rank's shards with their sink pages and the table holds
-        global ids."""
+        an alloc, extend, free or shield has changed it; shielded rows are
+        zero (scratch).  Sharded, the pools are this rank's shards with
+        their sink pages and the table holds global ids."""
         if self._table_stale:
-            self._table.set(self.page_table)
+            table = self.page_table
+            if self._shielded:
+                table = table.copy()
+                table[sorted(self._shielded)] = 0
+            self._table.set(table)
             self._table_stale = False
         return {**self.state, "page_table": self._table.dev}
 
@@ -418,6 +521,7 @@ class PagedCache:
         self._slot_pages[slot] = []
         self._slot_shared[slot] = 0
         self._slot_need[slot] = 0
+        self._shielded.discard(slot)
         self.page_table[slot, :] = 0    # point the freed slot at scratch
         self._table_stale = True
 
@@ -454,6 +558,8 @@ class PagedCache:
                   f"slot {s} page-table tail not parked on scratch")
             check(0 <= self._slot_shared[s] <= len(pages),
                   f"slot {s} shared-page count out of range")
+            check(self._slot_need[s] >= 0,
+                  f"slot {s} negative chunked-prefill need")
         check(len(self._hash_to_page) == len(self._page_to_hash),
               "prefix registry maps differ in size")
         for key, pid in self._hash_to_page.items():

@@ -74,8 +74,11 @@ def _tie_at(tlm, tparams, prompt, stream, t) -> float:
     return float(top2[0] - top2[1])
 
 
-def _assert_streams_match(tlm, tparams, prompts, got, exp):
+def _assert_streams_match(tlm, tparams, prompts, got, exp) -> int:
+    """Equal streams, or a first divergence at a top-2 gap below ``GAP``;
+    returns how many streams pass only by that tie rule."""
     assert sorted(got) == sorted(exp)
+    ties = 0
     for i, a in got.items():
         b = exp[i]
         assert len(a) == len(b), (i, a, b)
@@ -83,6 +86,8 @@ def _assert_streams_match(tlm, tparams, prompts, got, exp):
             t = next(k for k in range(len(a)) if a[k] != b[k])
             assert _tie_at(tlm, tparams, prompts[i], a, t) < GAP, (
                 f"request {i} diverges at token {t}: {a} vs {b}")
+            ties += 1
+    return ties
 
 
 # ---------------------------------------------------------- the cache ----
@@ -255,8 +260,10 @@ def test_launcher_streams_match_jax_engine(backend, capsys):
     assert eng.kv.backend == backend
     got = {r.id: r.out_tokens for r in eng.finished}
     assert all(len(s) == 16 for s in got.values())
-    _assert_streams_match(tlm, tparams, {r.id: r.prompt for r in jreqs},
-                          got, exp)
+    ties = _assert_streams_match(tlm, tparams,
+                                 {r.id: r.prompt for r in jreqs}, got, exp)
+    print(f"{backend}: {ties} of 16 streams equal only by the tie rule")
+    assert ties == 0
 
 
 # ------------------------------------------------------------ rollouts ----
@@ -306,7 +313,9 @@ def test_32_token_rollouts_over_dense_cache_match_jax(name):
         exp = np.asarray(jlog)[:, -1, :jcfg.vocab_size]
         got = tlog[:, -1, :tcfg.vocab_size].numpy()
         pos = pos + 1
-    assert ties <= 2, ties
+    print(f"{name}: {ties} greedy steps of {b * (steps + 1)} equal only "
+          "by the tie rule")
+    assert ties == 0
     for k in ("k", "v"):
         np.testing.assert_allclose(tcache["layers"][k].numpy(),
                                    np.asarray(jcache["layers"][k]), **TOL)

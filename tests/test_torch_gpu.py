@@ -1,6 +1,7 @@
 """The port's hand-written kernels against their plain PyTorch versions on a
 CUDA card (``-m gpu``), the forward-only kernels' refusal of autograd, and a
-kernel-path train step against the plain path.  Without a card every test
+kernel-path train step against the plain path, and the launch counts of a
+chunked served run.  Without a card every test
 here skips; the file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -10,6 +11,7 @@ fp32 is held to 1e-4 (the kernels sum in another order) and bf16 to 2e-2
 (outputs round to bf16)."""
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,11 +19,13 @@ from repro_torch.configs import TrainConfig, get_config
 from repro_torch.kernels import adamw_update as taw
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import mamba2_ssd as tssd
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode as tpd
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import rwkv6_wkv as twkv
 from repro_torch.kernels import softmax_xent as tsx
 from repro_torch.models import LM, ForwardOpts
+from repro_torch.serve import Request, ServeEngine
 from repro_torch.train import init_train_state, make_train_step
 from repro_torch.train.optimizer import tree_leaves
 
@@ -978,3 +982,40 @@ def test_recurrent_eval_kernel_path_matches_plain_path(name):
                                            xent_impl="plain"))(params, batch)
     assert abs(float(got["loss"]) - float(plain["loss"])) \
         <= 1e-5 * abs(float(plain["loss"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_chunked_served_run_launch_counts(kv_dtype):
+    """Reduced qwen3-4b in bf16 served eagerly with chunked prefill
+    (chunks of 16, budget 32) over native or int8 pages: K2 never runs,
+    K3 runs at every norm of every chunk dispatch and decode step, K1 (its
+    int8 mode over int8 pages) once a layer a decode step; every request
+    completes and the stall counter stays 0 (no round spends past the
+    budget)."""
+    _card()
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(),
+                              dtype="bfloat16")
+    lm = LM(cfg)
+    eng = ServeEngine(lm, lm.init(3, device="cuda"), max_batch=4,
+                      max_seq=96, page_size=8, device="cuda",
+                      cuda_graph=False, kv_dtype=kv_dtype, prefill_chunk=16,
+                      prefill_budget=32)
+    rng = np.random.default_rng(8)
+    ops.reset_launch_counts()
+    for i in range(8):
+        eng.submit(Request(i, rng.integers(0, cfg.vocab_size, int(
+            rng.integers(5, 60))).astype(np.int32), max_new_tokens=12))
+    done = eng.run_until_drained()
+    assert len(done) == 8 and all(len(r.out_tokens) == 12 for r in done)
+    reg = eng.reg
+    decodes = reg.counter("serve_decode_dispatches_total").get()
+    rounds = reg.counter("serve_prefill_dispatches_total").get()
+    assert reg.counter("serve_prefill_chunks_total").get() >= rounds > 0
+    assert reg.counter("serve_decode_stall_iters").get() == 0
+    L = cfg.num_layers
+    k1 = "paged_flash_decode" + ("_int8" if kv_dtype == "int8" else "")
+    want = {name: 0 for name in ops.KERNELS}
+    want.update({"rmsnorm_rows": (decodes + rounds) * (4 * L + 1),
+                 k1: decodes * L})
+    assert ops.launch_counts() == want

@@ -7,9 +7,12 @@ Without a card every test here skips; the file imports no JAX:
 
 Gates: graph and eager engines give bitwise-equal logit rows at every
 decode step and equal streams over native pages, int8 pages, the gathered
-read and the contiguous cache, also with rows sampled at temperature > 0;
-launch counts are exact after replays; a pool re-allocated after capture
-raises at the next replay; a capture that fails raises."""
+read and the contiguous cache, and with chunked prefill over native and
+int8 pages, also with rows sampled at temperature > 0; launch counts are
+exact after replays; a replay with a slot shielded mid-prefill equals the
+eager step bitwise and leaves that slot's pages alone; chunk dispatches
+between replays keep the graph's operands; a pool re-allocated after
+capture raises at the next replay; a capture that fails raises."""
 import dataclasses
 import functools
 
@@ -24,7 +27,10 @@ from repro_torch.serve import Request, SamplingParams, ServeEngine
 
 KINDS = {"native": {}, "int8": {"kv_dtype": "int8"},
          "gather": {"decode_impl": "gather"},
-         "contiguous": {"cache_backend": "contiguous"}}
+         "contiguous": {"cache_backend": "contiguous"},
+         "chunked": {"prefill_chunk": 8, "prefill_budget": 16},
+         "chunked-int8": {"prefill_chunk": 8, "prefill_budget": 16,
+                          "kv_dtype": "int8"}}
 
 
 def _card():
@@ -124,14 +130,16 @@ def test_graph_with_sampled_rows_equals_eager(kind):
 def test_graph_launch_counts_are_exact(kind):
     """Per replay the graph counts what it captured: K1 once a layer (none
     over the contiguous cache or the gathered read), K3 at every norm;
-    each bf16 prefill dispatch launches K2 once a layer."""
+    each bf16 whole-prompt prefill dispatch launches K2 once a layer, each
+    chunk dispatch K3 at every norm and no K2."""
     _card()
     eng = _engine(kind, True)
     cfg = eng.lm.cfg
     L = cfg.num_layers
     norms = L * (2 + 2 * cfg.qk_norm) + 1
-    k1 = {"native": "paged_flash_decode",
-          "int8": "paged_flash_decode_int8"}.get(kind)
+    k1 = None
+    if eng.kv.backend == "paged" and eng.decode_impl == "kernel":
+        k1 = "paged_flash_decode" + ("_int8" if eng.kv.quantized else "")
     assert eng._graph_launches == {"rmsnorm_rows": norms,
                                    **({k1: L} if k1 else {})}
     replays = []
@@ -147,11 +155,74 @@ def test_graph_launch_counts_are_exact(kind):
     prefills = eng.reg.counter("serve_prefill_dispatches_total").get()
     assert len(replays) == decodes
     want = {name: 0 for name in ops.KERNELS}
-    want.update({"flash_attention_bhsd": prefills * L,
+    want.update({"flash_attention_bhsd": 0 if eng.chunk else prefills * L,
                  "rmsnorm_rows": (decodes + prefills) * norms})
     if k1:
         want[k1] = decodes * L
     assert ops.launch_counts() == want
+    if eng.chunk:
+        assert eng.reg.counter("serve_prefill_chunks_total").get() > prefills
+        assert eng.reg.counter("serve_decode_stall_iters").get() == 0
+
+
+def _mid_prefill(kind):
+    """A chunked engine (chunks of 8, one a step) with two live streams and
+    a 40-token prompt half landed: returns (engine, its slot)."""
+    eng = _engine(kind, True, prefill_chunk=8)
+    vocab = eng.lm.cfg.vocab_size
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        eng.submit(Request(i, rng.integers(0, vocab, 6).astype(np.int32),
+                           max_new_tokens=30))
+    eng.step()
+    eng.step()
+    eng.submit(Request(9, rng.integers(0, vocab, 40).astype(np.int32),
+                       max_new_tokens=4))
+    eng.step()
+    eng.step()
+    (slot, st), = eng.prefilling.items()
+    assert 0 < st.done < 40 and not eng.active[slot]
+    return eng, slot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["native", "int8"])
+def test_replay_with_slot_shielded_mid_prefill_equals_eager(kind):
+    """With a slot mid-prefill (inactive, its table row shielded to
+    scratch) one replay's (B, V) rows are bitwise the eager step's on the
+    same static inputs, and neither touches the slot's landed pages."""
+    _card()
+    eng, slot = _mid_prefill(kind)
+    view = eng.kv.decode_view()
+    assert not view["page_table"][slot].any()
+    pages = torch.as_tensor(eng.kv._slot_pages[slot], device="cuda").long()
+    before = {n: t[:, pages].clone() for n, t in eng.kv.state["layers"].items()}
+    eager, _ = eng._decode(view)
+    replayed, _ = eng._replay(view)
+    assert torch.equal(eager, replayed)
+    for name, t in eng.kv.state["layers"].items():
+        assert torch.equal(t[:, pages], before[name]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["native", "int8"])
+def test_chunk_dispatch_between_replays_keeps_graph_operands(kind):
+    """A chunk dispatch writes the pools in place between two replays: the
+    pools' and the table's pointers stay the captured ones, so every later
+    replay runs, and the run drains."""
+    _card()
+    eng, slot = _mid_prefill(kind)
+    ptrs = eng._graph_ptrs
+    for _ in range(4):
+        chunks = eng.reg.counter("serve_prefill_chunks_total").get()
+        eng.step()
+        assert eng._operand_ptrs(eng.kv.decode_view()) == ptrs
+        if slot not in eng.prefilling:
+            break
+        assert eng.reg.counter("serve_prefill_chunks_total").get() > chunks
+    assert slot not in eng.prefilling and eng.active[slot]
+    done = eng.run_until_drained()
+    assert len(done) == 3 and all(r.status == "completed" for r in done)
 
 
 @pytest.mark.gpu
