@@ -101,6 +101,21 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    admitted together, one replayed step's (B, V) rows bitwise equal to the
    same step run eagerly, and the contiguous cache's rows bitwise equal to
    paged ``decode_impl="gather"`` rows;
+5b. infrastructure (``repro_torch.core``): (a) Autopilot's two probes on
+   the card (``Autopilot(measure_real=True)``: an fp32 256 x 256 matmul
+   chained twice and a 4 MiB pinned host-to-device copy, each on the host
+   clock up to a synchronize): both finite and > 0, every check PASS, no
+   alert; a power brake and then a PCIe downgrade injected on the node
+   must read 0.375x and 0.3x of the baselines, ERR and fire
+   ``autopilot_err``; more readings, a pageable copy and a 64 MiB pinned
+   copy printed for reference; (b) phase 5's native run again on its
+   model and weights with the health loop wired in (``alerts``,
+   ``health_every=16``, ``verify_cache=True``): its streams equal phase
+   5's native graph streams token for token, one replay a decode step,
+   launch counts exact, the checks ran ceil(steps / 16) times, every
+   ``autopilot_serve_*`` gauge 1.0 at each, no alert; the host ms of the
+   checks and of ``kv.verify()`` with 8 slots live, and the step ms beside
+   phase 5's;
 6. training parity: full-width qwen3-4b cut to 2 layers, fp32, two train
    steps through K4 and K5 and through their plain versions; loss,
    grad_norm and every parameter agree to a relative max error of 1e-3;
@@ -1677,11 +1692,13 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
         # the host time of each token of each stream (every step ends in a
         # synchronizing copy of the sampled ids), for the longest wait
         # between two tokens of one stream
-        seen, gaps = {}, []
+        seen, gaps, step_ms = {}, [], []
 
         def stepped(step=eng.step):
+            t0 = time.perf_counter()
             live = step()
             now = time.perf_counter()
+            step_ms.append((now - t0) * 1e3)
             for r in reqs:
                 k = len(r.out_tokens)
                 if k and seen.get(r.id, (0,))[0] != k:
@@ -1855,6 +1872,7 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
             streams={r.id: r.out_tokens for r in done}, launches=launches,
             per_chip=per_chip, pool_tensor_bytes=pool_tensor_bytes,
             k1=k1, decode_ms=float(np.mean(decode_ms)), tok_s=tokens / wall,
+            step_ms=float(np.mean(step_ms)), steps=eng._iter,
             ttft_ms=ttft, pool_bytes=pool_bytes, graph=graph,
             prefill_ms=float(np.mean(prefill_ms)), max_gap_ms=max(gaps),
             prefills=prefills, chunks=chunks, budget=eng.budget,
@@ -1914,7 +1932,8 @@ def serve(report):
     the first two eagerly; each run is gated on its own launch counts
     (and a chunked run on its chunk count and its stall counter), the
     graph's streams on the eager ones.  Returns the streams of each run
-    through the graph."""
+    through the graph, the native run's numbers, and the model and weights
+    (phase 5b serves them again)."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     lm = LM(get_config("qwen3-4b"))
@@ -1976,7 +1995,7 @@ def serve(report):
             f"{whole['stall_iters']:.0f} [{nvidia_smi_line()}]")
     one_step_checks(lm, params)
     chunk_attention_time()
-    return streams
+    return streams, runs["native"], (lm, params)
 
 
 def chunk_attention_time() -> None:
@@ -2030,6 +2049,168 @@ def chunk_attention_time() -> None:
         f"dispatch), SDPA on the gathered view {lib:.4f} ms (max_abs_err "
         f"{err:.3e} against it), bound {t_bound:.5f} ms ({by}; {nbytes} B)"
         f" [{nvidia_smi_line()}]")
+
+
+# ------------------------------------------------------------ phase 5b ----
+
+SERVE_CHECKS = ("dispatch_invariant", "streams_progressing",
+                "cache_invariants")
+
+
+def pageable_h2d_gbps(nbytes: int = 1 << 22) -> float:
+    """The H2D probe's copy from a pageable host buffer (CUDA stages it
+    through a pinned buffer of its own): for reference only."""
+    host = torch.ones(nbytes, dtype=torch.uint8)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=DEV)
+    dst.copy_(host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dst.copy_(host)
+    torch.cuda.synchronize()
+    return nbytes / max(time.perf_counter() - t0, 1e-9) / 1e9
+
+
+def infra_probes() -> None:
+    """(a) Autopilot's two probes on the card: a one-node ``SimCluster``
+    and ``Autopilot(measure_real=True)``; both baselines finite and > 0,
+    every check PASS, no alert from ``DEFAULT_RULES + SERVE_RULES``.  Then
+    the control: a power brake and a PCIe downgrade injected on the node
+    must read 0.375x and 0.3x of the measured baselines, ERR and fire
+    ``autopilot_err``.  Five more readings of each probe, the pageable copy
+    and a 64 MiB pinned copy are printed for reference."""
+    from repro_torch.core import alerts, health
+    from repro_torch.core.cluster import FailureKind, SimCluster
+    from repro_torch.core.telemetry import MetricsRegistry
+    reg = MetricsRegistry()
+    cluster = SimCluster(1, registry=reg)
+    ap = health.Autopilot(cluster, reg, measure_real=True, device=DEV)
+    t0 = time.perf_counter()
+    res = {r.name: r for r in ap.run_checks()}
+    first_ms = (time.perf_counter() - t0) * 1e3
+    base = {name: res[name].value
+            for name in ("gpu_dgemm_gflops", "pcie_h2d_gbps")}
+    again = {"gemm": [health._measure_gemm_gflops(device=DEV)
+                      for _ in range(5)],
+             "h2d": [health._measure_h2d_gbps(device=DEV)
+                     for _ in range(5)],
+             "pageable": [pageable_h2d_gbps() for _ in range(5)],
+             "h2d 64 MiB": [health._measure_h2d_gbps(64 << 20, device=DEV)
+                            for _ in range(3)]}
+    log(f"[infra probes] gpu_dgemm_gflops {base['gpu_dgemm_gflops']:.1f} "
+        f"GF/s (fp32 256 x 256, 2 chained, host clock), pcie_h2d_gbps "
+        f"{base['pcie_h2d_gbps']:.3f} GB/s (4 MiB pinned); first run_checks "
+        f"(both probes) {first_ms:.2f} ms [{nvidia_smi_line()}]")
+    for name, vals in again.items():
+        log(f"[infra probes] {name} again: "
+            + ", ".join(f"{v:.3f}" for v in vals)
+            + (" GF/s" if name == "gemm" else " GB/s"))
+    log("[infra probes] checks: " + ", ".join(
+        f"{r.name}={r.value:.3f} {'PASS' if r.passed else 'ERR'}"
+        for r in res.values()))
+    assert all(math.isfinite(v) and v > 0 for v in base.values()), base
+    assert all(r.passed for r in res.values()), res
+    mgr = alerts.AlertManager(reg, rules=alerts.DEFAULT_RULES
+                              + alerts.SERVE_RULES)
+    assert mgr.evaluate() == [], mgr.fired
+    # the control: each fault ERRs the check it is sensitive to
+    for kind, check, factor in (
+            (FailureKind.POWER_BRAKE, "gpu_dgemm_gflops", 0.375),
+            (FailureKind.PCIE_DEGRADE, "pcie_h2d_gbps", 0.3)):
+        cluster.inject(0, kind)
+        res = {r.name: r for r in ap.run_checks()}
+        log(f"[infra probes] after {kind.value}: {check} "
+            f"{res[check].value:.3f} ({res[check].value / base[check]:.3f}x "
+            f"the baseline) {'PASS' if res[check].passed else 'ERR'}")
+        assert res[check].value == base[check] * factor
+        assert not res[check].passed, f"{check} passed under {kind.value}"
+    errs = sorted(a.labels["check"] for a in mgr.evaluate()
+                  if a.rule == "autopilot_err")
+    log(f"[infra probes] autopilot_err fired for {errs}")
+    assert errs == ["gpu_dgemm_gflops", "pcie_h2d_gbps"], mgr.fired
+
+
+def health_costs(lm, params, reps: int = 200) -> dict:
+    """Host ms of one ``serve_light_checks`` + ``evaluate`` (with
+    ``verify_cache``, so the checks walk the allocator once) and of one
+    ``kv.verify()``, on an engine whose 8 slots are live (phase 5's
+    prompts, two steps in); medians of ``reps`` calls."""
+    from repro_torch.core import alerts, health
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(lm, params, max_batch=8, max_seq=512, page_size=16,
+                      device=DEV, verify_cache=True)
+    for i, p in enumerate(serve_prompts(lm.cfg)):
+        eng.submit(Request(i, p, max_new_tokens=32))
+    for _ in range(2):
+        eng.step()
+    assert eng.active.all()
+    mgr = alerts.AlertManager(eng.reg, sinks=[], rules=alerts.DEFAULT_RULES
+                              + alerts.SERVE_RULES)
+    checks, verify = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        health.serve_light_checks(eng)
+        mgr.evaluate()
+        t1 = time.perf_counter()
+        eng.kv.verify()
+        verify.append((time.perf_counter() - t1) * 1e3)
+        checks.append((t1 - t0) * 1e3)
+    assert mgr.fired == [], mgr.fired
+    return {"checks_ms": float(np.median(checks)),
+            "verify_ms": float(np.median(verify)),
+            "pages_in_use": eng.kv.memory_stats().pages_in_use}
+
+
+def infrastructure(model, native_streams, native_run) -> None:
+    """(b) Phase 5's native-page workload on its model and weights through
+    the CUDA-graph step with the health loop wired in (``alerts`` over the
+    engine's registry, ``health_every=16``, ``verify_cache=True``): its 16
+    streams equal phase 5's native graph streams token for token (the
+    checks are host code, so nothing on the device changes); one replay a
+    decode step and the run's launch counts exact (``serve_runs``); the
+    checks ran ceil(steps / 16) times and read every ``autopilot_serve_*``
+    gauge 1.0 each time; no alert fired.  Prints the host cost of the
+    checks and of ``kv.verify()``, and the step ms beside phase 5's."""
+    from repro_torch.core import alerts
+    from repro_torch.core.telemetry import MetricsRegistry
+    lm, params = model
+
+    class Recorded(alerts.AlertManager):
+        """Keeps the serve checks' gauges at each evaluation."""
+        def __init__(self, reg):
+            super().__init__(reg, rules=alerts.DEFAULT_RULES
+                             + alerts.SERVE_RULES)
+            self.seen = []
+
+        def evaluate(self):
+            self.seen.append({c: self.reg.gauge(f"autopilot_serve_{c}").get()
+                              for c in SERVE_CHECKS})
+            return super().evaluate()
+
+    reg = MetricsRegistry()
+    mgr = Recorded(reg)
+    run = serve_runs(lm, params, (("native-health", dict(
+        registry=reg, alerts=mgr, health_every=16, verify_cache=True)),),
+        "infra", profile=False)["native-health"]
+    same = run["streams"] == native_streams
+    want = math.ceil(run["steps"] / 16)
+    log(f"[infra native-health] streams equal phase 5's native graph "
+        f"streams token for token: {same}; {len(mgr.seen)} checks over "
+        f"{run['steps']} steps (want {want}), every serve check PASS at "
+        f"every one: {all(v == 1.0 for s in mgr.seen for v in s.values())};"
+        f" alerts fired {len(mgr.fired)}")
+    assert same, "the health loop changed the served streams"
+    assert len(mgr.seen) == want
+    assert all(v == 1.0 for s in mgr.seen for v in s.values()), mgr.seen
+    assert mgr.fired == [], mgr.fired
+    costs = health_costs(lm, params)
+    log(f"[infra native-health] host ms, median of 200 with 8 slots live "
+        f"({costs['pages_in_use']} pages in use): serve_light_checks + "
+        f"evaluate {costs['checks_ms']:.4f} ms, kv.verify() "
+        f"{costs['verify_ms']:.4f} ms; mean step {run['step_ms']:.2f} ms "
+        f"(decode {run['decode_ms']:.2f}) vs phase 5's native "
+        f"{native_run['step_ms']:.2f} ms (decode "
+        f"{native_run['decode_ms']:.2f}), {run['tok_s']:.1f} vs "
+        f"{native_run['tok_s']:.1f} tok/s [{nvidia_smi_line()}]")
 
 
 # ------------------------------------------------------------- phase 6 ----
@@ -2143,7 +2324,7 @@ def train_run(report, steps: int = 10):
                                   write_token_shards)
     from repro_torch.kernels import ops
     from repro_torch.models import ForwardOpts, LM
-    from repro_torch.telemetry import MetricsRegistry
+    from repro_torch.core.telemetry import MetricsRegistry
     from repro_torch.train import init_train_state, make_train_step
     from repro_torch.train.optimizer import tree_leaves
     cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=12)
@@ -2901,7 +3082,14 @@ def main() -> int:
 
     phase("5 serve full-width qwen3-4b bf16 through the CUDA-graph step: "
           "native, int8, eager, contiguous")
-    phase5_streams = serve(report)
+    phase5_streams, native_run, model = serve(report)
+    free()
+
+    phase("5b infrastructure: Autopilot's probes on the card, then phase "
+          "5's native run with the health loop")
+    infra_probes()
+    infrastructure(model, phase5_streams["native"], native_run)
+    del model
     free()
 
     phase("6 training parity: 2-layer full-width qwen3-4b fp32, K4/K5 vs "

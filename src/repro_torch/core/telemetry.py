@@ -1,7 +1,9 @@
-"""Prometheus-style metrics registry (counters / gauges / histograms) for the
-port's serve engine.  A copy of the JAX package's ``core/telemetry.py``
-registry (pure Python, thread-safe, with a text exposition renderer): the
-port imports nothing of the JAX package, so it keeps its own."""
+"""Prometheus-style metrics registry (counters / gauges / histograms) — the
+observability surface of §2.3.2 / §3.2.3, read by the serve engine, the
+trainer and the infrastructure simulators.  A copy of the JAX package's
+``core/telemetry.py`` (pure Python, thread-safe, with a text exposition
+renderer): the port imports nothing of the JAX package, so it keeps its
+own."""
 from __future__ import annotations
 
 import bisect
@@ -137,3 +139,5 @@ class MetricsRegistry:
                 lines.append(f"{name}{{{lbl}}} {v}" if lbl else f"{name} {v}")
         return "\n".join(lines) + "\n"
 
+
+GLOBAL_REGISTRY = MetricsRegistry()

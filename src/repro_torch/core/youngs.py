@@ -14,6 +14,19 @@ def young_interval(delta: float, mtbf: float) -> float:
     return math.sqrt(2.0 * delta * mtbf)
 
 
+def lost_fraction(delta: float, mtbf: float, interval: float) -> float:
+    """First-order expected fraction of wall time lost:
+    checkpoint overhead δ/τ + expected recompute τ/(2M)."""
+    if not interval > 0:
+        raise ValueError(f"interval {interval} must be positive")
+    return delta / interval + interval / (2.0 * mtbf)
+
+
+def optimal_lost_fraction(delta: float, mtbf: float) -> float:
+    """= sqrt(2δ/M), the overhead at the Young interval."""
+    return lost_fraction(delta, mtbf, young_interval(delta, mtbf))
+
+
 def checkpoint_every_n_steps(delta: float, mtbf: float,
                              step_time: float) -> int:
     """The interval quantized to training steps (>= 1)."""

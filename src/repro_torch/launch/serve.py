@@ -12,7 +12,10 @@ the fused decode step per iteration.
     python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.serve --device cpu --reduced --mesh 2
 
-It prints the same summary lines as ``repro.launch.serve``.  ``--reduced``
+It prints the same summary lines as ``repro.launch.serve``, and, as it
+does, the alerts that fired: the engine runs the serve light checks and the
+alert rules every 16 iterations (``--verify-cache`` adds the allocator's
+invariant checks after every iteration).  ``--reduced``
 (the default) serves the reduced config in fp32; ``--no-reduced`` serves the
 full-width config in its own dtype, with random weights from seed 0.  The
 requests are the JAX launcher's (``draw_requests``); ``serve`` takes a
@@ -40,6 +43,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import archs, get_config
+from repro_torch.core.alerts import (DEFAULT_RULES, SERVE_RULES, AlertManager,
+                                     LogSink, SlackSink)
+from repro_torch.core.telemetry import MetricsRegistry
 from repro_torch.models import LM
 from repro_torch.models.common import resolve_device
 from repro_torch.parallel import PoolGroup
@@ -135,6 +141,10 @@ def parse_args(argv=None):
                          "python -m torch.distributed.run --nproc-per-node "
                          "N): each rank pins P/N pages and merges the "
                          "ranks' decode partials; 0 = one process")
+    ap.add_argument("--verify-cache", action="store_true",
+                    help="debug mode: run the PagedCache.verify() "
+                         "invariant sanitizer (refcounts, free lists, page "
+                         "tables) after every engine iteration")
     return ap.parse_args(argv)
 
 
@@ -176,6 +186,12 @@ def serve(args, pool_group, device, params=None):
     lm = LM(cfg)
     if params is None:
         params = lm.init(0, device=device)
+    # the health loop: serve light checks and the alert rules every 16
+    # iterations, as the JAX launcher wires them
+    reg = MetricsRegistry()
+    slack = SlackSink()
+    alerts = AlertManager(reg, sinks=[slack, LogSink()],
+                          rules=DEFAULT_RULES + SERVE_RULES)
     eng = ServeEngine(lm, params, args.max_batch, args.max_seq,
                       page_size=args.page_size, num_pages=args.num_pages,
                       prefix_sharing=not args.no_prefix_sharing,
@@ -183,7 +199,8 @@ def serve(args, pool_group, device, params=None):
                       decode_impl=args.decode_impl, pool_group=pool_group,
                       cache_backend=args.cache_backend,
                       prefill_chunk=args.prefill_chunk,
-                      prefill_budget=args.prefill_budget)
+                      prefill_budget=args.prefill_budget, registry=reg,
+                      verify_cache=args.verify_cache, alerts=alerts)
     t0 = time.perf_counter()
     for req in draw_requests(args, cfg.vocab_size):
         eng.submit(req)
@@ -191,7 +208,6 @@ def serve(args, pool_group, device, params=None):
     wall = time.perf_counter() - t0
     if pool_group is not None and pool_group.rank != 0:
         return eng
-    reg = eng.reg
     total_tokens = sum(len(r.out_tokens) for r in done)
     iters = reg.counter("serve_iterations_total").get()
     decode = reg.counter("serve_decode_dispatches_total").get()
@@ -242,6 +258,10 @@ def serve(args, pool_group, device, params=None):
               f"{eng.budget}]: {chunks:.0f} chunks, {stalls:.0f} page-grant "
               f"stalls, decode stall iters={stall_it:.0f}")
         print(f"  {skipped:.0f} fully-shared chunks skipped their forward")
+    if slack.messages:
+        print("alerts fired:")
+        for m in slack.messages:
+            print(f"  {m}")
     return eng
 
 

@@ -26,7 +26,7 @@ from repro_torch.data import (DeterministicLoader, LoaderConfig, TokenDataset,
                               synthetic_corpus, write_token_shards)
 from repro_torch.models import LM, ForwardOpts
 from repro_torch.models.common import resolve_device
-from repro_torch.telemetry import MetricsRegistry
+from repro_torch.core.telemetry import MetricsRegistry
 from repro_torch.train import init_train_state, make_train_step
 
 QUICKSTART_100M = ModelConfig(

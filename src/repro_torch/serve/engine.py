@@ -47,6 +47,11 @@ prefill, chunked prefill, the fused step, and the metrics of
   rewrites).
 * **Non-finite guard**: a logit row with NaN/Inf yields the token -1; fault
   recovery is not ported yet, so the engine raises on it.
+* **Health loop**, as in the JAX engine: ``verify_cache=True`` re-checks the
+  allocator's invariants every iteration, and an ``AlertManager`` passed as
+  ``alerts`` (over the engine's ``registry``) runs ``serve_light_checks``
+  (``core/health.py``) and its rules every ``health_every`` iterations.  All
+  of it is host code over counters and slot state.
 
 On CUDA the main path runs the port's kernels: K2 flash prefill, K1 paged
 flash-decode (its int8 mode with ``kv_dtype="int8"``) and K3 RMSNorm at
@@ -76,13 +81,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.health import serve_light_checks
+from repro_torch.core.telemetry import MetricsRegistry
 from repro_torch.kernels import ops
 from repro_torch.models import LM
 from repro_torch.models.common import resolve_device
 from repro_torch.serve.kvcache import (StagedBuffer, decode_transient_bytes,
                                        page_kv_bytes)
 from repro_torch.serve.sampling import sample_batch
-from repro_torch.telemetry import MetricsRegistry
 
 
 @dataclass
@@ -136,7 +142,10 @@ class ServeEngine:
                  kv_dtype: str = "native", decode_impl: str = "kernel",
                  pool_group=None, cache_backend: str = "paged",
                  cuda_graph: bool = True, prefill_chunk: int = 0,
-                 prefill_budget: int = 0, **unported):
+                 prefill_budget: int = 0,
+                 registry: Optional[MetricsRegistry] = None,
+                 verify_cache: bool = False, alerts=None,
+                 health_every: int = 16, **unported):
         assert lm.cfg.family == "dense", lm.cfg.family
         for name, value in unported.items():
             if name not in UNPORTED:
@@ -161,8 +170,18 @@ class ServeEngine:
         self.B, self.S = max_batch, max_seq
         self.decode_impl = decode_impl
         self.pool_group = pool_group
-        self.reg = MetricsRegistry()
+        self.reg = registry if registry is not None else MetricsRegistry()
         self.finished: List[Request] = []
+        # the health loop (``step``): debug-mode cache checks every
+        # iteration; with ``alerts`` the serve light checks and the alert
+        # rules every ``health_every`` iterations.  No watchdog is ported
+        # (item 12), so the checks' progress window is its default.
+        self.verify_cache = bool(verify_cache)
+        self.alerts = alerts
+        self.health_every = int(health_every)
+        self.watchdog_iters = 0
+        self._iter = 0                      # step() clock
+        self._last_progress: dict = {}      # slot -> last progress iter
         dtype = torch.float32 if lm.cfg.dtype == "float32" else torch.bfloat16
         self.kv = lm.init_cache(max_batch, max_seq, backend=cache_backend,
                                 page_size=page_size, num_pages=num_pages,
@@ -370,6 +389,7 @@ class ServeEngine:
             self.active[slot] = False           # not decodable yet
             self.kv.set_decode_shield(slot, True)
             self.prefilling[slot] = _PrefillState(req, shared=shared)
+            self._last_progress[slot] = self._iter
             admitted = True
         if admitted:
             self._export_memory()
@@ -406,6 +426,7 @@ class ServeEngine:
                 if skipped:
                     self.reg.counter(
                         "serve_prefill_chunks_skipped_total").inc(skipped)
+                    self._last_progress[slot] = self._iter
                 end = min(st.done + self.chunk, plen)
                 final = end == plen
                 if not self.kv.extend(
@@ -433,6 +454,7 @@ class ServeEngine:
                     slot, np.asarray(req.prompt, np.int32), end)
                 landed = True
                 st.done = end
+                self._last_progress[slot] = self._iter
                 if final:
                     del self.prefilling[slot]
                     self.kv.set_decode_shield(slot, False)
@@ -476,6 +498,7 @@ class ServeEngine:
         first token pending."""
         self.slot_req[slot] = req
         self.slot_pos[slot] = len(req.prompt)
+        self._last_progress[slot] = self._iter
         self.next_token[slot] = first_token
         self.active[slot] = True
         self.temps[slot] = req.sampling.temperature
@@ -587,6 +610,22 @@ class ServeEngine:
         return tok
 
     def step(self) -> bool:
+        """One engine iteration (``_step``), then the health loop in the
+        JAX engine's order: ``kv.verify()`` when ``verify_cache``, and with
+        an ``AlertManager`` wired in, every ``health_every`` iterations,
+        ``serve_light_checks`` and the alert rules.  The checks read host
+        counters and slot state only: the decode step stays one replay of
+        its graph.  Returns whether work ran or is in flight."""
+        live = self._step()
+        if self.verify_cache and hasattr(self.kv, "verify"):
+            self.kv.verify()
+        if self.alerts is not None and self._iter % self.health_every == 0:
+            serve_light_checks(self)
+            self.alerts.evaluate()
+        self._iter += 1
+        return live
+
+    def _step(self) -> bool:
         """One engine iteration: admit (and prefill), then one fused
         decode+sample call for every slot.  Chunked: in-flight chunks
         first (a stalled slot has first claim on pages freed since), then
@@ -633,6 +672,7 @@ class ServeEngine:
                 self.reg.histogram("serve_ttft_seconds").observe(
                     now - req.submitted_at)
             self.slot_pos[i] += 1
+            self._last_progress[i] = self._iter
             if (len(req.out_tokens) >= req.max_new_tokens
                     or tok == req.eos_id or self.slot_pos[i] >= self.S):
                 req.done_at = now
@@ -645,6 +685,7 @@ class ServeEngine:
                 self.slot_req[i] = None
                 self.active[i] = False
                 self.temps[i] = 0.0     # a free slot never needs a draw
+                self._last_progress.pop(i, None)
                 self.kv.free(i)
                 freed = True
             elif sampled[i] == -1:

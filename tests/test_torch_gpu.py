@@ -1,7 +1,8 @@
 """The port's hand-written kernels against their plain PyTorch versions on a
 CUDA card (``-m gpu``), the forward-only kernels' refusal of autograd, and a
-kernel-path train step against the plain path, and the launch counts of a
-chunked served run.  Without a card every test
+kernel-path train step against the plain path, the launch counts of a
+chunked served run, Autopilot's two probes on the card and the serving
+health loop around the CUDA-graph step.  Without a card every test
 here skips; the file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -1019,3 +1020,68 @@ def test_chunked_served_run_launch_counts(kv_dtype):
     want.update({"rmsnorm_rows": (decodes + rounds) * (4 * L + 1),
                  k1: decodes * L})
     assert ops.launch_counts() == want
+
+
+@pytest.mark.gpu
+def test_autopilot_probes_on_the_card():
+    """``Autopilot(measure_real=True)`` on the card: the fp32 GEMM and the
+    pinned host-to-device copy read finite, positive values and every check
+    passes; no alert fires."""
+    from repro_torch.core import alerts, health
+    from repro_torch.core.cluster import SimCluster
+    from repro_torch.core.telemetry import MetricsRegistry
+    _card()
+    reg = MetricsRegistry()
+    ap = health.Autopilot(SimCluster(1, registry=reg), reg, measure_real=True)
+    assert ap.device == torch.device("cuda", torch.cuda.current_device())
+    res = ap.run_checks()
+    assert all(r.passed for r in res)
+    for r in res:
+        assert np.isfinite(r.value) and r.value > 0, r
+    mgr = alerts.AlertManager(reg, rules=alerts.DEFAULT_RULES
+                              + alerts.SERVE_RULES)
+    assert mgr.evaluate() == []
+
+
+@pytest.mark.gpu
+def test_health_loop_keeps_the_graph_step():
+    """Reduced qwen3-4b in bf16 through the CUDA-graph step with the health
+    loop wired in (alerts, checks every 4 iterations, the allocator checked
+    every iteration): the same streams as without it, one replay per decode
+    step, every serve check PASS, no alert."""
+    from repro_torch.core import alerts
+    from repro_torch.core.telemetry import MetricsRegistry
+    _card()
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(),
+                              dtype="bfloat16")
+    lm = LM(cfg)
+    params = lm.init(3, device="cuda")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(5, 40)))
+               .astype(np.int32) for _ in range(6)]
+    streams = []
+    for wired in (False, True):
+        reg = MetricsRegistry()
+        mgr = alerts.AlertManager(reg, rules=alerts.DEFAULT_RULES
+                                  + alerts.SERVE_RULES) if wired else None
+        eng = ServeEngine(lm, params, max_batch=4, max_seq=96, page_size=8,
+                          device="cuda", registry=reg, alerts=mgr,
+                          health_every=4, verify_cache=wired)
+        replays = []
+        replay = eng._replay
+
+        def counted(view, replay=replay):
+            replays.append(1)
+            return replay(view)
+
+        eng._replay = counted
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p, max_new_tokens=10))
+        streams.append({r.id: r.out_tokens for r in eng.run_until_drained()})
+        assert len(replays) == reg.counter(
+            "serve_decode_dispatches_total").get() > 0
+    assert streams[0] == streams[1]
+    assert mgr.fired == []
+    assert all(v == 1.0 for name, series in reg.snapshot().items()
+               if name.startswith("autopilot") for v in series.values())
+    assert reg.gauge("autopilot_serve_cache_invariants").get() == 1.0

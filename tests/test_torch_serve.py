@@ -22,6 +22,8 @@ from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
 from repro.serve import filtered_probs as jfiltered_probs
 from repro_torch.configs import CONFIGS as TCONFIGS
+from repro_torch.core import Autopilot, MetricsRegistry, SimCluster
+from repro_torch.core.health import _measure_gemm_gflops, _measure_h2d_gbps
 from repro_torch.models import LM
 from repro_torch.models.params import from_jax
 from repro_torch.serve import (NonFiniteLogitsError, Request, SamplingParams,
@@ -211,7 +213,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout) >= 35
+    assert int(res.stdout) >= 45         # 35, and the ten of repro_torch.core
 
 
 def test_default_device_entry_points_raise_without_a_card():
@@ -225,3 +227,10 @@ def test_default_device_entry_points_raise_without_a_card():
     res = _run(["-m", "repro_torch.launch.serve", "--requests", "1"])
     assert res.returncode != 0
     assert "CUDA is not available" in res.stderr
+    # Autopilot's probes: on the card unless the CPU is asked for
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Autopilot(SimCluster(1), MetricsRegistry(), measure_real=True)
+    for probe in (_measure_gemm_gflops, _measure_h2d_gbps):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            probe()
+    assert Autopilot(SimCluster(1), MetricsRegistry()).device is None
