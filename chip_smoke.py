@@ -116,6 +116,26 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    ``autopilot_serve_*`` gauge 1.0 at each, no alert; the host ms of the
    checks and of ``kv.verify()`` with 8 slots live, and the step ms beside
    phase 5's;
+5c. tenancy and faults: (a) K1 at phase 3's serve shape (finite pools) in
+   every mode (native bf16 and fp32, int8, partials merged over two
+   shards) with one live page poisoned as ``PagedCache.poison_page`` does
+   (NaN K and V, or NaN scales), mid-range and as the only page of a
+   split's range: every element of the victim's row non-finite, every
+   other row bitwise the clean call's; NaN rows past a new owner's
+   position (a recycled page) change no row; (b) full-width qwen3-4b cut
+   to 4 layers in fp32, 6 requests (two arriving later), each fault kind
+   (nan_logits, poison_page over native and int8 pages, dispatch_error,
+   stall_chunk with the watchdog, chip_failure with ``locality_chips=2``)
+   and a preemption by an interactive tenant, through the graph, eagerly
+   and on the CPU: counters equal across the three, every completed
+   stream equal to the fault-free run (a greedy first difference allowed
+   only at a top-2 gap below 1e-4, counted, 0 expected); (c) phase 5's
+   bf16 workload with tenants (chat arrivals preempting bulk in a 96-page
+   pool) and five faults, twice: every request completed or
+   dead-lettered as the counters say, one replay a decode iteration, the
+   graph never recaptured, K1/K2/K3 launches exact, the two runs bitwise
+   equal; preemptions, recoveries, a resume prefill's host ms, the step
+   ms and TTFT by class reported;
 6. training parity: full-width qwen3-4b cut to 2 layers, fp32, two train
    steps through K4 and K5 and through their plain versions; loss,
    grad_norm and every parameter agree to a relative max error of 1e-3;
@@ -1678,9 +1698,9 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
 
         shared = {}                             # prompt length -> shared
 
-        def chunk_alloc(slot, length, first, prefix=None,
+        def chunk_alloc(slot, length, first, prefix=None, tenant=None,
                         alloc=getattr(eng.kv, "alloc_chunked", None)):
-            got = alloc(slot, length, first, prefix=prefix)
+            got = alloc(slot, length, first, prefix=prefix, tenant=tenant)
             if got is not None:
                 shared[len(prefix)] = shared.get(len(prefix), []) + [got]
             return got
@@ -2211,6 +2231,372 @@ def infrastructure(model, native_streams, native_run) -> None:
         f"{native_run['step_ms']:.2f} ms (decode "
         f"{native_run['decode_ms']:.2f}), {run['tok_s']:.1f} vs "
         f"{native_run['tok_s']:.1f} tok/s [{nvidia_smi_line()}]")
+
+
+# ------------------------------------------------------------ phase 5c ----
+
+K1_NAN_MODES = ("native bf16", "native fp32", "int8", "partials n=2")
+
+
+def _single_page_range(table, pos, lo, hi, splits, page=16):
+    """(slot, logical page) of a live page in the pool window [lo, hi) that
+    is the only page of its split's range under K1's schedule (a slot's
+    live pages in the window, in logical order, cut into ranges of
+    ceil(n / splits)), or None."""
+    for s in range(table.shape[0]):
+        live = [j for j in range(int(pos[s]) // page + 1)
+                if lo <= int(table[s, j]) < hi]
+        per = -(-len(live) // splits) if live else 1
+        for r in range(splits):
+            if len(live[r * per:(r + 1) * per]) == 1:
+                return s, live[r * per]
+    return None
+
+
+def k1_nan_case(mode: str, where: str, seed: int = 23) -> dict:
+    """One K1 NaN case at phase 3's serve shape (B=8, KV=8, G=4, D=128,
+    page 16, M=32, positions ``K1_SERVE_POS``, finite pools).  ``mode``:
+    one of ``K1_NAN_MODES`` (int8: the pools quantized by ``quantize_kv``,
+    bf16 q; partials: two shards' triples merged by
+    ``merge_partials_local``).  ``where``: ``"mid"`` poisons a live page in
+    the middle of slot 4's 11 (what ``PagedCache.poison_page`` writes: NaN
+    K and V, or on int8 pools NaN scales); ``"split"`` the only page of a
+    split's range (of a shard's, for partials); ``"recycled"`` writes NaN
+    into slot 0's last live page past its position (40) and into every
+    page past it, as a freed poisoned page leaves them for a new owner.
+    Returns the victim slot, its elements and non-finite ones, whether the
+    other slots (recycled: every slot) are bitwise equal to the clean
+    call, and the poisoned page."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.quant import quantize_kv
+    from repro_torch.models.attention import merge_partials_local
+    gen = torch.Generator().manual_seed(seed)
+    dtype = torch.float32 if mode == "native fp32" else torch.bfloat16
+    q, k, v, table, pos = k1_inputs(dtype, gen, positions=K1_SERVE_POS,
+                                    nan_dead=False)
+    quant = mode == "int8"
+    pools = ([*quantize_kv(k), *quantize_kv(v)] if quant else [k, None,
+                                                              v, None])
+    pools = [t for t in (pools[0], pools[2], pools[1], pools[3])
+             if t is not None]                           # k, v(, ks, vs)
+    shards = 2 if mode.startswith("partials") else 1
+    splits = k1_splits(pd, q, k, table, quant)
+    page, n_pages = k.shape[1], k.shape[0]
+
+    def call(ps):
+        if shards == 1:
+            return k1_call(pd, q, ps, table, pos).float()
+        triples = []
+        for c in range(shards):
+            shard = [_shard_of(t, shards, c)[0] for t in ps]
+            acc, l, m = k1_call(pd, q, shard, table, pos,
+                                _shard_of(ps[0], shards, c)[1])
+            triples.append((acc[:, None], l, m))
+        return merge_partials_local(triples)[:, 0]
+
+    clean = call(pools)
+    assert bool(torch.isfinite(clean).all()), f"K1 {mode}: clean call"
+    bad = [t.clone() for t in pools]
+    nan_of = bad[2:] if quant else bad[:2]        # what poison_page writes
+    tbl = table.cpu()
+    if where == "recycled":
+        slot, p = 0, int(pos[0])
+        last = int(tbl[0, p // page])
+        for t in nan_of:
+            t[last, p % page + 1:] = float("nan")
+            t[tbl[0, p // page + 1:].long()] = float("nan")
+        pid = last
+    else:
+        if where == "mid":
+            slot, j = 4, 5
+        else:
+            pn = -(-n_pages // shards)
+            found = [_single_page_range(tbl, pos.cpu(), c * pn,
+                                        (c + 1) * pn, splits, page)
+                     for c in range(shards)]
+            slot, j = next(f for f in found if f is not None)
+        pid = int(tbl[slot, j])
+        for t in nan_of:
+            t[pid] = float("nan")
+    out = call(bad)
+    torch.cuda.synchronize()
+    others = [s for s in range(out.shape[0]) if s != slot]
+    if where == "recycled":
+        others = list(range(out.shape[0]))
+    return dict(slot=slot, page=pid, splits=splits,
+                victim=out[slot].numel(),
+                victim_nonfinite=int((~torch.isfinite(out[slot])).sum()),
+                others_equal=torch.equal(out[others], clean[others]))
+
+
+def k1_nan_gates() -> None:
+    """(a) K1 carries a poisoned page's NaN into its victim's row in every
+    mode (native bf16 and fp32, int8, partials merged over two shards),
+    for a page in mid-range and for the only page of a split's range;
+    every other slot's row stays bitwise the unpoisoned call's; NaN rows
+    of a recycled page past its new owner's position are never read."""
+    for mode in K1_NAN_MODES:
+        for where in ("mid", "split", "recycled"):
+            r = k1_nan_case(mode, where)
+            log(f"[faults K1 NaN] {mode:12s} {where:8s}: slot {r['slot']} "
+                f"page {r['page']} ({r['splits']} splits): "
+                f"{r['victim_nonfinite']}/{r['victim']} of its elements "
+                f"non-finite; {'all' if where == 'recycled' else 'other'}"
+                f" slots bitwise equal to the clean call {r['others_equal']}")
+            want = 0 if where == "recycled" else r["victim"]
+            assert r["victim_nonfinite"] == want and r["others_equal"], \
+                f"K1 {mode} {where}: the poisoned page's NaN went astray"
+
+
+FAULT_CASES = (
+    # label, engine keywords, fault plan (tenancy: chat arrivals preempt)
+    ("nan_logits", {}, "nan_logits@3,nan_logits@7"),
+    ("poison_page", {}, "poison_page@3,poison_page@8"),
+    ("poison_page-int8", {"kv_dtype": "int8"}, "poison_page@3,poison_page@8"),
+    ("dispatch_error", {}, "dispatch_error@4:dur=2"),
+    ("stall_chunk", {"prefill_chunk": 32}, "stall_chunk@1:dur=40"),
+    ("preemption", {"tenancy": "chat=interactive,bulk=batch"}, None),
+    ("chip_failure", {"locality_chips": 2}, "chip_failure@4:chip=1"))
+FAULT_COUNTERS = ("serve_faults_injected_total", "serve_stream_retries_total",
+                  "serve_dead_letter_total", "serve_preemptions_total")
+
+
+def _fault_requests(vocab):
+    """(b)'s 6 requests: prompts of 20-60 tokens, 12 new tokens; even ids
+    greedy, odd ids seeded (temperature 0.8, top-k 20, top-p 0.9);
+    requests 4 and 5 arrive at iteration 3 (tenant chat), the rest at 0
+    (tenant bulk)."""
+    from repro_torch.serve import Request, SamplingParams
+    rng = np.random.default_rng(31)
+    out = {}
+    for i in range(6):
+        sp = SamplingParams(temperature=0.8 if i % 2 else 0.0, top_k=20,
+                            top_p=0.9, seed=i)
+        req = Request(i, rng.integers(0, vocab, int(rng.integers(20, 61)))
+                      .astype(np.int32), max_new_tokens=12, sampling=sp,
+                      tenant="chat" if i >= 4 else "bulk")
+        out.setdefault(3 if i >= 4 else 0, []).append(req)
+    return out
+
+
+def _drive(eng, arrivals, max_iters=500) -> list:
+    """Submit each arrival at its iteration, step until drained."""
+    for it in range(max_iters):
+        for r in arrivals.get(it, []):
+            eng.submit(r)
+        if not eng.step() and not eng.queue and it >= max(arrivals):
+            return eng.finished
+    raise AssertionError("the engine did not drain")
+
+
+def _fault_run(lm, params, device, kw, plan, graph=True):
+    """One of (b)'s runs: the engine (max_batch 4, max_seq 128, page 16, 24
+    pages) with ``kw``, ``plan`` and the watchdog (8 iterations) when there
+    is a plan; returns ({id: (status, tokens)}, the fault counters)."""
+    from repro_torch.serve import FaultPlan, ServeEngine, TenancyConfig
+    kw = dict(kw)
+    if "tenancy" in kw:
+        kw["tenancy"] = TenancyConfig.parse(kw["tenancy"])
+    if plan:
+        kw.update(fault_plan=FaultPlan.parse(plan), watchdog_iters=8)
+    eng = ServeEngine(lm, params, max_batch=4, max_seq=128, page_size=16,
+                      num_pages=24, device=device, cuda_graph=graph,
+                      verify_cache=True, **kw)
+    if eng.device.type == "cuda":
+        assert (eng._graph is not None) == graph
+    done = _drive(eng, _fault_requests(lm.cfg.vocab_size))
+    counters = {c: sorted(eng.reg.counter(c).labels_values())
+                for c in FAULT_COUNTERS}
+    return {r.id: (r.status, list(r.out_tokens)) for r in done}, counters
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    return {k: _cpu_tree(v) for k, v in tree.items()}
+
+
+def fp32_recovery() -> None:
+    """(b) Full-width qwen3-4b in fp32 cut to 4 layers (random weights,
+    seed 13): ``_fault_requests`` fault-free and under each of
+    ``FAULT_CASES``, through the graph and eagerly.  Every completed
+    stream of the graph and eager runs equals the same configuration's
+    fault-free graph run token for token (a greedy stream may first differ
+    only where the top-2 gap of the card's fp32 forward is below 1e-4;
+    such streams are counted, 0 expected; a seeded stream may not differ);
+    each case injected what it planned and recovered or preempted at
+    least once; its counters equal across graph, eager and the same run
+    on the CPU through the port (whose seeded draws come from the CPU's
+    generator, so only its counters are compared)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=4,
+                              dtype="float32")
+    lm = LM(cfg)
+    params = lm.init(13, device=DEV)
+    cpu_params = _cpu_tree(params)
+    reqs = {r.id: r for rs in _fault_requests(cfg.vocab_size).values()
+            for r in rs}
+    base, ties = {}, 0
+    t0 = time.perf_counter()
+    for label, kw, plan in FAULT_CASES:
+        key = tuple(sorted((k, v) for k, v in kw.items() if k != "tenancy"))
+        if key not in base:
+            base[key] = _fault_run(lm, params, DEV, dict(key), None)
+            assert all(s == "completed" for s, _ in base[key][0].values())
+        ref = base[key][0]
+        runs = {"graph": _fault_run(lm, params, DEV, kw, plan),
+                "eager": _fault_run(lm, params, DEV, kw, plan, graph=False),
+                "cpu": _fault_run(lm, cpu_params, "cpu", kw, plan)}
+        for how, (out, counts) in runs.items():
+            assert counts == runs["cpu"][1], \
+                f"[faults fp32 {label}] {how} counters {counts} vs the " \
+                f"CPU's {runs['cpu'][1]}"
+            if how == "cpu":
+                continue        # the CPU's seeded draws are its own
+            for i, (status, toks) in out.items():
+                if status != "completed" or toks == ref[i][1]:
+                    continue
+                t = next(k for k in range(len(toks)) if toks[k] != ref[i][1][k])
+                seq = np.concatenate([reqs[i].prompt,
+                                      np.asarray(toks[:t], np.int32)])
+                with torch.no_grad():
+                    logits, _ = lm.forward(params, torch.as_tensor(
+                        seq, device=DEV)[None].long())
+                top2 = logits[0, -1, :cfg.vocab_size].topk(2).values
+                gap = float(top2[0] - top2[1])
+                greedy = reqs[i].sampling.temperature == 0
+                log(f"[faults fp32 {label}] {how}: request {i} first "
+                    f"differs at token {t}, top-2 gap {gap:.3e}"
+                    f"{'' if greedy else ' (seeded)'}")
+                assert greedy and gap < 1e-4, \
+                    f"[faults fp32 {label}] request {i} diverged"
+                ties += 1
+        out, counts = runs["graph"]
+        fired = sum(v for _, v in counts["serve_faults_injected_total"])
+        moved = sum(v for _, v in counts["serve_stream_retries_total"]) \
+            + sum(v for _, v in counts["serve_preemptions_total"])
+        statuses = sorted(s for s, _ in out.values())
+        log(f"[faults fp32 {label}] graph, eager and CPU counters equal: "
+            f"{counts}; statuses {statuses}; completed streams equal the "
+            f"fault-free run")
+        assert moved > 0 and (plan is None or fired == len(plan.split(",")))
+    log(f"[faults fp32] {len(FAULT_CASES)} cases x (graph, eager, CPU) in "
+        f"{time.perf_counter() - t0:.1f}s; streams equal only by the tie "
+        f"rule: {ties} (0 expected) [{nvidia_smi_line()}]")
+    assert ties == 0, "a recovered stream equals the fault-free one only " \
+        "by the tie rule"
+
+
+def faulted_serve(model, native_streams, native_run) -> None:
+    """(c) Phase 5's bf16 workload on phase 5's model and weights, tenants
+    chat (odd ids, interactive) and bulk (even ids, batch): the 8 bulk
+    requests at iteration 0, the 8 chat ones at iteration 4 into a full
+    batch (max_batch 8) and a 96-page pool, so they preempt; a plan of
+    nan_logits, poison_page and dispatch_error with the watchdog (16
+    iterations), twice.  Gates: every request completed or dead-lettered
+    as the counters say; one decode dispatch per iteration and one graph
+    replay per decode iteration, the graph never recaptured; K1 36
+    launches per replay, K2 36 per bucketed prefill (resumes included), K3
+    145 per dispatch; the two runs' streams, statuses and counters
+    bitwise equal.  Reported: streams equal to phase 5's, preemptions,
+    recoveries, ``serve_recovery_iters``, the host ms of a resume prefill,
+    the decode step ms beside phase 5's, TTFT by class."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (FaultPlan, Request, ServeEngine,
+                                   TenancyConfig)
+    lm, params = model
+    cfg = lm.cfg
+    L = cfg.num_layers
+    norms = L * (2 + 2 * cfg.qk_norm) + 1
+    prompts = serve_prompts(cfg)
+    plan = ("nan_logits@8,poison_page@12,dispatch_error@16:dur=2,"
+            "nan_logits@24,poison_page@30")
+    results = []
+    for run in range(2):
+        free()
+        eng = ServeEngine(lm, params, max_batch=8, max_seq=512,
+                          page_size=16, num_pages=96, device=DEV,
+                          tenancy=TenancyConfig.parse(
+                              "chat=interactive,bulk=batch"),
+                          fault_plan=FaultPlan.parse(plan),
+                          watchdog_iters=16)
+        captured, replays, decode_ms, resume_ms = eng._graph, [], [], []
+
+        def counted_replay(view, replay=eng._replay):
+            replays.append(1)
+            return replay(view)
+
+        def timed_fused(*a, fused=eng._fused):
+            t0 = time.perf_counter()
+            out = fused(*a)
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def timed_prefill(bucket, group, prefill=eng._prefill_group):
+            t0 = time.perf_counter()
+            prefill(bucket, group)
+            torch.cuda.synchronize()
+            if any(a[1].out_tokens for a in group):
+                resume_ms.append((time.perf_counter() - t0) * 1e3)
+
+        eng._replay, eng._fused = counted_replay, timed_fused
+        eng._prefill_group = timed_prefill
+        arrivals = {}
+        for i, p in enumerate(prompts):
+            arrivals.setdefault(4 * (i % 2), []).append(Request(
+                i, p, max_new_tokens=32, tenant="chat" if i % 2 else "bulk"))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = _drive(eng, arrivals, max_iters=2000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        reg = eng.reg
+        iters = reg.counter("serve_iterations_total").get()
+        decodes = reg.counter("serve_decode_dispatches_total").get()
+        prefills = reg.counter("serve_prefill_dispatches_total").get()
+        counts = {c: sorted(reg.counter(c).labels_values())
+                  for c in FAULT_COUNTERS}
+        dead = sum(v for _, v in counts["serve_dead_letter_total"])
+        statuses = sorted(r.status for r in done)
+        assert len(done) == 16 and statuses.count("dead_letter") == dead \
+            and statuses.count("completed") == 16 - dead, statuses
+        assert decodes == iters == len(replays), (decodes, iters,
+                                                  len(replays))
+        assert eng._graph is captured, "the decode step was recaptured"
+        want = {name: 0 for name in launches}
+        want.update({"paged_flash_decode": decodes * L,
+                     "flash_attention_bhsd": prefills * L,
+                     "rmsnorm_rows": (decodes + prefills) * norms})
+        assert launches == want, (launches, want)
+        streams = {r.id: (r.status, list(r.out_tokens)) for r in done}
+        results.append((streams, counts))
+        same = sum(s == "completed" and t == native_streams[i]
+                   for i, (s, t) in streams.items())
+        ttft = reg.histogram("serve_class_ttft_seconds")
+        rec = reg.histogram("serve_recovery_iters")
+        log(f"[faults bf16 serve] run {run}: {statuses.count('completed')} "
+            f"completed, {dead:.0f} dead-lettered in {wall:.2f}s; "
+            f"{iters:.0f} decode iterations = {len(replays)} graph replays, "
+            f"{prefills:.0f} prefill dispatches ({len(resume_ms)} with a "
+            f"resume); launches {launches} (exact); counters {counts}; "
+            f"recoveries {rec.count()} over {sorted(rec.recent(64))} "
+            f"iterations; streams equal to phase 5's native run {same}/16 "
+            f"(reported); mean decode step {np.mean(decode_ms):.2f} ms vs "
+            f"phase 5's native {native_run['decode_ms']:.2f} ms; resume "
+            f"prefill dispatch host ms "
+            f"{[round(x, 2) for x in resume_ms]}; TTFT p50 interactive "
+            f"{ttft.quantile(0.5, {'class': 'interactive'}) * 1e3:.1f} ms, "
+            f"batch {ttft.quantile(0.5, {'class': 'batch'}) * 1e3:.1f} ms "
+            f"[{nvidia_smi_line()}]")
+        del eng, done
+    assert results[0] == results[1], "two faulted runs differ"
+    assert any(v for _, v in results[0][1]["serve_preemptions_total"]), \
+        "no chat admission preempted"
+    log("[faults bf16 serve] the two runs' streams, statuses and counters "
+        "are bitwise equal")
 
 
 # ------------------------------------------------------------- phase 6 ----
@@ -3089,6 +3475,14 @@ def main() -> int:
           "5's native run with the health loop")
     infra_probes()
     infrastructure(model, phase5_streams["native"], native_run)
+    free()
+
+    phase("5c tenancy and faults: K1 NaN gates, fp32 recovery, phase 5's "
+          "bf16 workload with tenants and a fault plan")
+    k1_nan_gates()
+    fp32_recovery()
+    free()
+    faulted_serve(model, phase5_streams["native"], native_run)
     del model
     free()
 

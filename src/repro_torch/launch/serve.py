@@ -9,13 +9,20 @@ the fused decode step per iteration.
     python -m repro_torch.launch.serve --no-reduced --prefill-chunk 64 \
         --prefill-budget 128
     python -m repro_torch.launch.serve --device cpu --reduced
+    python -m repro_torch.launch.serve --device cpu --reduced \
+        --tenants chat=interactive,bulk=batch --quota bulk=8 \
+        --fault-plan nan_logits@3,poison_page@5 --watchdog-iters 8
     python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.serve --device cpu --reduced --mesh 2
 
 It prints the same summary lines as ``repro.launch.serve``, and, as it
 does, the alerts that fired: the engine runs the serve light checks and the
 alert rules every 16 iterations (``--verify-cache`` adds the allocator's
-invariant checks after every iteration).  ``--reduced``
+invariant checks after every iteration).  ``--tenants``/``--quota``/
+``--no-priority`` serve the requests round-robin over the tenants,
+``--fault-plan``/``--watchdog-iters``/``--max-retries`` inject faults and
+recover from them; a request out of retries is dead-lettered, and the
+summary lists every request that did not simply complete.  ``--reduced``
 (the default) serves the reduced config in fp32; ``--no-reduced`` serves the
 full-width config in its own dtype, with random weights from seed 0.  The
 requests are the JAX launcher's (``draw_requests``); ``serve`` takes a
@@ -49,7 +56,8 @@ from repro_torch.core.telemetry import MetricsRegistry
 from repro_torch.models import LM
 from repro_torch.models.common import resolve_device
 from repro_torch.parallel import PoolGroup
-from repro_torch.serve import Request, SamplingParams, ServeEngine
+from repro_torch.serve import (FaultPlan, Request, SamplingParams,
+                               ServeEngine, TenancyConfig)
 
 
 def parse_mesh(spec: str) -> int:
@@ -141,10 +149,49 @@ def parse_args(argv=None):
                          "python -m torch.distributed.run --nproc-per-node "
                          "N): each rank pins P/N pages and merges the "
                          "ranks' decode partials; 0 = one process")
+    ap.add_argument("--tenants", default="", metavar="N=CLS,...",
+                    help="multi-tenant serving: comma-separated name=class "
+                         "tenants (classes: interactive, admitted first and "
+                         "never preempted, and batch, the default); the "
+                         "requests round-robin over the tenants.  Empty: "
+                         "one FIFO tenant")
+    ap.add_argument("--quota", default="", metavar="N=PAGES,...",
+                    help="per-tenant KV page quotas (name=pages,...): a "
+                         "tenant at its cap has its admissions skipped until "
+                         "its slots free pages.  Needs --tenants and the "
+                         "paged backend")
+    ap.add_argument("--priority", dest="priority", action="store_true",
+                    default=True,
+                    help="preempt the lowest-priority running decode when a "
+                         "higher class cannot admit (its pages evicted, the "
+                         "request re-queued for a recompute-on-resume "
+                         "prefill; default on)")
+    ap.add_argument("--no-priority", dest="priority", action="store_false",
+                    help="no preemption: quotas and priority-ordered "
+                         "admission only")
+    ap.add_argument("--fault-plan", default="", metavar="PLAN",
+                    help="fault injection: comma-separated "
+                         "kind@iteration[:slot=N][:chip=N][:page=N][:dur=N] "
+                         "events (kinds: nan_logits, poison_page, "
+                         "chip_failure, stall_chunk, dispatch_error), e.g. "
+                         "'nan_logits@5,chip_failure@12:chip=1'; faulted "
+                         "streams resume through a recompute-on-resume "
+                         "prefill")
+    ap.add_argument("--watchdog-iters", type=int, default=0, metavar="N",
+                    help="recover any live slot that emits no token and "
+                         "lands no chunk for N iterations (0: off)")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="recoveries a stream may take before it is "
+                         "dead-lettered (the error on the request, its "
+                         "neighbours untouched)")
+    ap.add_argument("--host-pages", type=int, default=0, metavar="N",
+                    help="the host-RAM page tier of the JAX launcher; not "
+                         "ported (ROADMAP Queue 1 item 13), so any N > 0 "
+                         "raises")
     ap.add_argument("--verify-cache", action="store_true",
                     help="debug mode: run the PagedCache.verify() "
                          "invariant sanitizer (refcounts, free lists, page "
-                         "tables) after every engine iteration")
+                         "tables, quotas) after every engine iteration")
     return ap.parse_args(argv)
 
 
@@ -161,15 +208,19 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
-def draw_requests(args, vocab_size: int) -> List[Request]:
+def draw_requests(args, vocab_size: int,
+                  tenants: List[str] = ()) -> List[Request]:
     """The JAX launcher's workload: ``default_rng(0)``, prompts of 4-11
-    tokens, request i sampled with ``seed=i``."""
+    tokens, request i sampled with ``seed=i`` and, given ``tenants``, of
+    tenant ``tenants[i % len(tenants)]``."""
     rng = np.random.default_rng(0)
     reqs = []
     for i in range(args.requests):
         prompt = rng.integers(0, vocab_size,
                               rng.integers(4, 12)).astype(np.int32)
         reqs.append(Request(i, prompt, max_new_tokens=args.new_tokens,
+                            tenant=(tenants[i % len(tenants)] if tenants
+                                    else "default"),
                             sampling=SamplingParams(
                                 temperature=args.temperature,
                                 top_k=args.top_k, top_p=args.top_p,
@@ -184,6 +235,13 @@ def serve(args, pool_group, device, params=None):
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     lm = LM(cfg)
+    tenancy = None
+    if args.tenants:
+        tenancy = TenancyConfig.parse(args.tenants, args.quota,
+                                      preemption=args.priority)
+    elif args.quota:
+        raise SystemExit("--quota requires --tenants")
+    fault_plan = FaultPlan.parse(args.fault_plan) if args.fault_plan else None
     if params is None:
         params = lm.init(0, device=device)
     # the health loop: serve light checks and the alert rules every 16
@@ -200,11 +258,16 @@ def serve(args, pool_group, device, params=None):
                       cache_backend=args.cache_backend,
                       prefill_chunk=args.prefill_chunk,
                       prefill_budget=args.prefill_budget, registry=reg,
-                      verify_cache=args.verify_cache, alerts=alerts)
+                      tenancy=tenancy, fault_plan=fault_plan,
+                      watchdog_iters=args.watchdog_iters,
+                      max_retries=args.max_retries,
+                      verify_cache=args.verify_cache, alerts=alerts,
+                      host_pages=args.host_pages)
+    tenant_names = sorted(tenancy.tenants) if tenancy else []
     t0 = time.perf_counter()
-    for req in draw_requests(args, cfg.vocab_size):
+    for req in draw_requests(args, cfg.vocab_size, tenant_names):
         eng.submit(req)
-    done = eng.run_until_drained()
+    done = eng.run_until_drained(on_stuck="status")
     wall = time.perf_counter() - t0
     if pool_group is not None and pool_group.rank != 0:
         return eng
@@ -212,7 +275,11 @@ def serve(args, pool_group, device, params=None):
     iters = reg.counter("serve_iterations_total").get()
     decode = reg.counter("serve_decode_dispatches_total").get()
     prefill = reg.counter("serve_prefill_dispatches_total").get()
-    print(f"served {len(done)} requests ({len(done)} completed), "
+    by_status = {}
+    for r in done:
+        by_status[r.status] = by_status.get(r.status, 0) + 1
+    outcome = ", ".join(f"{n} {s}" for s, n in sorted(by_status.items()))
+    print(f"served {len(done)} requests ({outcome}), "
           f"{total_tokens} tokens in {wall:.1f}s "
           f"({total_tokens/wall:.1f} tok/s)")
     print(f"device calls: {decode:.0f} fused decode+sample "
@@ -258,6 +325,42 @@ def serve(args, pool_group, device, params=None):
               f"{eng.budget}]: {chunks:.0f} chunks, {stalls:.0f} page-grant "
               f"stalls, decode stall iters={stall_it:.0f}")
         print(f"  {skipped:.0f} fully-shared chunks skipped their forward")
+    if tenancy is not None:
+        preempt = reg.counter("serve_preemptions_total").get()
+        qdeny = reg.counter("serve_quota_denied_total").get()
+        print(f"tenancy [{len(tenancy.tenants)} tenants, preemption "
+              f"{'on' if tenancy.preemption else 'off'}]: "
+              f"{preempt:.0f} preemptions, {qdeny:.0f} quota denies")
+        for name in tenant_names:
+            spec = tenancy.spec(name)
+            pages = reg.gauge("serve_tenant_pages_in_use").get(
+                {"tenant": name})
+            quota = (f"/{spec.page_quota}" if spec.page_quota is not None
+                     else "")
+            print(f"  tenant {name} [{spec.cls}]: pages {pages:.0f}{quota}")
+        h = reg.histogram("serve_class_ttft_seconds")
+        for cls in sorted({t.cls for t in tenancy.tenants.values()}):
+            if h.count({"class": cls}):
+                print(f"  class {cls}: TTFT p50 "
+                      f"{h.quantile(0.5, {'class': cls})*1e3:.0f}ms p99 "
+                      f"{h.quantile(0.99, {'class': cls})*1e3:.0f}ms")
+    injected = sum(v for _, v in reg.counter(
+        "serve_faults_injected_total").labels_values())
+    recovered = sum(v for _, v in reg.counter(
+        "serve_stream_retries_total").labels_values())
+    dead = sum(v for _, v in reg.counter(
+        "serve_dead_letter_total").labels_values())
+    if args.fault_plan or args.watchdog_iters or injected or recovered:
+        rec_h = reg.histogram("serve_recovery_iters")
+        rec_p50 = (f", recovery p50 {rec_h.quantile(0.5):.0f} iters"
+                   if rec_h.count() else "")
+        print(f"faults: {injected:.0f} injected, {recovered:.0f} stream "
+              f"retries, {dead:.0f} dead-lettered{rec_p50}")
+    for r in sorted(done, key=lambda r: r.id):
+        if r.status != "completed" or r.retries or r.preemptions:
+            print(f"  request {r.id} [{r.status}]: {len(r.out_tokens)} "
+                  f"tokens, {r.retries} retries, {r.preemptions} preemptions"
+                  + (f" — {r.error}" if r.error else ""))
     if slack.messages:
         print("alerts fired:")
         for m in slack.messages:

@@ -1,9 +1,17 @@
-from repro_torch.serve.engine import (NonFiniteLogitsError,
-                                     RankDivergenceError, Request,
-                                     SamplingParams, ServeEngine)
-from repro_torch.serve.kvcache import ContiguousCache, PagedCache
+from repro_torch.serve.engine import (EngineStuckError, RankDivergenceError,
+                                     Request, SamplingParams, ServeEngine)
+from repro_torch.serve.faults import (FaultEvent, FaultPlan,
+                                     TransientDispatchError)
+from repro_torch.serve.kvcache import (CacheInvariantError, ContiguousCache,
+                                      MemoryStats, PagedCache)
 from repro_torch.serve.sampling import filtered_probs, sample_batch
+from repro_torch.serve.tenancy import (BATCH, INTERACTIVE, PriorityClass,
+                                      TenancyConfig, TenantSpec, Victim,
+                                      next_victim)
 
-__all__ = ["ContiguousCache", "NonFiniteLogitsError", "PagedCache", "RankDivergenceError",
-           "Request", "SamplingParams", "ServeEngine", "filtered_probs",
-           "sample_batch"]
+__all__ = ["BATCH", "CacheInvariantError", "ContiguousCache",
+           "EngineStuckError", "FaultEvent", "FaultPlan", "INTERACTIVE",
+           "MemoryStats", "PagedCache", "PriorityClass",
+           "RankDivergenceError", "Request", "SamplingParams", "ServeEngine",
+           "TenancyConfig", "TenantSpec", "TransientDispatchError", "Victim",
+           "filtered_probs", "next_victim", "sample_batch"]

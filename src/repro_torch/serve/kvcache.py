@@ -1,8 +1,7 @@
 """KV caches of the port: the paged cache (counterpart of ``PagedCache`` in
-the JAX ``repro.serve.kvcache``, without its quotas, eviction, host tier,
-chip failure and 2-D meshes) and the contiguous one
-(``ContiguousCache``: dense (L, B, S, KV, D) rows, every slot reserving
-``max_seq`` positions, written in place).
+the JAX ``repro.serve.kvcache``, without its host tier and 2-D meshes) and
+the contiguous one (``ContiguousCache``: dense (L, B, S, KV, D) rows, every
+slot reserving ``max_seq`` positions, written in place).
 
 Storage is a per-layer (L, P, page, KV, D) K and V pool on the device; each
 slot owns a row of a host-side (B, M) int32 page table mapping logical page
@@ -31,6 +30,16 @@ chips from the fullest; admission depends only on the total free count.
 ``locality_chips`` partitions the free list the same way without sharding
 the tensors (the JAX cache's mesh-free knob).
 
+Multi-tenant serving: ``alloc``/``alloc_chunked`` take a ``tenant`` whose
+whole footprint is charged against its page quota (``set_quota``) at
+admission; a deny sets ``last_deny`` to ``"quota"`` or ``"pool"``, and
+``evict`` releases a preempted slot.  Fault tolerance: ``poison_page``
+writes NaN into a page in place (its scales on an int8 pool; on a sharded
+pool only the rank holding it writes), ``unregister_pages`` takes suspect
+pages out of prefix sharing, and ``fail_chip`` drains a chip's pages for
+good, so ``usable_pages`` shrinks (on a sharded pool the rank keeps
+running: the loss is simulated in the bookkeeping, as in JAX).
+
 All bookkeeping is host-side numpy.  Unlike the JAX cache, whose pools are
 immutable values threaded through each dispatch, the pools here are written
 in place by the prefill scatter and the decode step, and never
@@ -40,7 +49,7 @@ free has changed it, so a CUDA graph of the decode step reads it.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -157,6 +166,9 @@ class MemoryStats:
     bytes_sink_per_chip: int = 0  # a sharded rank's sink page, beside it
     slots_total: int = 0
     slots_in_use: int = 0     # slots holding a request
+    chips_failed: int = 0     # chips drained by fail_chip (degraded pool)
+    # footprint pages charged per tenant (empty without tenant tags)
+    tenant_pages: Dict[str, int] = field(default_factory=dict)
 
 
 class PagedCache:
@@ -224,14 +236,30 @@ class PagedCache:
         # pages each chunked slot will still claim (``extend``)
         self._slot_need: List[int] = [0] * batch
         self._shielded: set = set()       # mid-prefill slots (decode_view)
+        # tenancy: each slot's whole footprint is charged to its tenant at
+        # admission, so a chunked slot's ``extend`` never meets its quota
+        self._quota: Dict[str, int] = {}
+        self._slot_tenant: List[Optional[str]] = [None] * batch
+        self._slot_charge: List[int] = [0] * batch
+        self._tenant_pages: Dict[str, int] = {}
+        #: why the last ``alloc``/``alloc_chunked`` returned ``None``:
+        #: "pool" (the engine stops admitting) or "quota" (it skips the
+        #: request and admits others)
+        self.last_deny: Optional[str] = None
+        #: chips drained by ``fail_chip``: their pages never return
+        self._failed_chips: set = set()
 
     # ------------------------------------------------------------ sizing ----
     def pages_needed(self, length: int) -> int:
         return -(-length // self.page)
 
     def usable_pages(self) -> int:
-        """Pages the allocator can ever hand out: the pool minus scratch."""
-        return self.P - 1
+        """Pages the allocator can ever hand out: the pool minus scratch
+        minus every failed chip's pages (scratch is on chip 0, so a failed
+        chip 0 loses one page fewer)."""
+        lost = sum(self.pages_per_chip - (1 if c == 0 else 0)
+                   for c in self._failed_chips)
+        return self.P - 1 - lost
 
     def can_ever_fit(self, length: int) -> bool:
         return (length <= self.S
@@ -259,15 +287,15 @@ class PagedCache:
         assert len(out) == need, (len(out), need)
         return out
 
-    def _freeable(self, slot: int) -> int:
-        """Pages ``free(slot)`` would return: shared pages may outlive the
-        slot, so only refcount-1 pages count."""
+    def slot_freeable(self, slot: int) -> int:
+        """Pages ``free(slot)``/``evict(slot)`` would return: shared pages
+        may outlive the slot, so only refcount-1 pages count."""
         return sum(int(self._ref[p] == 1) for p in self._slot_pages[slot])
 
     def _banker_items(self, skip: Optional[int] = None):
         """(remaining need, pages freed on completion) per live slot but
         ``skip``."""
-        return [(self._slot_need[s], self._freeable(s))
+        return [(self._slot_need[s], self.slot_freeable(s))
                 for s in range(self.B)
                 if s != skip and (self._slot_pages[s] or self._slot_need[s])]
 
@@ -294,19 +322,60 @@ class PagedCache:
         return self._safe(free - take, self._banker_items(skip)
                           + [(remaining, take + extra_freeable)])
 
+    # ------------------------------------------------------------ tenancy ----
+    def set_quota(self, tenant: str, pages: Optional[int]) -> None:
+        """Cap ``tenant``'s charged footprint pages (``None`` lifts the cap).
+        A quota below current use only blocks new admissions."""
+        if pages is None:
+            self._quota.pop(tenant, None)
+        else:
+            assert pages >= 1, pages
+            self._quota[tenant] = pages
+
+    def tenant_pages(self, tenant: str) -> int:
+        return self._tenant_pages.get(tenant, 0)
+
+    def _quota_ok(self, tenant: Optional[str], n_total: int) -> bool:
+        if tenant is None or tenant not in self._quota:
+            return True
+        return self.tenant_pages(tenant) + n_total <= self._quota[tenant]
+
+    def _charge(self, slot: int, tenant: Optional[str], n_total: int) -> None:
+        if tenant is None:
+            return
+        self._slot_tenant[slot] = tenant
+        self._slot_charge[slot] = n_total
+        self._tenant_pages[tenant] = self.tenant_pages(tenant) + n_total
+
+    def evict(self, slot: int) -> int:
+        """Preempt ``slot``: release its pages and its quota charge; returns
+        how many pages re-entered the free pool.  The engine re-queues the
+        request for a recompute-on-resume prefill, which re-shares its
+        prompt pages if they are still registered."""
+        freed = self.slot_freeable(slot)
+        self.free(slot)
+        return freed
+
     def _key(self, prefix: np.ndarray, page_idx: int) -> bytes:
         # K/V in page i depend on tokens[: (i + 1) * page] and nothing else
         return np.ascontiguousarray(
             prefix[: (page_idx + 1) * self.page], np.int32).tobytes()
 
     def alloc(self, slot: int, length: int,
-              prefix: Optional[np.ndarray] = None) -> Optional[int]:
+              prefix: Optional[np.ndarray] = None,
+              tenant: Optional[str] = None) -> Optional[int]:
         """Reserve pages covering ``length`` positions for ``slot``.
-        ``prefix`` (the prompt) keys prefix sharing.  Returns the number of
-        leading positions backed by shared pages, or ``None`` to defer."""
+        ``prefix`` (the tokens to prefill) keys prefix sharing; ``tenant``
+        is charged the footprint against its quota.  Returns the number of
+        leading positions backed by shared pages, or ``None`` to defer, with
+        ``last_deny`` "quota" or "pool"."""
         assert not self._slot_pages[slot], f"slot {slot} already allocated"
         assert 0 < length <= self.S, (length, self.S)
         n_pages = self.pages_needed(length)
+        self.last_deny = None
+        if not self._quota_ok(tenant, n_pages):
+            self.last_deny = "quota"
+            return None                 # the tenant's cap, not the pool
         # only pages wholly inside the prompt are shareable: the page
         # holding the first decode write is always private
         shared = self._match_shared(prefix, n_pages)
@@ -317,6 +386,7 @@ class PagedCache:
         if not self._grant_safe(n_pages - len(shared), 0):
             for pid in shared:
                 self._ref[pid] -= 1
+            self.last_deny = "pool"
             return None
         fresh = self._take_fresh(n_pages - len(shared))
         for pid in fresh:
@@ -327,6 +397,7 @@ class PagedCache:
         self._table_stale = True
         self._slot_pages[slot] = pages
         self._slot_shared[slot] = len(shared)
+        self._charge(slot, tenant, n_pages)
         # register this request's new full prompt pages now: their content
         # lands in the same admission's prefill
         if prefix is not None:
@@ -348,17 +419,24 @@ class PagedCache:
 
     # ------------------------------------------------- chunked allocation ----
     def alloc_chunked(self, slot: int, length: int, first: int,
-                      prefix: Optional[np.ndarray] = None) -> Optional[int]:
+                      prefix: Optional[np.ndarray] = None,
+                      tenant: Optional[str] = None) -> Optional[int]:
         """Admit ``slot`` for chunked prefill: claim the pages covering its
         first ``first`` positions now and record the rest of the
         ``length``-position footprint as the slot's remaining need, which
         ``extend`` claims chunk by chunk.  Admission needs the pool to stay
         banker-safe after the grant, a weaker demand than ``alloc``'s.
         Sharing matches only registered pages, whose content has landed.
-        Returns the shared leading positions, or ``None`` to defer."""
+        ``tenant`` is charged the whole footprint now.  Returns the shared
+        leading positions, or ``None`` to defer (``last_deny`` as in
+        ``alloc``)."""
         assert not self._slot_pages[slot], f"slot {slot} already allocated"
         assert 0 < first <= length <= self.S, (first, length, self.S)
         n_total = self.pages_needed(length)
+        self.last_deny = None
+        if not self._quota_ok(tenant, n_total):
+            self.last_deny = "quota"
+            return None
         shared = self._match_shared(prefix, n_total)
         n_first = max(self.pages_needed(first) - len(shared), 0)
         remaining = n_total - len(shared) - n_first
@@ -367,6 +445,7 @@ class PagedCache:
         if not self._grant_safe(n_first, remaining):
             for pid in shared:
                 self._ref[pid] -= 1
+            self.last_deny = "pool"
             return None
         fresh = self._take_fresh(n_first)
         for pid in fresh:
@@ -378,6 +457,7 @@ class PagedCache:
         self._slot_pages[slot] = pages
         self._slot_shared[slot] = len(shared)
         self._slot_need[slot] = remaining
+        self._charge(slot, tenant, n_total)
         return len(shared) * self.page
 
     def extend(self, slot: int, cover: int) -> bool:
@@ -394,7 +474,7 @@ class PagedCache:
         assert need <= self._slot_need[slot], (need, self._slot_need[slot])
         if not self._grant_safe(need, self._slot_need[slot] - need,
                                 skip=slot,
-                                extra_freeable=self._freeable(slot)):
+                                extra_freeable=self.slot_freeable(slot)):
             return False
         fresh = self._take_fresh(need)
         for pid in fresh:
@@ -516,14 +596,71 @@ class PagedCache:
                 key = self._page_to_hash.pop(pid, None)
                 if key is not None:
                     del self._hash_to_page[key]
-                self._free_chip[chip_of_page(pid,
-                                             self.pages_per_chip)].append(pid)
+                # a failed chip's page leaves the pool with its last owner
+                chip = chip_of_page(pid, self.pages_per_chip)
+                if chip not in self._failed_chips:
+                    self._free_chip[chip].append(pid)
         self._slot_pages[slot] = []
         self._slot_shared[slot] = 0
         self._slot_need[slot] = 0
         self._shielded.discard(slot)
+        tenant = self._slot_tenant[slot]
+        if tenant is not None:
+            left = self._tenant_pages[tenant] - self._slot_charge[slot]
+            if left:
+                self._tenant_pages[tenant] = left
+            else:
+                del self._tenant_pages[tenant]
+            self._slot_tenant[slot] = None
+            self._slot_charge[slot] = 0
         self.page_table[slot, :] = 0    # point the freed slot at scratch
         self._table_stale = True
+
+    # ---------------------------------------------------- fault tolerance ----
+    def poison_page(self, pid: int) -> None:
+        """Overwrite page ``pid``'s content with NaN, in place (the
+        ``poison_page`` fault: corruption in device memory).  An int8 row
+        has no NaN, so on an int8 pool the page's scales are poisoned.  On
+        a sharded pool only the rank holding the page writes it, at its
+        local index.  The bookkeeping is untouched: the reader (the decode
+        step's non-finite guard) has to find it."""
+        assert 0 < pid < self.P, (pid, self.P)
+        local = pid
+        if self.pool_group is not None:
+            if chip_of_page(pid, self.pages_per_chip) != self.pool_group.rank:
+                return
+            local = pid - self.pool_group.rank * self.pages_per_chip
+        names = ("k_scale", "v_scale") if self.quantized else ("k", "v")
+        for name in names:
+            self.state["layers"][name][:, local] = float("nan")
+
+    def unregister_pages(self, pages: List[int]) -> None:
+        """Take ``pages`` out of prefix sharing (content lost or suspect):
+        their sharers keep them, but no new request maps them, so a
+        poisoned prompt page cannot re-share into a resume prefill."""
+        for pid in pages:
+            key = self._page_to_hash.pop(pid, None)
+            if key is not None:
+                del self._hash_to_page[key]
+
+    def fail_chip(self, chip: int) -> List[int]:
+        """Drain ``chip`` from the pool (a lost card): its free pages leave
+        the free lists for good and its pages leave prefix sharing; returns
+        the slots holding a page there, for the engine to recover.  A
+        sharded pool keeps every rank running and merging: the loss is in
+        the bookkeeping.  Idempotent per chip.  A chunked slot whose
+        remaining need outgrew the surviving pool stalls until the watchdog
+        recovers it."""
+        assert 0 <= chip < self.chips, (chip, self.chips)
+        if chip in self._failed_chips:
+            return []
+        self._failed_chips.add(chip)
+        self._free_chip[chip] = []
+        span = chip_page_range(chip, self.pages_per_chip)
+        self.unregister_pages([p for p in span if p in self._page_to_hash])
+        return [s for s in range(self.B)
+                if any(span.start <= p < span.stop
+                       for p in self._slot_pages[s])]
 
     # ----------------------------------------------------------- checks ----
     def verify(self) -> None:
@@ -540,10 +677,16 @@ class PagedCache:
         counts = (np.bincount(owned, minlength=self.P) if owned
                   else np.zeros(self.P, np.int64))
         check((self._ref == counts).all(),
-              "refcounts drifted from live references")
-        check(len(free) == len(set(free)), "duplicate page in free list")
-        check(set(free).isdisjoint(owned), "page both free and owned")
-        check(set(free) | set(owned) == set(range(1, self.P)),
+              f"refcounts drifted from live references "
+              f"(ref={self._ref.tolist()} vs owned={sorted(owned)})")
+        check(len(free) == len(set(free)), "duplicate page in free lists")
+        check(set(free).isdisjoint(owned),
+              f"pages both free and owned: {set(free) & set(owned)}")
+        lost = {p for c in self._failed_chips
+                for p in chip_page_range(c, self.pages_per_chip)}
+        check(not lost & set(free), "failed-chip page still listed free")
+        check(not lost & set(owned), "failed-chip page still owned")
+        check(set(free) | set(owned) == set(range(1, self.P)) - lost,
               "free and owned pages do not partition the pool")
         for c, chip in enumerate(self._free_chip):
             check(all(chip_of_page(pid, self.pages_per_chip) == c
@@ -560,6 +703,9 @@ class PagedCache:
                   f"slot {s} shared-page count out of range")
             check(self._slot_need[s] >= 0,
                   f"slot {s} negative chunked-prefill need")
+            check((self._slot_tenant[s] is None) ==
+                  (self._slot_charge[s] == 0),
+                  f"slot {s} tenant/charge mismatch")
         check(len(self._hash_to_page) == len(self._page_to_hash),
               "prefix registry maps differ in size")
         for key, pid in self._hash_to_page.items():
@@ -567,6 +713,14 @@ class PagedCache:
                   f"prefix registry maps disagree on page {pid}")
             check(self._ref[pid] > 0,
                   f"registered prefix page {pid} has no owner")
+        charges: Dict[str, int] = {}
+        for s in range(self.B):
+            t = self._slot_tenant[s]
+            if t is not None:
+                charges[t] = charges.get(t, 0) + self._slot_charge[s]
+        check(charges == self._tenant_pages,
+              f"tenant accounting drifted: {charges} "
+              f"vs {self._tenant_pages}")
         st = self.memory_stats()
         pb = page_kv_bytes(self.cfg, self.page, self.dtype, self.kv_dtype)
         pools = self.state["layers"].values()
@@ -578,8 +732,11 @@ class PagedCache:
               and st.bytes_total == self.P * pb
               and pinned == sum(t.numel() * t.element_size() for t in pools),
               "memory_stats byte math inconsistent")
-        check(self._safe(len(free), self._banker_items()),
-              "pool not banker-safe (a live slot can never complete)")
+        if not self._failed_chips:
+            # a chip failure may strand a chunked need (the watchdog's
+            # case), so banker safety holds on intact pools only
+            check(self._safe(len(free), self._banker_items()),
+                  "pool not banker-safe (a live slot can never complete)")
 
     def memory_stats(self) -> MemoryStats:
         pb = page_kv_bytes(self.cfg, self.page, self.dtype, self.kv_dtype)
@@ -598,7 +755,9 @@ class PagedCache:
             bytes_scales_per_chip=scale_b // self.chips,
             bytes_sink_per_chip=pb if self.pool_group is not None else 0,
             slots_total=self.B,
-            slots_in_use=sum(bool(p) for p in self._slot_pages))
+            slots_in_use=sum(bool(p) for p in self._slot_pages),
+            chips_failed=len(self._failed_chips),
+            tenant_pages=dict(self._tenant_pages))
 
 
 class ContiguousCache:
@@ -614,6 +773,7 @@ class ContiguousCache:
     backend = "contiguous"
     quantized = False           # int8 pages are a paged-format feature
     chips = 1
+    last_deny = None            # alloc never fails, so never a deny reason
 
     def __init__(self, cfg, batch: int, max_seq: int, device="cuda",
                  dtype=torch.bfloat16):
@@ -629,9 +789,10 @@ class ContiguousCache:
         return length <= self.S
 
     def alloc(self, slot: int, length: int,
-              prefix: Optional[np.ndarray] = None) -> Optional[int]:
-        """Reserve ``slot`` (its rows are always there): never defers, and
-        no position is shared."""
+              prefix: Optional[np.ndarray] = None,
+              tenant: Optional[str] = None) -> Optional[int]:
+        """Reserve ``slot`` (its rows are always there): never defers, no
+        position is shared and no quota is metered."""
         assert not self._in_use[slot], f"slot {slot} already allocated"
         assert 0 < length <= self.S, (length, self.S)
         self._in_use[slot] = True

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import repro.serve as jserve
+import repro_torch.serve as tserve
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.launch import serve as tlaunch
@@ -413,8 +415,9 @@ def test_tight_pool_admits_what_whole_prompt_defers():
 
 
 def test_chunked_engine_refusals_match_jax():
-    """JAX's constructor refusals, with its messages; the JAX engine's
-    paths the port does not serve yet raise naming their item."""
+    """JAX's constructor refusals, with its messages, chunked and for
+    ``tenancy=``/``fault_plan=`` against the backend; the host tier, which
+    the port does not serve yet, raises naming its item."""
     _, jlm, jparams, _, tlm, tparams = setup()
     cases = [(dict(cache_backend="contiguous", prefill_chunk=8),
               "page-aware"),
@@ -431,13 +434,43 @@ def test_chunked_engine_refusals_match_jax():
                 make()
             msgs.append(str(e.value))
         assert msgs[0] == msgs[1]
-    for kw, item in ((dict(tenancy=object()), "item 11"),
-                     (dict(fault_plan=object()), "item 12"),
-                     (dict(watchdog_iters=4), "item 12"),
-                     (dict(host_pages=8), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServeEngine(tlm, tparams, 2, 32, device="cpu", prefill_chunk=8,
-                        **kw)
+    cases = [(dict(cache_backend="contiguous"),
+              lambda m: m.TenancyConfig([m.TenantSpec("chat", "interactive"),
+                                         m.TenantSpec("bulk", "batch", 4)]),
+              None, "quota"),
+             (dict(cache_backend="contiguous"),
+              lambda m: m.TenancyConfig([m.TenantSpec("bulk", "batch")]),
+              None, "preemption"),
+             (dict(cache_backend="paged", prefill_chunk=8),
+              lambda m: m.TenancyConfig(
+                  [m.TenantSpec("bulk", "batch")], classes={
+                      "batch": m.PriorityClass("batch", 0,
+                                               prefill_budget=4)}),
+              None, "prefill_budget"),
+             (dict(cache_backend="contiguous"), None,
+              lambda m: m.FaultPlan([m.FaultEvent(1, "poison_page"),
+                                     m.FaultEvent(2, "stall_chunk")]),
+              "paged")]
+    for kw, ten, plan, match in cases:
+        msgs = []
+        for mod, make in ((jserve, lambda **k: JServeEngine(
+                jlm, jparams, 2, 32, **kw, **k)),
+                          (tserve, lambda **k: ServeEngine(
+                              tlm, tparams, 2, 32, device="cpu", **kw,
+                              **k))):
+            with pytest.raises(ValueError, match=match) as e:
+                make(tenancy=ten(mod) if ten else None,
+                     fault_plan=plan(mod) if plan else None)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+    # the fault and watchdog keywords are served now, chunked too
+    eng = ServeEngine(tlm, tparams, 2, 32, device="cpu", prefill_chunk=8,
+                      watchdog_iters=4,
+                      fault_plan=tserve.FaultPlan.parse("stall_chunk@1"))
+    assert (eng.watchdog_iters, len(eng.fault_plan)) == (4, 1)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ServeEngine(tlm, tparams, 2, 32, device="cpu", prefill_chunk=8,
+                    host_pages=8)
     with pytest.raises(TypeError, match="mesh"):
         ServeEngine(tlm, tparams, 2, 32, device="cpu", mesh=object())
 

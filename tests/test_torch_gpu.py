@@ -1,8 +1,10 @@
 """The port's hand-written kernels against their plain PyTorch versions on a
 CUDA card (``-m gpu``), the forward-only kernels' refusal of autograd, and a
 kernel-path train step against the plain path, the launch counts of a
-chunked served run, Autopilot's two probes on the card and the serving
-health loop around the CUDA-graph step.  Without a card every test
+chunked served run, Autopilot's two probes on the card, the serving
+health loop around the CUDA-graph step, K1 carrying a poisoned page's NaN
+to its victim only (``chip_smoke.py`` phase 5c's cases), and the poison
+mask and fault plans through the graph step.  Without a card every test
 here skips; the file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -1085,3 +1087,106 @@ def test_health_loop_keeps_the_graph_step():
     assert all(v == 1.0 for name, series in reg.snapshot().items()
                if name.startswith("autopilot") for v in series.values())
     assert reg.gauge("autopilot_serve_cache_invariants").get() == 1.0
+
+
+def _chip_smoke():
+    """The repo's ``chip_smoke.py`` as a module: its phase 5c K1 NaN cases
+    are the cases of the test below."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["mid", "split", "recycled"])
+@pytest.mark.parametrize("mode", ["native bf16", "native fp32", "int8",
+                                  "partials n=2"])
+def test_paged_decode_carries_a_poisoned_page_to_its_victim_only(mode,
+                                                                 where):
+    """K1 in every mode at the serve shape: a poisoned live page (mid-range,
+    or the only page of a split's range) makes every element of its
+    victim's row non-finite and leaves every other slot's row bitwise the
+    clean call's; NaN rows past a new owner's position (a recycled page)
+    are never read, so every row stays bitwise the clean call's."""
+    _card()
+    r = _chip_smoke().k1_nan_case(mode, where)
+    want = 0 if where == "recycled" else r["victim"]
+    assert r["victim_nonfinite"] == want, r
+    assert r["others_equal"], r
+
+
+def _poison_engine(graph, **kw):
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(),
+                              dtype="bfloat16")
+    lm = LM(cfg)
+    eng = ServeEngine(lm, lm.init(3, device="cuda"), max_batch=4,
+                      max_seq=64, page_size=8, device="cuda",
+                      cuda_graph=graph, **kw)
+    rng = np.random.default_rng(12)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, 6 + 5 * i)
+                    .astype(np.int32), max_new_tokens=12) for i in range(6)]
+    return eng, reqs
+
+
+@pytest.mark.gpu
+def test_graph_replay_with_poison_mask_equals_eager_bitwise():
+    """The nan_logits seam inside the graph: with the poison mask set on
+    two live slots one replay's (B, V) rows equal the eager step's on the
+    same static inputs, NaN for exactly those rows (tokens -1), the rest
+    finite; with the mask cleared the same graph gives finite rows."""
+    _card()
+    eng, reqs = _poison_engine(True)
+    for r in reqs[:4]:
+        eng.submit(r)
+    eng.step()
+    assert eng.active.all()
+    eng._poison.set(np.array([False, True, False, True]))
+    view = eng.kv.decode_view()
+    eager_rows, eager_tok = eng._decode(view)
+    rows, tok = (t.clone() for t in eng._replay(view))
+    assert torch.equal(torch.isnan(rows), torch.isnan(eager_rows))
+    assert torch.equal(rows.nan_to_num(0.0), eager_rows.nan_to_num(0.0))
+    assert bool(torch.isnan(rows[[1, 3]]).all())
+    assert bool(torch.isfinite(rows[[0, 2]]).all())
+    assert torch.equal(tok, eager_tok) and tok[[1, 3]].tolist() == [-1, -1]
+    eng._poison.set(False)
+    rows, tok = eng._replay(view)
+    assert bool(torch.isfinite(rows).all()) and bool((tok >= 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["nan_logits@2,poison_page@5",
+                                  "dispatch_error@3:dur=2"])
+def test_faulted_run_graph_equals_eager(plan):
+    """A fault plan through the graph step and eagerly (bf16, so the
+    recovered streams are not held to the fault-free run): the same
+    streams, statuses and fault counters, one replay per decode step and
+    the graph never recaptured."""
+    from repro_torch.serve import FaultPlan
+    _card()
+    out = []
+    for graph in (True, False):
+        eng, reqs = _poison_engine(graph, watchdog_iters=8,
+                                   verify_cache=True,
+                                   fault_plan=FaultPlan.parse(plan))
+        captured, replays = eng._graph, []
+
+        def counted(view, replay=eng._replay):
+            replays.append(1)
+            return replay(view)
+
+        eng._replay = counted
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run_until_drained()
+        decodes = eng.reg.counter("serve_decode_dispatches_total").get()
+        assert len(replays) == (decodes if graph else 0)
+        assert eng._graph is captured
+        out.append(({r.id: (r.status, r.out_tokens) for r in done},
+                    sorted(eng.reg.counter(
+                        "serve_stream_retries_total").labels_values())))
+    assert out[0] == out[1] and out[0][1]

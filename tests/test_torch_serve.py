@@ -26,8 +26,8 @@ from repro_torch.core import Autopilot, MetricsRegistry, SimCluster
 from repro_torch.core.health import _measure_gemm_gflops, _measure_h2d_gbps
 from repro_torch.models import LM
 from repro_torch.models.params import from_jax
-from repro_torch.serve import (NonFiniteLogitsError, Request, SamplingParams,
-                               ServeEngine, filtered_probs, sample_batch)
+from repro_torch.serve import (Request, SamplingParams, ServeEngine,
+                               filtered_probs, sample_batch)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -173,13 +173,39 @@ def test_sampling_draws_follow_filtered_distribution():
 
 
 def test_nonfinite_logits_raise():
-    _, _, _, _, tlm, tparams = setup()
+    """An all-NaN final norm makes every logit row non-finite.  No error is
+    raised any more: as in the JAX engine, each request is recovered by
+    recompute until its retries run out, then dead-lettered with the
+    reason on it; statuses, errors, retries and the fault counters equal
+    the JAX engine's."""
+    _, _, jparams, _, tlm, tparams = setup()
+    jlm = setup()[1]
     bad = {**tparams, "final_norm": {"scale": torch.full_like(
         tparams["final_norm"]["scale"], float("nan"))}}
-    eng = _port_engine(tlm, bad)
-    eng.submit(Request(0, np.arange(5, dtype=np.int32), max_new_tokens=3))
-    with pytest.raises(NonFiniteLogitsError):
-        eng.run_until_drained()
+    jbad = {**jparams, "final_norm": {"scale": jnp.full_like(
+        jparams["final_norm"]["scale"], jnp.nan)}}
+    out = []
+    for eng, make in ((_port_engine(tlm, bad, max_retries=2), Request),
+                      (JServeEngine(jlm, jbad, max_batch=4, max_seq=32,
+                                    page_size=4, num_pages=16,
+                                    max_retries=2), JRequest)):
+        for i in range(3):
+            eng.submit(make(i, np.arange(5 + i, dtype=np.int32),
+                            max_new_tokens=3))
+        done = eng.run_until_drained(max_iters=200)
+        out.append(([(r.id, r.status, r.error, r.retries, r.out_tokens)
+                     for r in sorted(done, key=lambda r: r.id)],
+                    eng.reg.counter("serve_stream_retries_total").get(
+                        {"reason": "nonfinite_logits"}),
+                    eng.reg.counter("serve_dead_letter_total").get(
+                        {"reason": "nonfinite_logits"}),
+                    eng.reg.gauge("serve_streams_quarantined").get()))
+    assert out[0] == out[1]
+    reqs, retries, dead, quarantined = out[0]
+    assert [r[1] for r in reqs] == ["dead_letter"] * 3
+    assert all(r[3] == 3 and r[4] == [] and "nonfinite_logits" in r[2]
+               for r in reqs)
+    assert (retries, dead, quarantined) == (9, 3, 0)
 
 
 def _run(code_or_args, **kw):
