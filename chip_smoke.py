@@ -136,6 +136,25 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    graph never recaptured, K1/K2/K3 launches exact, the two runs bitwise
    equal; preemptions, recoveries, a resume prefill's host ms, the step
    ms and TTFT by class reported;
+5d. the host-RAM page tier: (a) the JAX bench's prefix-hit workload
+   (``run_offload``) on phase 5's model, native and int8 pages: 4
+   prefixes of 480 tokens with 4-token tails, 6 new tokens, chunks of 32,
+   page 16, max_batch 4, a 128-page store; a cold engine serves the four
+   one at a time, a new engine on the same store serves them again; the
+   warm streams bitwise the cold ones, chunks, skips, hits, misses,
+   offload and prefetch bytes exact, one replay a decode step, launches
+   exact; TTFT cold and warm and the tier's D2H and H2D GB/s (CUDA
+   events) reported; (b) phase 5's workload with a 128-page tier
+   (native, int8, chunked): ``serve_runs``' gates, the tier offloaded and
+   hit, the decode step within 1.5x phase 5's native step; (c) the
+   hazards on the card with the stream held busy: a freed page claimed
+   at once by a chunked slot's ``extend`` and rewritten before the drain
+   still offloads its first bytes (a view-storing cache must fail), and
+   the host poisoning a store entry right after a prefetch from it leaves
+   the prefetched page clean (an unfenced prefetch reported); (d) the 10x
+   working-set soak at full width cut to 4 layers, fp32: drained, pages
+   in use within the pool, streams equal the tierless engine's (tie rule,
+   0 expected);
 6. training parity: full-width qwen3-4b cut to 2 layers, fp32, two train
    steps through K4 and K5 and through their plain versions; loss,
    grad_norm and every parameter agree to a relative max error of 1e-3;
@@ -191,7 +210,15 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    one sink page, and both ranks emit the same streams (how many equal
    phase 5's, the chunked run's against phase 5's chunked run, the pages
    each rank handed out, and the decode step time are reported); then the
-   gloo merge's time per layer.
+   gloo merge's time per layer; (d) a 2x2 batch x pages mesh: full-width
+   qwen3-4b cut to 4 layers, fp32, phase 5's prompts (16 new tokens)
+   whole-prompt, chunked, int8 and with a 128-page tier (whole and
+   chunked), on one card through the graph, then in four rank processes
+   (``--mesh2d-rank R --port P``, groups from the launcher's
+   ``join_pool_group``) over gloo: every rank's streams equal the single
+   card's (tie rule, 0 expected), each pool shard bitwise equal on its
+   two dp replicas, every rank's store the same and the single card's,
+   K1's partials mode 4 times a decode step.
 
 It then prints a ``kernels`` JSON line (K1's entries at the serve shape,
 with the long shape's numbers under ``long``), the card's name and power
@@ -1900,7 +1927,9 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
             replays=len(replays), stats=dataclasses.asdict(st),
             page_bytes=page_kv_bytes(cfg, 16, eng.kv.dtype, st.kv_dtype),
             capture_ms=gs.get("capture_ms"),
-            graph_pool_bytes=gs.get("pool_bytes"), **prof)
+            graph_pool_bytes=gs.get("pool_bytes"),
+            store=(eng.kv.store.stats()
+                   if getattr(eng.kv, "store", None) else None), **prof)
         del eng, done, reqs
     return out
 
@@ -2015,7 +2044,7 @@ def serve(report):
             f"{whole['stall_iters']:.0f} [{nvidia_smi_line()}]")
     one_step_checks(lm, params)
     chunk_attention_time()
-    return streams, runs["native"], (lm, params)
+    return streams, runs, (lm, params)
 
 
 def chunk_attention_time() -> None:
@@ -2597,6 +2626,426 @@ def faulted_serve(model, native_streams, native_run) -> None:
         "no chat admission preempted"
     log("[faults bf16 serve] the two runs' streams, statuses and counters "
         "are bitwise equal")
+
+
+# ------------------------------------------------------------ phase 5d ----
+
+def _serve_one(eng, rid, prompt, new_tokens=6):
+    """The JAX bench's ``serve_one``: one request alone through the
+    engine, then the drain (its prefix lands in the store now); returns
+    (TTFT ms on the host clock, its tokens)."""
+    from repro_torch.serve import Request
+    eng.submit(Request(rid, prompt.copy(), max_new_tokens=new_tokens))
+    n_done = len(eng.finished)
+    while len(eng.finished) == n_done:
+        eng.step()
+    eng.kv.drain_offloads()
+    r = eng.finished[-1]
+    return (r.first_token_at - r.submitted_at) * 1e3, tuple(r.out_tokens)
+
+
+def tier_rates(kv, pids, reps: int = 3) -> tuple:
+    """The host tier's copies timed with CUDA events over ``pids`` (live
+    pages of ``kv``): the offload's page copies into pinned page buffers
+    (D2H) and the prefetch's copies from pinned memory back into the same
+    pages (H2D, rewriting the bytes they hold), as ``_offload`` and
+    ``_prefetch`` issue them.  Returns (D2H GB/s, H2D GB/s), each the best
+    of ``reps``."""
+    bufs = [kv._page_buffer() for _ in pids]
+    views = [kv._page_views(b) for b in bufs]
+    pools = kv.state["layers"]
+    nbytes = len(pids) * kv.store.tier.page_bytes
+    best = {"d2h": 0.0, "h2d": 0.0}
+    for _ in range(reps):
+        for way in ("d2h", "h2d"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for pid, vs in zip(pids, views):
+                for name, pool in pools.items():
+                    if way == "d2h":
+                        vs[name].copy_(pool[:, pid], non_blocking=True)
+                    else:
+                        pool[:, pid].copy_(vs[name], non_blocking=True)
+            end.record()
+            end.synchronize()
+            best[way] = max(best[way],
+                            nbytes / (start.elapsed_time(end) * 1e-3) / 1e9)
+    return best["d2h"], best["h2d"]
+
+
+def prefix_hits(model) -> dict:
+    """(a) The JAX bench's prefix-hit workload (``run_offload`` phase 1) at
+    full width on phase 5's bf16 model: 4 prefixes of 480 tokens, each
+    prompt the prefix and a 4-token tail, 6 new tokens, chunks of 32, page
+    16, max_batch 4, max_seq 512, one 128-page ``PrefixStore``.  A cold
+    engine serves prefix 0 (its warm-up) and then prefixes 1-3 one at a
+    time (every chunk recomputed, 30 pages offloaded each); a new engine on
+    the same store serves prefix 0 and the same three prompts again (30
+    host hits each, prefetched; 15 of 16 chunks skipped).  Native and int8
+    pages.  Gates: the warm streams are bitwise the cold ones; chunks,
+    skips, hits, misses, offload and prefetch bytes exactly what the
+    prompts predict; one graph replay a decode step; K1, K2 and K3
+    launches exact on both engines.  Reported: TTFT cold and warm (median
+    of the three measured prompts), the tier's D2H and H2D GB/s by CUDA
+    events."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import PrefixStore, ServeEngine
+    lm, params = model
+    cfg = lm.cfg
+    L, norms = cfg.num_layers, cfg.num_layers * (2 + 2 * cfg.qk_norm) + 1
+    plen, chunk, page = 480, 32, 16
+    out = {}
+    for kv_dtype in ("native", "int8"):
+        tag = f"[tier prefix-hit {kv_dtype}]"
+        free()
+        rng = np.random.default_rng(17)
+        store = PrefixStore(128)
+
+        def prompt(prefix):
+            return np.concatenate([prefix, rng.integers(
+                0, cfg.vocab_size, 4).astype(np.int32)])
+
+        prefixes = [rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
+                    for _ in range(4)]
+        k1 = "paged_flash_decode" + ("_int8" if kv_dtype == "int8" else "")
+        runs = {}
+        for phase in ("cold", "warm"):
+            eng = ServeEngine(lm, params, 4, 512, page_size=page,
+                              device=DEV, prefill_chunk=chunk,
+                              prefix_store=store, kv_dtype=kv_dtype)
+            replays = []
+
+            def counted(view, replay=eng._replay):
+                replays.append(1)
+                return replay(view)
+
+            eng._replay = counted
+            before = store.stats()
+            ops.reset_launch_counts()
+            first = prompt(prefixes[0])
+            _serve_one(eng, 0, first)
+            if phase == "cold":
+                measured = [prompt(pre) for pre in prefixes[1:]]
+            ttft, streams = [], []
+            for k, p in enumerate(measured):
+                t, s = _serve_one(eng, 1 + k, p)
+                ttft.append(t)
+                streams.append(s)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            reg = eng.reg
+            decodes = reg.counter("serve_decode_dispatches_total").get()
+            iters = reg.counter("serve_iterations_total").get()
+            rounds = reg.counter("serve_prefill_dispatches_total").get()
+            chunks = reg.counter("serve_prefill_chunks_total").get()
+            skipped = reg.counter("serve_prefill_chunks_skipped_total").get()
+            after = store.stats()
+            delta = {k: after[k] - before[k] for k in after}
+            want = {name: 0 for name in launches}
+            want.update({k1: decodes * L,
+                         "rmsnorm_rows": (decodes + rounds) * norms})
+            assert launches == want, f"{tag} {phase} launches {launches} " \
+                f"vs {want}"
+            assert len(replays) == decodes == iters, \
+                f"{tag} {phase}: {len(replays)} replays, {decodes} decodes"
+            n_full = plen // page                      # 30 pages a prefix
+            n_chunks = -(-(plen + 4) // chunk)         # 16 chunks a prompt
+            pb = store.tier.page_bytes
+            if phase == "cold":
+                expect = dict(chunks=4 * n_chunks, skipped=0, hits=0,
+                              misses=4, offloads=4 * n_full,
+                              offload_bytes=4 * n_full * pb,
+                              prefetch_bytes=0)
+            else:
+                expect = dict(chunks=4, skipped=4 * (n_chunks - 1),
+                              hits=4 * n_full, misses=0, offloads=0,
+                              offload_bytes=0,
+                              prefetch_bytes=4 * n_full * pb)
+            got = dict(chunks=chunks, skipped=skipped, hits=delta["hits"],
+                       misses=delta["misses"], offloads=delta["offloads"],
+                       offload_bytes=delta["offload_bytes"],
+                       prefetch_bytes=delta["prefetch_bytes"])
+            log(f"{tag} {phase}: TTFT median {np.median(ttft):.1f} ms "
+                f"(prompts 1-3: {', '.join(f'{t:.1f}' for t in ttft)}), "
+                f"{got}; {decodes:.0f} decode steps = replays, launches "
+                f"exact {launches} [{nvidia_smi_line()}]")
+            assert got == expect, f"{tag} {phase}: {got} vs {expect}"
+            if phase == "warm":
+                same = streams == runs["cold"]["streams"]
+                log(f"{tag} warm streams bitwise the cold ones: {same}")
+                assert same, f"{tag} the warm streams differ from the cold"
+                d2h, h2d = tier_rates(eng.kv, list(range(1, n_full + 1)))
+                log(f"{tag} the tier's copies of {n_full} pages "
+                    f"({n_full * pb} B, {pb} B a page), CUDA events: D2H "
+                    f"{d2h:.2f} GB/s into pinned page buffers, H2D "
+                    f"{h2d:.2f} GB/s into the pools "
+                    f"[{nvidia_smi_line()}]")
+                runs["rates"] = (d2h, h2d)
+            runs[phase] = dict(ttft=float(np.median(ttft)), streams=streams,
+                               **got)
+            del eng
+        log(f"{tag} TTFT cold {runs['cold']['ttft']:.1f} ms vs warm "
+            f"{runs['warm']['ttft']:.1f} ms ({runs['cold']['ttft'] / runs['warm']['ttft']:.2f}x); "
+            f"store {store.pages_in_use()} pages, {store.bytes_in_use()} B "
+            f"of {store.bytes_total()} B pinned")
+        out[kv_dtype] = runs
+    return out
+
+
+def host_serve(model, native_streams, phase5_runs) -> None:
+    """(b) Phase 5's workload and weights with a 128-page host tier:
+    whole-prompt native and int8, chunked native (64, budget 128).
+    ``serve_runs`` gates each run (one graph replay per decode step,
+    launches exact, chunk counts with the prefetched pages as shared);
+    here the decode step must stay within 1.5x phase 5's step of the same
+    run without the tier in this call, and the tier must have offloaded,
+    and hit where the prompts land whole.  The streams against phase 5's
+    native ones are reported (a prefetched prefix holds the bytes of an
+    earlier batch's forward, a recompute those of its own)."""
+    lm, params = model
+    runs = serve_runs(lm, params, (
+        ("host", {"host_pages": 128}),
+        ("host-int8", {"host_pages": 128, "kv_dtype": "int8"}),
+        ("chunked-host", {"host_pages": 128, "prefill_chunk": 64,
+                          "prefill_budget": 128})),
+        "serve host", profile=False)
+    for label, base in (("host", "native"), ("host-int8", "int8"),
+                        ("chunked-host", "chunked")):
+        run, ref = runs[label], phase5_runs[base]
+        st = run["store"]
+        same = sum(run["streams"][i] == native_streams[i]
+                   for i in native_streams)
+        log(f"[serve {label}] store {st}; decode step {run['decode_ms']:.2f} "
+            f"ms vs phase 5's {base} {ref['decode_ms']:.2f} ms; "
+            f"{run['tok_s']:.1f} tok/s, TTFT p50 {run['ttft_ms']:.1f} ms "
+            f"(phase 5's {base} {ref['ttft_ms']:.1f}); {same}/16 streams "
+            f"equal phase 5's native (reported) [{nvidia_smi_line()}]")
+        # phase 5's chunked admissions find the shared prefix still on
+        # the device: the tier offloads there but need not hit
+        assert st["offloads"] > 0 and (st["hits"] > 0
+                                       or "chunked" in label), \
+            f"[serve {label}] the tier never engaged"
+        assert run["decode_ms"] <= 1.5 * ref["decode_ms"], \
+            f"[serve {label}] the decode step left phase 5's spread"
+
+
+def _view_cache():
+    """A ``PagedCache`` that keeps a view of a freed page, as JAX's slice is
+    taken, instead of copying it at ``free``: the faulty port the view
+    check must catch."""
+    from repro_torch.serve.kvcache import PagedCache
+
+    class ViewStoring(PagedCache):
+        def _offload(self, key, pid):
+            if self.store.has(key) or key in self._pending_keys:
+                self.store.touch(key)
+                return
+            self._pending_offload.append(
+                (key, {n: t[:, pid] for n, t in self.state["layers"].items()}))
+            self._pending_keys.add(key)
+
+        def drain_offloads(self):
+            for key, views in self._pending_offload:
+                self.store.put(key, views)
+            self._pending_offload.clear()
+            self._pending_keys.clear()
+
+    return ViewStoring
+
+
+def tier_hazards(variant: str = "port") -> dict:
+    """(c) The two hazards of the host tier on the card, at full width cut
+    to 2 layers (bf16 pools, page 16, random K/V blocks; the device stream
+    held busy by ``torch.cuda._sleep`` so that every copy is still queued
+    when the host moves on):
+    * view: prompt A (2 full pages) lands in slot 0 while prompt B (48
+      tokens) lands its first chunk in slot 1; slot 0 frees (A's pages
+      offload), B's ``extend`` claims A's pages at once and its next
+      chunks rewrite them before the drain.  The store must hold A's
+      bytes.
+    * fence: A is admitted again (its 2 pages prefetched from the store),
+      and the host poisons the two store entries at once.  The device
+      pages must hold A's bytes, not NaN.
+    ``variant`` "view" runs a cache that stores a view of the freed page,
+    "nofence" one whose prefetch fences nothing: each must fail its
+    check.  Returns {"view_holds_a", "view_holds_b", "fence_clean"}."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.kvcache import PagedCache
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=2)
+    cls = _view_cache() if variant == "view" else PagedCache
+    kv = cls(cfg, 3, 64, page_size=16, num_pages=8, device=DEV,
+             dtype=torch.bfloat16, host_pages=4)
+    if variant == "nofence":
+        kv.store.tier.fence = lambda event: None
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    shape = (cfg.num_layers, 1, 48, cfg.num_kv_heads, cfg.resolved_head_dim)
+    blocks = {w: {n: torch.randn(shape, generator=gen, device=DEV,
+                                 dtype=torch.bfloat16) for n in "kv"}
+              for w in "ab"}
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
+    b = rng.integers(0, cfg.vocab_size, 48).astype(np.int32)
+
+    def land(slot, w, start, end):
+        dest = kv.chunk_dest(slot, start, end, end - start)
+        kv.staged_write_prefill({n: t[:, :, start:end]
+                                 for n, t in blocks[w].items()},
+                                torch.as_tensor(dest[None], device=DEV))
+
+    def page_of(w, i):
+        return {n: t[:, 0, 16 * i:16 * (i + 1)] for n, t in blocks[w].items()}
+
+    assert kv.alloc(0, 48, prefix=a) == 0
+    land(0, "a", 0, 32)
+    assert kv.alloc_chunked(1, 48, 16, prefix=b) == 0
+    land(1, "b", 0, 16)
+    a_pages = list(kv._slot_pages[0][:2])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)             # the stream stays busy
+    kv.free(0)
+    assert kv.extend(1, 48)
+    land(1, "b", 16, 48)
+    b_pages = list(kv._slot_pages[1])
+    taken = [i for i in range(2) if a_pages[i] in b_pages]
+    assert taken, "the freed pages were not reclaimed at once"
+    kv.drain_offloads()
+    keys = [kv._key(a, i) for i in range(2)]
+    stored = [kv.store.lookup(k) for k in keys]
+    out = {"view_holds_a": all(
+        torch.equal(stored[i][n].to(DEV), page_of("a", i)[n])
+        for i in range(2) for n in "kv"),
+        "view_holds_b": all(
+        torch.equal(stored[i][n].to(DEV),
+                    page_of("b", b_pages.index(a_pages[i]))[n])
+        for i in taken for n in "kv")}
+    if variant == "view":
+        return out
+    kv.free(1)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    assert kv.alloc(2, 48, prefix=a) == 32     # both pages prefetched
+    for k in keys:
+        assert kv.store.poison(k)
+    torch.cuda.synchronize()
+    pages = kv._slot_pages[2][:2]
+    out["fence_clean"] = all(
+        torch.equal(kv.state["layers"][n][:, pages[i]], page_of("a", i)[n])
+        for i in range(2) for n in "kv")
+    return out
+
+
+def host_soak() -> None:
+    """(d) The JAX 10x working-set soak at full width cut to 4 layers, fp32
+    (random weights, seed 13): 20 distinct 12-token prefixes, 40 requests
+    arriving over 120 iterations, page 4, a 7-page pool (6 usable), max
+    batch 4, max_seq 32, a 64-page tier, through the graph.  Gates: it
+    drains, ``serve_kv_pages_in_use`` never exceeds the pool, the tier hit,
+    one replay a decode step, and every stream equals the same engine's
+    without a tier (a first difference allowed only at a top-2 gap below
+    1e-4, counted, 0 expected)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve import Request, ServeEngine
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=4,
+                              dtype="float32")
+    lm = LM(cfg)
+    params = lm.init(13, device=DEV)
+    rng = np.random.default_rng(53)
+    prefixes = [rng.integers(0, cfg.vocab_size, 12).astype(np.int32)
+                for _ in range(20)]
+    reqs = []
+    for i in range(40):
+        tail = rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(1, 3))).astype(np.int32)
+        reqs.append((i, np.concatenate([prefixes[i % 20], tail]),
+                     int(rng.integers(2, 5))))
+    arrivals: dict = {}
+    for idx in rng.permutation(len(reqs)):
+        arrivals.setdefault(int(rng.integers(0, 120)), []).append(reqs[idx])
+    out = {}
+    t0 = time.perf_counter()
+    for host in (64, 0):
+        eng = ServeEngine(lm, params, 4, 32, page_size=4, num_pages=7,
+                          device=DEV, host_pages=host)
+        replays = []
+
+        def counted(view, replay=eng._replay):
+            replays.append(1)
+            return replay(view)
+
+        eng._replay = counted
+        total = eng.kv.memory_stats().pages_total
+        gauge = eng.reg.gauge("serve_kv_pages_in_use")
+        peak = 0
+        for step in range(400):
+            for i, p, n in arrivals.get(step, []):
+                eng.submit(Request(i, p.copy(), max_new_tokens=n))
+            eng.step()
+            peak = max(peak, gauge.get())
+            assert 0 <= gauge.get() <= total, step
+        done = eng.run_until_drained(max_iters=2000)
+        assert len(done) == 40 and all(r.status == "completed" for r in done)
+        decodes = eng.reg.counter("serve_decode_dispatches_total").get()
+        assert len(replays) == decodes
+        out[host] = ({r.id: r.out_tokens for r in done},
+                     eng.kv.store.stats() if host else None, peak, decodes)
+    streams, stats, peak, decodes = out[64]
+    ties = 0
+    for i, toks in streams.items():
+        ref = out[0][0][i]
+        if toks == ref:
+            continue
+        t = next(k for k in range(len(toks)) if toks[k] != ref[k])
+        prompt = next(p for j, p, _ in reqs if j == i)
+        seq = np.concatenate([prompt, np.asarray(toks[:t], np.int32)])
+        with torch.no_grad():
+            logits, _ = lm.forward(params, torch.as_tensor(
+                seq, device=DEV)[None].long())
+        top2 = logits[0, -1, :cfg.vocab_size].topk(2).values
+        gap = float(top2[0] - top2[1])
+        log(f"[tier soak] request {i} first differs at token {t}, top-2 "
+            f"gap {gap:.3e}")
+        assert gap < 1e-4, f"[tier soak] request {i} diverged"
+        ties += 1
+    log(f"[tier soak] fp32 4 layers, 40 requests over 20 prefixes (60 "
+        f"prefix pages vs a 6-page pool): drained, pages in use peaked at "
+        f"{peak:.0f} of 6, {decodes:.0f} decode steps = replays, store "
+        f"{stats}; streams equal the tierless engine's, {ties} only by the "
+        f"tie rule (0 expected); {time.perf_counter() - t0:.1f}s "
+        f"[{nvidia_smi_line()}]")
+    assert stats["hits"] > 0 and ties == 0
+
+
+def host_tier(model, native_streams, phase5_runs) -> dict:
+    """Phase 5d: (a) ``prefix_hits``, (b) ``host_serve``, (c) the hazards,
+    each with the faulty variant that must fail it, (d) ``host_soak``."""
+    t0 = time.perf_counter()
+    hits = prefix_hits(model)
+    free()
+    host_serve(model, native_streams, phase5_runs)
+    free()
+    port = tier_hazards()
+    view = tier_hazards("view")
+    nofence = tier_hazards("nofence")
+    log(f"[tier hazards] port: store holds A {port['view_holds_a']} (B "
+        f"{port['view_holds_b']}), prefetched pages clean after the host "
+        f"poisoned the store {port['fence_clean']}; a view-storing cache: "
+        f"holds A {view['view_holds_a']}, B {view['view_holds_b']}; an "
+        f"unfenced prefetch: pages clean {nofence['fence_clean']}")
+    assert port == {"view_holds_a": True, "view_holds_b": False,
+                    "fence_clean": True}, port
+    assert view["view_holds_b"] and not view["view_holds_a"], \
+        "the view hazard did not show: the check proves nothing"
+    if nofence["fence_clean"]:
+        log("[tier hazards] the unfenced prefetch read clean bytes: the "
+            "copy landed before the host wrote (reported)")
+    free()
+    host_soak()
+    free()
+    log(f"phase 5d took {time.perf_counter() - t0:.1f}s")
+    return hits
 
 
 # ------------------------------------------------------------- phase 6 ----
@@ -3384,6 +3833,190 @@ def rank_main(rank: int, n: int, port: int) -> int:
     return 0
 
 
+# the 2x2 mesh: full width cut to 4 layers, fp32, phase 5's prompts
+MESH2D_RUNS = (("whole", {}), ("chunked", {"prefill_chunk": 64,
+                                           "prefill_budget": 128}),
+               ("int8", {"kv_dtype": "int8"}),
+               ("host", {"host_pages": 128}),
+               ("chunked-host", {"host_pages": 128, "prefill_chunk": 64,
+                                 "prefill_budget": 128}))
+
+
+def _mesh2d_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=4,
+                              dtype="float32")
+    lm = LM(cfg)
+    return lm, lm.init(13, device=DEV)
+
+
+def _mesh2d_serve(lm, params, kw, **groups) -> dict:
+    """One of the 2x2 runs: phase 5's 16 prompts, 16 new tokens each, max
+    batch 8, max_seq 512, page 16, through an engine with ``kw`` (and the
+    rank's groups).  Returns its streams, store, decode steps, K1 launches
+    and a digest of its pool pages, scratch and sink pages left out."""
+    import hashlib
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(lm, params, 8, 512, page_size=16, device=DEV, **groups,
+                      **kw)
+    ops.reset_launch_counts()
+    for i, p in enumerate(serve_prompts(lm.cfg)):
+        eng.submit(Request(i, p, max_new_tokens=16))
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert len(done) == 16 and all(r.status == "completed" for r in done)
+    # the pages a request can own: not scratch page 0, whose row 0 takes
+    # every parked slot's and padding position's write at once (duplicate
+    # indices, in no set order), nor a shard's sink page
+    kv = eng.kv
+    lo = 1 if kv.pool_group is None or kv.pool_group.rank == 0 else 0
+    digest = hashlib.sha256()
+    for t in kv.state["layers"].values():
+        digest.update(t[:, lo:kv.pages_per_chip].contiguous()
+                      .view(torch.uint8).cpu().numpy().tobytes())
+    store = eng.kv.store
+    out = dict(streams={r.id: r.out_tokens for r in done},
+               pools=digest.hexdigest(), launches=ops.launch_counts(),
+               decodes=eng.reg.counter(
+                   "serve_decode_dispatches_total").get(), wall=wall)
+    if store is not None:
+        slabs = hashlib.sha256()
+        for t in store.tier._slabs.values():
+            slabs.update(t.view(torch.uint8).numpy().tobytes())
+        keys = hashlib.sha256(b"".join(
+            len(k).to_bytes(4, "little") + k for k in store.keys()))
+        out["store"] = [store.stats(), keys.hexdigest(), slabs.hexdigest()]
+    return out
+
+
+def mesh2d_ranks(timeout_s: float = 600.0) -> None:
+    """Phase 10 (d): the 2x2 batch x pages mesh.  This process serves
+    ``MESH2D_RUNS`` on one card (graph replays) as the reference; then
+    four rank processes of this script (``--mesh2d-rank R --port P``) on
+    this card over gloo, rank r at (r // 2, r % 2), groups from the
+    launcher's ``join_pool_group``, serve them eagerly: the pool split over
+    a row's two ranks and replicated over the two rows, each row attending
+    half the batch, the outputs all_gathered over the column.  Gates: every
+    rank emits the same streams, equal to the single card's (a first
+    difference allowed only at a top-2 gap below 1e-4, counted, 0
+    expected); each pool shard is bitwise equal on its two dp replicas;
+    every rank's store equals the others' (stats, key order, slab bytes)
+    and the single card's (stats, a digest of the keys in order); each
+    rank launches K1's
+    partials mode 4 times a decode step and the normalized mode never."""
+    lm, params = _mesh2d_model()
+    t0 = time.perf_counter()
+    ref = {label: _mesh2d_serve(lm, params, kw) for label, kw in MESH2D_RUNS}
+    log(f"[2x2] single-card reference runs in "
+        f"{time.perf_counter() - t0:.1f}s")
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh2d-rank",
+         str(r), "--port", str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=ROOT) for r in range(4)]
+    outs = [""] * 4
+    try:
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for r, p in enumerate(procs):
+            outs[r] = p.communicate()[0]
+            for line in outs[r].splitlines():
+                if not line.startswith("RESULT "):
+                    log(f"[2x2 rank {r}] {line}")
+    codes = [p.returncode for p in procs]
+    assert codes == [0] * 4, f"2x2 ranks exited with {codes}"
+    results = [json.loads(next(l for l in out.splitlines()
+                               if l.startswith("RESULT "))[7:])
+               for out in outs]
+    prompts = serve_prompts(lm.cfg)
+    ties = 0
+    for label, _ in MESH2D_RUNS:
+        runs = [r[label] for r in results]
+        assert all(run["streams"] == runs[0]["streams"] for run in runs), \
+            f"[2x2 {label}] the ranks' streams differ"
+        assert runs[0]["pools"] == runs[2]["pools"] \
+            and runs[1]["pools"] == runs[3]["pools"], \
+            f"[2x2 {label}] a pool shard differs between its dp replicas"
+        k1 = "paged_flash_decode_partials" + (
+            "_int8" if label == "int8" else "")
+        for run in runs:
+            want = run["decodes"] * lm.cfg.num_layers
+            assert run["launches"][k1] == want and \
+                run["launches"]["paged_flash_decode"] == 0, \
+                f"[2x2 {label}] K1 launches {run['launches']}"
+        if "store" in runs[0]:
+            assert all(run["store"] == runs[0]["store"] for run in runs), \
+                f"[2x2 {label}] the ranks' stores differ"
+            assert runs[0]["store"][:2] == ref[label]["store"][:2], \
+                f"[2x2 {label}] the store differs from the single card's"
+            # whole-prompt admissions hit the tier; phase 5's chunked ones
+            # find the shared prefix still on the device
+            st = runs[0]["store"][0]
+            assert st["offloads"] > 0 and (st["hits"] > 0
+                                           or "chunked" in label), st
+        for i, toks in runs[0]["streams"].items():
+            want = ref[label]["streams"][int(i)]
+            if toks == want:
+                continue
+            t = next(k for k in range(len(toks)) if toks[k] != want[k])
+            seq = np.concatenate([prompts[int(i)],
+                                  np.asarray(toks[:t], np.int32)])
+            with torch.no_grad():
+                logits, _ = lm.forward(params, torch.as_tensor(
+                    seq, device=DEV)[None].long())
+            top2 = logits[0, -1, :lm.cfg.vocab_size].topk(2).values
+            gap = float(top2[0] - top2[1])
+            log(f"[2x2 {label}] request {i} first differs at token {t}, "
+                f"top-2 gap {gap:.3e}")
+            assert gap < 1e-4, f"[2x2 {label}] request {i} diverged"
+            ties += 1
+        log(f"[2x2 {label}] 4 ranks agree, streams equal the single card's, "
+            f"shards equal on their dp replicas"
+            + (f", stores equal everywhere ({runs[0]['store'][0]})"
+               if "store" in runs[0] else "")
+            + f"; {runs[0]['decodes']:.0f} eager decode steps in "
+            f"{runs[0]['wall']:.2f}s on rank 0 (single card, graph: "
+            f"{ref[label]['wall']:.2f}s) [{nvidia_smi_line()}]")
+    log(f"[2x2] streams equal only by the tie rule: {ties} (0 expected)")
+    assert ties == 0, "a 2x2 stream equals the single card's only by the " \
+        "tie rule"
+
+
+def mesh2d_main(rank: int, port: int) -> int:
+    """One rank of phase 10 (d): the 2x2 mesh's groups through
+    ``repro_torch.launch.serve.join_pool_group`` (gloo, this card), then
+    ``MESH2D_RUNS``."""
+    import os
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.serve import join_pool_group
+    os.environ.update(RANK=str(rank), WORLD_SIZE="4",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    group, dp_group, dev = join_pool_group(2, 2, DEV)
+    assert dist.get_backend() == "gloo" and dev.type == "cuda"
+    lm, params = _mesh2d_model()
+    out = {label: _mesh2d_serve(lm, params, kw, pool_group=group,
+                                dp_group=dp_group)
+           for label, kw in MESH2D_RUNS}
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
 # ----------------------------------------------------------------- main ----
 
 def free() -> None:
@@ -3468,7 +4101,8 @@ def main() -> int:
 
     phase("5 serve full-width qwen3-4b bf16 through the CUDA-graph step: "
           "native, int8, eager, contiguous")
-    phase5_streams, native_run, model = serve(report)
+    phase5_streams, phase5_runs, model = serve(report)
+    native_run = phase5_runs["native"]
     free()
 
     phase("5b infrastructure: Autopilot's probes on the card, then phase "
@@ -3483,6 +4117,11 @@ def main() -> int:
     fp32_recovery()
     free()
     faulted_serve(model, phase5_streams["native"], native_run)
+    free()
+
+    phase("5d host-RAM page tier: the prefix-hit workload cold and warm, "
+          "phase 5's workload with the tier, the hazards, the soak")
+    host_tier(model, phase5_streams["native"], phase5_runs)
     del model
     free()
 
@@ -3503,10 +4142,14 @@ def main() -> int:
     recurrent_eval(report)
 
     phase("10 sharded pools: K1 partials, then full-width qwen3-4b on 2 "
-          "ranks of this card over gloo")
+          "ranks of this card over gloo, then a 2x2 batch x pages mesh of "
+          "4 ranks")
     check_k1_partials(report)
     free()
     sharded_ranks(report, phase5_streams)
+    free()
+    mesh2d_ranks()
+    free()
 
     csrc = "src/repro_torch/csrc/"
     meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",
@@ -3560,6 +4203,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh2d-rank" in sys.argv:
+        argv = sys.argv[1:]
+        opt = {argv[i]: int(argv[i + 1]) for i in range(0, len(argv), 2)}
+        sys.exit(mesh2d_main(opt["--mesh2d-rank"], opt["--port"]))
     if "--sharded-rank" in sys.argv:
         argv = sys.argv[1:]
         opt = {argv[i]: int(argv[i + 1]) for i in range(0, len(argv), 2)}

@@ -14,6 +14,10 @@ the fused decode step per iteration.
         --fault-plan nan_logits@3,poison_page@5 --watchdog-iters 8
     python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.serve --device cpu --reduced --mesh 2
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.serve --device cpu --reduced --mesh 2x2
+    python -m repro_torch.launch.serve --device cpu --reduced --page-size 4 \
+        --host-pages 64 --prefix-store --prefill-chunk 8
 
 It prints the same summary lines as ``repro.launch.serve``, and, as it
 does, the alerts that fired: the engine runs the serve light checks and the
@@ -29,12 +33,24 @@ requests are the JAX launcher's (``draw_requests``); ``serve`` takes a
 parameter tree, so the same run can serve other weights
 (``repro_torch.models.params.from_jax``).
 
+``--host-pages N`` puts an N-page host-RAM tier behind the pool: a shared
+prefix page spills to pinned host memory when its last sharer frees it,
+and a later admission that hits it copies it back instead of recomputing
+it.  ``--prefix-store`` serves the workload once through a warm-up engine
+and then again through a new engine on the same store, so the reported
+pass admits against a warm tier; the summary adds a host-tier line.
+
 ``--mesh N`` splits the KV pool over N ranks (the 1-D form of the JAX
-``--mesh N``), one process per rank under ``torch.distributed.run``, which
-sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
-``MASTER_PORT``.  The backend is ``nccl`` with one card per rank where
-there are N cards, else ``gloo`` (the CPU, or ranks sharing one card).
-Rank 0 prints the summary.
+``--mesh N``); ``--mesh DxM`` (also ``D,M`` and ``dp=D,model=M``) runs a
+2-D batch x pages mesh of D·M ranks: rank r sits at (r // M, r % M), the
+pool is split over the M ranks of its row and replicated across the D rows,
+whose replicas split each attention's batch rows.  One process per rank
+under ``torch.distributed.run``, which sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``.  The backend is
+``nccl`` with one card per rank where there are that many cards, else
+``gloo`` (the CPU, or ranks sharing one card).  Rank 0 prints the summary.
+With the host tier, every rank keeps its own copy of the store (host RAM
+is the ranks' count times the tier).
 """
 from __future__ import annotations
 
@@ -56,36 +72,48 @@ from repro_torch.core.telemetry import MetricsRegistry
 from repro_torch.models import LM
 from repro_torch.models.common import resolve_device
 from repro_torch.parallel import PoolGroup
-from repro_torch.serve import (FaultPlan, Request, SamplingParams,
-                               ServeEngine, TenancyConfig)
+from repro_torch.serve import (FaultPlan, PrefixStore, Request,
+                               SamplingParams, ServeEngine, TenancyConfig)
 
 
-def parse_mesh(spec: str) -> int:
-    """``--mesh``: ``N`` ranks for a 1-D pool split (``0``: one process, no
-    split).  The JAX launcher's 2-D forms (``DxM``, ``D,M``,
-    ``dp=D,model=M``) are not ported."""
+def parse_mesh(spec: str):
+    """``--mesh`` as the JAX launcher parses it: ``N`` -> (0, N), a 1-D
+    split over N ranks; ``DxM``, ``D,M`` or ``dp=D,model=M`` -> (D, M), a
+    2-D batch x pages mesh; ``0`` -> (0, 0), one process."""
     spec = spec.strip().lower()
-    if any(sep in spec for sep in ("x", ",", "=")):
-        raise NotImplementedError(
-            f"--mesh {spec}: 2-D batch x pages meshes (dp_axis) are not "
-            "ported; ROADMAP Queue 1 item 14 lists them as open")
-    return int(spec)
+    if "=" in spec:
+        kv = dict(part.split("=", 1) for part in spec.split(","))
+        unknown = set(kv) - {"dp", "model"}
+        if unknown:
+            raise SystemExit(f"--mesh: unknown axes {sorted(unknown)} "
+                             "(expected dp=D,model=M)")
+        return int(kv.get("dp", 1)), int(kv["model"])
+    for sep in ("x", ","):
+        if sep in spec:
+            d, m = spec.split(sep, 1)
+            return int(d), int(m)
+    return 0, int(spec)
 
 
-def join_pool_group(n: int, device: str):
+def join_pool_group(dp: int, m: int, device: str):
     """Join the ``torch.distributed`` group that ``torch.distributed.run``
-    describes in the environment; returns (PoolGroup, this rank's device).
-    ``nccl`` with one card per rank when there are ``n`` cards, else
-    ``gloo``, every rank on card 0 (or the CPU)."""
+    describes in the environment; returns (PoolGroup, dp group or ``None``,
+    this rank's device).  A 2-D mesh (``dp`` > 0) of dp·m ranks puts rank r
+    at (r // m, r % m): its model group (same row) splits the pool, its dp
+    group (same column) the batch rows.  ``nccl`` with one card per rank
+    when there are that many cards, else ``gloo``, every rank on card 0
+    (or the CPU)."""
     env = os.environ
+    n = dp * m if dp else m
+    spec = f"{dp}x{m}" if dp else f"{m}"
     if not all(k in env for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
                                   "MASTER_PORT")):
-        raise SystemExit(f"--mesh {n} runs one process per rank: launch it "
-                         f"with python -m torch.distributed.run "
+        raise SystemExit(f"--mesh {spec} runs one process per rank: launch "
+                         f"it with python -m torch.distributed.run "
                          f"--nproc-per-node {n} -m repro_torch.launch.serve")
     rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
     if world != n:
-        raise SystemExit(f"--mesh {n} but WORLD_SIZE is {world}")
+        raise SystemExit(f"--mesh {spec} but WORLD_SIZE is {world}")
     dev = resolve_device(device)
     backend = "gloo"
     if dev.type == "cuda" and torch.cuda.device_count() >= n:
@@ -95,7 +123,13 @@ def join_pool_group(n: int, device: str):
     dist.init_process_group(
         backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
         rank=rank, world_size=world, timeout=timedelta(minutes=10))
-    return PoolGroup.of(), dev
+    if not dp:
+        return PoolGroup.of(), None, dev
+    # every rank creates every group, in the same order
+    rows = [dist.new_group([d * m + j for j in range(m)]) for d in range(dp)]
+    cols = [dist.new_group([d * m + j for d in range(dp)]) for j in range(m)]
+    return (PoolGroup(rows[rank // m], rank % m, m),
+            PoolGroup(cols[rank % m], rank // m, dp), dev)
 
 
 def parse_args(argv=None):
@@ -144,11 +178,15 @@ def parse_args(argv=None):
                     help="max prefill tokens per engine iteration (>= one "
                          "chunk; default: one chunk), the bound on how long "
                          "a decode iteration waits on prefill")
-    ap.add_argument("--mesh", default="0", metavar="N",
+    ap.add_argument("--mesh", default="0", metavar="N|DxM",
                     help="split the KV pool over N ranks (run under "
                          "python -m torch.distributed.run --nproc-per-node "
                          "N): each rank pins P/N pages and merges the "
-                         "ranks' decode partials; 0 = one process")
+                         "ranks' decode partials.  'DxM' / 'D,M' / "
+                         "'dp=D,model=M': a 2-D batch x pages mesh of D*M "
+                         "ranks, the pool split over M and replicated "
+                         "across D replicas, which split each attention's "
+                         "batch rows; 0 = one process")
     ap.add_argument("--tenants", default="", metavar="N=CLS,...",
                     help="multi-tenant serving: comma-separated name=class "
                          "tenants (classes: interactive, admitted first and "
@@ -185,9 +223,19 @@ def parse_args(argv=None):
                          "dead-lettered (the error on the request, its "
                          "neighbours untouched)")
     ap.add_argument("--host-pages", type=int, default=0, metavar="N",
-                    help="the host-RAM page tier of the JAX launcher; not "
-                         "ported (ROADMAP Queue 1 item 13), so any N > 0 "
-                         "raises")
+                    help="host-RAM page tier: a shared prefix page spills "
+                         "to one of N pinned host page buffers when its "
+                         "last device reference drops, and an admission "
+                         "that hits the stored prefix copies the pages back "
+                         "instead of recomputing them (with --prefill-chunk "
+                         "the chunks they cover skip their forward).  Needs "
+                         "the paged backend and prefix sharing; 0 = off")
+    ap.add_argument("--prefix-store", action="store_true",
+                    help="persistent prefix store: serve the workload "
+                         "through a warm-up engine first, then through a "
+                         "new engine on the same store, so the reported "
+                         "pass admits against a warm host tier.  Needs "
+                         "--host-pages")
     ap.add_argument("--verify-cache", action="store_true",
                     help="debug mode: run the PagedCache.verify() "
                          "invariant sanitizer (refcounts, free lists, page "
@@ -197,12 +245,15 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    n = parse_mesh(args.mesh)
-    pool_group, device = None, args.device
-    if n:
-        pool_group, device = join_pool_group(n, args.device)
+    if args.prefix_store and not args.host_pages:
+        raise SystemExit("--prefix-store persists the host tier across "
+                         "engines; size it with --host-pages N")
+    dp, m = parse_mesh(args.mesh)
+    pool_group, dp_group, device = None, None, args.device
+    if m:
+        pool_group, dp_group, device = join_pool_group(dp, m, args.device)
     try:
-        serve(args, pool_group, device)
+        serve(args, pool_group, device, dp_group=dp_group)
     finally:
         if pool_group is not None:
             dist.destroy_process_group()
@@ -228,9 +279,11 @@ def draw_requests(args, vocab_size: int,
     return reqs
 
 
-def serve(args, pool_group, device, params=None):
+def serve(args, pool_group, device, params=None, dp_group=None):
     """Serve ``draw_requests`` and print the summary (rank 0); ``params``
-    defaults to random weights from seed 0.  Returns the engine."""
+    defaults to random weights from seed 0.  With ``--prefix-store`` a
+    warm-up engine serves the requests first on the same store.  Returns
+    the engine."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
@@ -250,26 +303,53 @@ def serve(args, pool_group, device, params=None):
     slack = SlackSink()
     alerts = AlertManager(reg, sinks=[slack, LogSink()],
                           rules=DEFAULT_RULES + SERVE_RULES)
-    eng = ServeEngine(lm, params, args.max_batch, args.max_seq,
-                      page_size=args.page_size, num_pages=args.num_pages,
-                      prefix_sharing=not args.no_prefix_sharing,
-                      device=device, kv_dtype=args.kv_dtype,
-                      decode_impl=args.decode_impl, pool_group=pool_group,
-                      cache_backend=args.cache_backend,
-                      prefill_chunk=args.prefill_chunk,
-                      prefill_budget=args.prefill_budget, registry=reg,
-                      tenancy=tenancy, fault_plan=fault_plan,
-                      watchdog_iters=args.watchdog_iters,
-                      max_retries=args.max_retries,
-                      verify_cache=args.verify_cache, alerts=alerts,
-                      host_pages=args.host_pages)
+    store = PrefixStore(args.host_pages) if args.host_pages else None
+
+    def build_engine(registry, with_alerts=True):
+        return ServeEngine(lm, params, args.max_batch, args.max_seq,
+                           page_size=args.page_size, num_pages=args.num_pages,
+                           prefix_sharing=not args.no_prefix_sharing,
+                           device=device, kv_dtype=args.kv_dtype,
+                           decode_impl=args.decode_impl,
+                           pool_group=pool_group, dp_group=dp_group,
+                           cache_backend=args.cache_backend,
+                           prefill_chunk=args.prefill_chunk,
+                           prefill_budget=args.prefill_budget,
+                           registry=registry, tenancy=tenancy,
+                           fault_plan=fault_plan,
+                           watchdog_iters=args.watchdog_iters,
+                           max_retries=args.max_retries,
+                           verify_cache=args.verify_cache,
+                           alerts=alerts if with_alerts else None,
+                           prefix_store=store)
+
     tenant_names = sorted(tenancy.tenants) if tenancy else []
+    rank0 = pool_group is None or (
+        pool_group.rank == 0 and (dp_group is None or dp_group.rank == 0))
+    if args.prefix_store:
+        # the warm-up engine: same workload, its own registry, the SAME
+        # store, whose pages outlive it
+        warm = build_engine(MetricsRegistry(), with_alerts=False)
+        t0 = time.perf_counter()
+        for req in draw_requests(args, cfg.vocab_size, tenant_names):
+            warm.submit(req)
+        warm.run_until_drained(on_stuck="status")
+        cold_ttft = warm.reg.histogram(
+            "serve_ttft_seconds").quantile(0.5) * 1e3
+        if rank0:
+            print(f"warmup pass: {time.perf_counter()-t0:.1f}s, TTFT p50 "
+                  f"{cold_ttft:.0f}ms, {store.pages_in_use()} prefix pages "
+                  f"now host-resident; rebuilding engine on the warm store")
+        del warm
+    eng = build_engine(reg)
     t0 = time.perf_counter()
     for req in draw_requests(args, cfg.vocab_size, tenant_names):
         eng.submit(req)
     done = eng.run_until_drained(on_stuck="status")
     wall = time.perf_counter() - t0
-    if pool_group is not None and pool_group.rank != 0:
+    # every rank settles its offloads (a collective over a split pool)
+    st = eng.kv.memory_stats()
+    if not rank0:
         return eng
     total_tokens = sum(len(r.out_tokens) for r in done)
     iters = reg.counter("serve_iterations_total").get()
@@ -289,7 +369,6 @@ def serve(args, pool_group, device, params=None):
           f"p95 {ttft.quantile(0.95)*1e3:.0f}ms")
     print(f"latency p50 "
           f"{reg.histogram('serve_latency_seconds').quantile(0.5):.2f}s")
-    st = eng.kv.memory_stats()
     deferred = reg.counter("serve_admission_deferred_total").get()
     pf_h = reg.histogram("serve_prefill_batch_size")
     sharded = ""
@@ -297,6 +376,8 @@ def serve(args, pool_group, device, params=None):
         sharded = (f", sharded over {st.mesh_chips} ranks "
                    f"({st.bytes_per_chip/1e6:.2f} MB/rank + "
                    f"{st.bytes_sink_per_chip/1e6:.2f} MB sink page)")
+        if dp_group is not None:
+            sharded += f", replicated over {dp_group.size} dp replicas"
     paged = st.backend == "paged"
     print(f"kv cache [{st.backend}]: {st.bytes_total/1e6:.2f} MB pinned"
           + (f", {st.pages_total} pages of {st.page_size}" if paged else "")
@@ -316,6 +397,18 @@ def serve(args, pool_group, device, params=None):
               f"{saved/1e6:.2f} MB saved vs {dense} pages "
               f"({(st.bytes_total + saved)/max(st.bytes_total, 1):.2f}x "
               f"positions per byte)")
+    if args.host_pages:
+        hits = reg.counter("serve_prefix_store_hits_total").get()
+        misses = reg.counter("serve_prefix_store_misses_total").get()
+        off_b = reg.counter("serve_host_offload_bytes_total").get()
+        pre_b = reg.counter("serve_host_prefetch_bytes_total").get()
+        print(f"host tier [{args.host_pages} pages"
+              + (", persistent store" if args.prefix_store else "")
+              + f"]: {st.host_pages_in_use} resident "
+              f"({st.host_bytes/1e6:.2f} MB host RAM), "
+              f"{hits:.0f} page hits / {misses:.0f} misses, "
+              f"{off_b/1e6:.2f} MB offloaded, {pre_b/1e6:.2f} MB "
+              f"prefetched")
     if args.prefill_chunk:
         chunks = reg.counter("serve_prefill_chunks_total").get()
         stalls = reg.counter("serve_prefill_chunk_stalls_total").get()

@@ -283,7 +283,8 @@ def _scatter_chunk_paged(pool, new, dest):
 def attention_prefill_chunk_block(p, cfg, x, k_pool, v_pool, start_pos, dest,
                                   page_table, last_pos,
                                   norm_impl: str = "kernel", k_scale=None,
-                                  v_scale=None, pool_group=None):
+                                  v_scale=None, pool_group=None,
+                                  dp_group=None):
     """One layer of chunked prefill (the JAX
     ``attention_prefill_chunk_block``): a (B, C) chunk at per-request
     offsets ``start_pos`` (B,) writes its K/V into the pools in place at
@@ -296,8 +297,8 @@ def attention_prefill_chunk_block(p, cfg, x, k_pool, v_pool, start_pos, dest,
     and the gathered view is dequantized, so a chunk reads its own rows as
     a later decode step will.  With ``pool_group`` the write and the
     attention go through
-    ``repro_torch.parallel.pagedkv.sharded_prefill_chunk_attention``.
-    Returns y (B, C, d)."""
+    ``repro_torch.parallel.pagedkv.sharded_prefill_chunk_attention``
+    (``dp_group``: its 2-D mesh's dp group).  Returns y (B, C, d)."""
     qpos = start_pos.long()[:, None] + torch.arange(x.shape[1],
                                                     device=x.device)
     q, k, v = project_qkv(p, cfg, x, qpos, norm_impl)
@@ -306,7 +307,7 @@ def attention_prefill_chunk_block(p, cfg, x, k_pool, v_pool, start_pos, dest,
             sharded_prefill_chunk_attention
         y = sharded_prefill_chunk_attention(
             pool_group, q, k, v, dest, k_pool, v_pool, page_table, qpos,
-            last_pos, k_scale=k_scale, v_scale=v_scale)
+            last_pos, k_scale=k_scale, v_scale=v_scale, dp_group=dp_group)
         return output_proj(p, cfg, y)
     if k_scale is not None:
         k, sk = quantize_kv(k)
@@ -473,7 +474,7 @@ def merge_paged_partials(acc, l, m, pool_group):
 def attention_decode_block(p, cfg, x, k_pool, v_pool, positions,
                            page_table=None, decode_impl: str = "kernel",
                            norm_impl: str = "kernel", k_scale=None,
-                           v_scale=None, pool_group=None):
+                           v_scale=None, pool_group=None, dp_group=None):
     """One-token decode at per-slot (B,) positions.  x (B, 1, d).  The new
     K/V row is written into the pools (in place) before attending, and the
     slot attends to its own position too.  With int8 pools (``k_scale``/
@@ -482,7 +483,8 @@ def attention_decode_block(p, cfg, x, k_pool, v_pool, positions,
     from int8, as the JAX model does.  With ``pool_group`` the pools are
     this rank's shards (with their sink pages) of pools split over the
     group, and the write and attention go through
-    ``repro_torch.parallel.pagedkv.sharded_paged_decode_attention``.
+    ``repro_torch.parallel.pagedkv.sharded_paged_decode_attention``
+    (``dp_group``: its 2-D mesh's dp group).
     Without ``page_table`` the caches are the dense (B, S, KV, D) rows of
     the contiguous layout, written in place (``decode_impl`` ignored)."""
     q, k, v = project_qkv(p, cfg, x, positions[:, None], norm_impl)
@@ -499,7 +501,7 @@ def attention_decode_block(p, cfg, x, k_pool, v_pool, positions,
             sharded_paged_decode_attention
         y = sharded_paged_decode_attention(
             pool_group, q, k, v, k_pool, v_pool, page_table, positions,
-            decode_impl, k_scale=k_scale, v_scale=v_scale)
+            decode_impl, k_scale=k_scale, v_scale=v_scale, dp_group=dp_group)
         return output_proj(p, cfg, y)
     if k_scale is not None:
         k, sk = quantize_kv(k)

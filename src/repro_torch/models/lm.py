@@ -50,14 +50,16 @@ class LM:
 
     def decode_step(self, params, tokens, cache, positions,
                     decode_impl: str = "kernel", norm_impl: str = "kernel",
-                    pool_group=None):
+                    pool_group=None, dp_group=None):
         return transformer.decode_step(params, self.cfg, tokens, cache,
                                        positions, decode_impl=decode_impl,
                                        norm_impl=norm_impl,
-                                       pool_group=pool_group)
+                                       pool_group=pool_group,
+                                       dp_group=dp_group)
 
     def prefill_chunk(self, params, tokens, cache, start_pos, dest, last_pos,
-                      norm_impl: str = "kernel", pool_group=None):
+                      norm_impl: str = "kernel", pool_group=None,
+                      dp_group=None):
         """One chunk of chunked prefill over a paged cache view whose
         ``"page_table"`` holds the slots' real rows; pools written in
         place.  Returns (logits (B, 1, Vp) at each chunk's last valid row,
@@ -65,14 +67,16 @@ class LM:
         return transformer.prefill_chunk(params, self.cfg, tokens, cache,
                                          start_pos, dest, last_pos,
                                          norm_impl=norm_impl,
-                                         pool_group=pool_group)
+                                         pool_group=pool_group,
+                                         dp_group=dp_group)
 
     def init_cache(self, batch_size: int, max_seq: int,
                    backend: Optional[str] = "paged", page_size: int = 16,
                    num_pages: Optional[int] = None,
                    prefix_sharing: bool = True, device="cuda", dtype=None,
                    kv_dtype: str = "native", pool_group=None,
-                   locality_chips: Optional[int] = None):
+                   locality_chips: Optional[int] = None, dp_group=None,
+                   host_pages: int = 0, prefix_store=None):
         """Decode cache construction (the JAX ``LM.init_cache``).
         ``backend=None`` returns the raw dense cache, ``{"layers": {"k":
         (L, B, S, KV, D), "v": ...}}``, which ``decode_step`` takes
@@ -81,9 +85,12 @@ class LM:
         default is ``"paged"`` (JAX's is ``None``): its callers are serve
         caches.  ``kv_dtype="int8"`` (paged only) stores int8 pages with
         per-row fp32 scales; ``pool_group`` (paged only, the counterpart of
-        the JAX ``mesh``/``kv_axis``) splits the pool over its ranks;
-        ``locality_chips`` (paged only) partitions only the free list.  The
-        recurrent families have no KV cache: refused."""
+        the JAX ``mesh``/``kv_axis``) splits the pool over its ranks, and
+        ``dp_group`` (the JAX ``dp_axis``) names the dp group of a 2-D batch
+        x pages mesh; ``locality_chips`` (paged only) partitions only the
+        free list; ``host_pages`` / ``prefix_store`` (paged only) put a
+        host-RAM page tier behind the pool (``repro_torch.serve.offload``).
+        The recurrent families have no KV cache: refused."""
         refuse_recurrent(self.cfg, "init_cache")
         dtype = dtype or DTYPES[self.cfg.dtype]
         if backend == "paged":
@@ -93,7 +100,9 @@ class LM:
                               prefix_sharing=prefix_sharing, device=device,
                               dtype=dtype, kv_dtype=kv_dtype,
                               pool_group=pool_group,
-                              locality_chips=locality_chips)
+                              locality_chips=locality_chips,
+                              dp_group=dp_group, host_pages=host_pages,
+                              prefix_store=prefix_store)
         if backend not in (None, "contiguous"):
             raise ValueError(f"cache backend {backend!r} not in (None, "
                              "'contiguous', 'paged')")
@@ -102,10 +111,17 @@ class LM:
                 f"kv_dtype={kv_dtype!r}: the int8 page format quantizes "
                 "fixed-size pages with per-row scales; the dense layout has "
                 "no pages (use backend='paged')")
-        if pool_group is not None or locality_chips is not None:
+        if (pool_group is not None or locality_chips is not None
+                or dp_group is not None):
             raise ValueError(
                 "pool_group and locality_chips split the paged pool's pages; "
                 "the dense layout has no pages (use backend='paged')")
+        if host_pages or prefix_store is not None:
+            raise ValueError(
+                "the host page tier offloads and prefetches fixed-size "
+                "pages under the prefix-sharing key; the contiguous "
+                "layout has neither (use backend='paged' for host_pages/"
+                "prefix_store)")
         dev = resolve_device(device)
         if backend is None:
             return transformer.init_cache(self.cfg, batch_size, max_seq, dev,

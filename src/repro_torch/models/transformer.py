@@ -192,7 +192,7 @@ def init_cache(cfg, batch_size: int, max_seq: int, device, dtype):
 
 def decode_step(params, cfg, tokens, cache, positions,
                 decode_impl: str = "kernel", norm_impl: str = "kernel",
-                pool_group=None):
+                pool_group=None, dp_group=None):
     """One token per slot.  tokens (B, 1); positions (B,) int32; cache is a
     paged view ``{"layers": {"k": (L, P, page, KV, D), "v": ...},
     "page_table": (B, M) int32}`` whose pools are written in place; int8
@@ -201,7 +201,9 @@ def decode_step(params, cfg, tokens, cache, positions,
     (the counterpart of the JAX ``mesh``/``kv_axis``) the pools are this
     rank's (L, P/n + 1, page, ...) shards with their sink pages, the table
     holds global ids, and every layer's attention merges across the group,
-    so the logits are the same on every rank.  A cache with no
+    so the logits are the same on every rank; ``dp_group`` (the JAX
+    ``dp_axis``) is the dp group of a 2-D batch x pages mesh, over which
+    each layer's attention rows are split.  A cache with no
     ``"page_table"`` is the dense (L, B, S, KV, D) layout of
     ``init_cache``, written in place, each slot at its own position
     (``decode_impl`` ignored).  Returns (logits (B, 1, Vp), cache)."""
@@ -218,14 +220,14 @@ def decode_step(params, cfg, tokens, cache, positions,
         h = h + attn.attention_decode_block(
             lp["attn"], cfg, a_in, pools["k"][i], pools["v"][i], positions,
             page_table, decode_impl=decode_impl, norm_impl=norm_impl,
-            pool_group=pool_group, **scales)
+            pool_group=pool_group, dp_group=dp_group, **scales)
         f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, norm_impl)
         h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
     return unembed(params, cfg, h, norm_impl), cache
 
 
 def prefill_chunk(params, cfg, tokens, cache, start_pos, dest, last_pos,
-                  norm_impl: str = "kernel", pool_group=None):
+                  norm_impl: str = "kernel", pool_group=None, dp_group=None):
     """One chunk of chunked prefill (the JAX ``transformer.prefill_chunk``):
     tokens (B, C) at global offsets ``start_pos`` (B,) through the stack;
     each layer writes the chunk's K/V into the paged pools in place at
@@ -251,7 +253,7 @@ def prefill_chunk(params, cfg, tokens, cache, start_pos, dest, last_pos,
         h = h + attn.attention_prefill_chunk_block(
             lp["attn"], cfg, a_in, pools["k"][i], pools["v"][i], start_pos,
             dest, page_table, last_pos, norm_impl=norm_impl,
-            pool_group=pool_group, **scales)
+            pool_group=pool_group, dp_group=dp_group, **scales)
         f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, norm_impl)
         h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
     take = (last_pos - start_pos).long()

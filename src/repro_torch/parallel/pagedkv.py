@@ -1,5 +1,6 @@
 """Sharded paged serving over ``torch.distributed`` (counterpart of the JAX
-``repro.parallel.pagedkv``, 1-D pools only).
+``repro.parallel.pagedkv``), over a 1-D split of the pool or a 2-D batch x
+pages mesh.
 
 The KV pool's page dimension is split over the n ranks of a process group:
 rank c holds the global page ids ``[c*P/n, (c+1)*P/n)`` (P padded to a
@@ -31,14 +32,29 @@ Every pool access is built from three verbs:
 The merge moves B·KV·G·(D+2) fp32 per layer, independent of the pool and
 of the sequence length.  Backends: ``nccl`` when each rank has its own card;
 ``gloo`` on the CPU, and when ranks share one card (gloo's all_reduce takes
-CUDA tensors and stages them through the host itself).  ``dp_axis`` (2-D
-batch × pages meshes) is not ported.
+CUDA tensors and stages them through the host itself).
+
+**2-D batch × pages meshes** (``dp_group``, the JAX ``dp_axis``): D·M ranks,
+rank r at (d, m) = (r // M, r % M).  The pool is split over the M ranks of
+a row (the *model* group, the ``PoolGroup``) and replicated across the D
+rows; the ranks of a column form the *dp* group.  Every replica applies the
+whole batch's writes, which every rank computes the same, so the D replicas
+of a shard stay bitwise equal.  When D > 1 divides the dispatch's batch
+(``dp_rows``, the JAX ``_dp_or_none``), replica d attends only rows
+``[d·B/D, (d+1)·B/D)`` of q, the table and the positions, merges over its
+model group alone, and the (B/D)-row outputs are all_gathered over the dp
+group; a batch D does not divide runs replicated.
+
+The host tier behind a split pool (``PagedCache(host_pages=)``): the rank
+owning a page that leaves the device copies it to the host, and the next
+drain broadcasts the bytes over the model group (``PoolGroup.broadcast``),
+so every rank's ``PrefixStore`` holds the same keys and bytes.
 """
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -82,6 +98,26 @@ class PoolGroup:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Overwrite the CPU tensor ``t`` on every rank with group rank
+        ``src``'s; over nccl through a copy on this rank's card."""
+        root = src if self.group is None else dist.get_global_rank(
+            self.group, src)
+        if dist.get_backend(self.group) == "gloo":
+            dist.broadcast(t, root, group=self.group)
+        else:
+            dev = t.to(torch.device("cuda", torch.cuda.current_device()))
+            dist.broadcast(dev, root, group=self.group)
+            t.copy_(dev)
+        return t
+
+    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along dim 0 in group-rank
+        order (the dp group's all_gather of its replicas' batch rows)."""
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts)
+
     def same_on_every_rank(self, payload: bytes) -> bool:
         """Whether every rank passed the same bytes: a 56-bit digest and its
         negation, max-reduced, agree only if the minimum equals the
@@ -93,10 +129,22 @@ class PoolGroup:
         return int(t[0]) == -int(t[1])
 
 
+def dp_rows(dp_group: Optional[PoolGroup], batch: int) -> Optional[slice]:
+    """The batch rows this replica attends on a 2-D mesh (the JAX
+    ``_dp_or_none``): ``[d·B/D, (d+1)·B/D)`` when the dp group has D > 1
+    ranks and D divides ``batch``; ``None`` (every row, replicated)
+    otherwise."""
+    if dp_group is None or dp_group.size == 1 or batch % dp_group.size:
+        return None
+    n = batch // dp_group.size
+    return slice(dp_group.rank * n, (dp_group.rank + 1) * n)
+
+
 def sharded_paged_decode_attention(pool_group: PoolGroup, q, k_new, v_new,
                                    k_pool, v_pool, page_table, positions,
                                    decode_impl: str = "kernel",
-                                   k_scale=None, v_scale=None):
+                                   k_scale=None, v_scale=None,
+                                   dp_group: Optional[PoolGroup] = None):
     """One layer's sharded paged decode on this rank: scatter the new row
     into the owning rank's shard, take this shard's partials, merge.
 
@@ -107,6 +155,8 @@ def sharded_paged_decode_attention(pool_group: PoolGroup, q, k_new, v_new,
     (P/n + 1, page, KV) scale shards: every rank quantizes the new row (the
     same int8 row and scale everywhere) and the owning rank commits both.
     ``decode_impl``: ``"kernel"`` (K1's partials mode) or ``"gather"``.
+    With ``dp_group`` (2-D mesh) every replica writes the whole batch, then
+    attends only its ``dp_rows`` and gathers the rows over the dp group.
     Returns y (B, 1, KV, G, D) in q's dtype, the same on every rank."""
     pn = k_pool.shape[0] - 1
     off = pool_group.rank * pn
@@ -119,6 +169,9 @@ def sharded_paged_decode_attention(pool_group: PoolGroup, q, k_new, v_new,
     attn.scatter_paged_kv_local(v_pool, v_new, page_table, positions, off)
     ks, vs = ((None, None) if k_scale is None
               else (k_scale[:pn], v_scale[:pn]))
+    rows = dp_rows(dp_group, q.shape[0])
+    if rows is not None:
+        q, page_table, positions = q[rows], page_table[rows], positions[rows]
     if decode_impl == "kernel":
         acc, l, m = ops.paged_decode_partials(
             q, k_pool[:pn], v_pool[:pn], page_table, positions, off,
@@ -130,7 +183,8 @@ def sharded_paged_decode_attention(pool_group: PoolGroup, q, k_new, v_new,
     else:
         raise ValueError(f"decode_impl {decode_impl!r} not in "
                          "('kernel', 'gather')")
-    return attn.merge_paged_partials(acc, l, m, pool_group).to(q.dtype)
+    y = attn.merge_paged_partials(acc, l, m, pool_group).to(q.dtype)
+    return y if rows is None else dp_group.all_gather_rows(y)
 
 
 def sharded_write_prefill(pool_group: PoolGroup, layers, kv_block, dest):
@@ -152,7 +206,8 @@ def sharded_write_prefill(pool_group: PoolGroup, layers, kv_block, dest):
 
 def sharded_prefill_chunk_attention(pool_group: PoolGroup, q, k_new, v_new,
                                     dest, k_pool, v_pool, page_table, qpos,
-                                    last_pos, k_scale=None, v_scale=None):
+                                    last_pos, k_scale=None, v_scale=None,
+                                    dp_group: Optional[PoolGroup] = None):
     """One layer's chunked-prefill write and attention on this rank (the
     JAX ``sharded_prefill_chunk_attention``): the chunk's rows land in the
     owning rank's shard (the rest in each rank's sink), then this shard's
@@ -161,8 +216,10 @@ def sharded_prefill_chunk_attention(pool_group: PoolGroup, q, k_new, v_new,
     rows; pools this rank's (P/n + 1, page, KV, D) shards with their sink;
     page_table (B, M) the slots' real rows, global ids; qpos (B, C) each
     row's position; last_pos (B,).  Int8 pools: every rank quantizes the
-    rows and their scales land through the same rows.  Returns y (B, C, KV,
-    G, D) in q's dtype, the same on every rank."""
+    rows and their scales land through the same rows.  With ``dp_group``
+    (2-D mesh) the replica attends its ``dp_rows`` and gathers the rows
+    over the dp group.  Returns y (B, C, KV, G, D) in q's dtype, the same
+    on every rank."""
     pn, page = k_pool.shape[0] - 1, k_pool.shape[1]
     off = pool_group.rank * pn
     if k_scale is not None:
@@ -174,7 +231,12 @@ def sharded_prefill_chunk_attention(pool_group: PoolGroup, q, k_new, v_new,
     attn.scatter_chunk_paged_local(v_pool, v_new, dest, off * page)
     ks, vs = ((None, None) if k_scale is None
               else (k_scale[:pn], v_scale[:pn]))
+    rows = dp_rows(dp_group, q.shape[0])
+    if rows is not None:
+        q, page_table = q[rows], page_table[rows]
+        qpos, last_pos = qpos[rows], last_pos[rows]
     acc, l, m = attn.paged_gather_chunk_partials(
         q, k_pool[:pn], v_pool[:pn], page_table, qpos, last_pos, off,
         k_scale=ks, v_scale=vs)
-    return attn.merge_paged_chunk_partials(acc, l, m, pool_group).to(q.dtype)
+    y = attn.merge_paged_chunk_partials(acc, l, m, pool_group).to(q.dtype)
+    return y if rows is None else dp_group.all_gather_rows(y)

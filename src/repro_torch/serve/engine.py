@@ -35,8 +35,7 @@ prefill, chunked prefill, the fused step, and the metrics of
   chunk whose positions all lie on landed shared pages skips its forward.
   A mid-prefill slot is inactive and shielded, so it decodes as a parked
   slot into scratch, and the decode step stays one replay of the same
-  graph.  The host tier, which JAX's chunked path also serves, raises
-  ``NotImplementedError`` naming its ROADMAP item.
+  graph.
 * **Admission control**: a request reserves its whole footprint (prompt +
   max_new_tokens) in the page pool; when the pool or the slots are short,
   admission stops in order and the request waits.  The contiguous cache
@@ -73,6 +72,16 @@ prefill, chunked prefill, the fused step, and the metrics of
   loss, is dead-lettered (``status="dead_letter"``, the reason on
   ``Request.error``); its neighbours are untouched.  Through all of it the
   decode step stays one replay of the same graph.
+* **Host-RAM page tier** (``host_pages=``, or a persistent
+  ``prefix_store=`` shared by successive engines; ``serve/offload.py``): a
+  shared prefix page whose last sharer frees it is copied to pinned host
+  memory, and a later admission whose prompt hits it copies it back into
+  a fresh device page instead of recomputing it (prefetch-then-admit: the
+  admission check still sees a cold request's demand).  Chunked, such
+  pages count as shared, so the chunks they cover skip their forward.
+  The copies write the pools in place, so the decode graph replays
+  unchanged.  The store's totals are published as counter deltas
+  (``serve_prefix_store_*``, ``serve_host_*``).
 * **Health loop**, as in the JAX engine: ``verify_cache=True`` re-checks the
   allocator's invariants every iteration, and an ``AlertManager`` passed as
   ``alerts`` (over the engine's ``registry``) runs ``serve_light_checks``
@@ -95,7 +104,11 @@ the same requests; its cache holds the rank's P/n-page shard of the pool,
 and each decode layer merges the ranks' partials (K1's partials mode under
 ``"kernel"``), so every rank samples the same tokens and keeps the same
 scheduler state.  ``run_until_drained`` checks at the end that every rank
-emitted the same streams, and raises if not.
+emitted the same streams, and raises if not.  On a 2-D batch x pages mesh
+(``dp_group``, the JAX ``dp_axis``) ``pool_group`` is the rank's model
+group, over which its pool is split, and ``dp_group`` its dp group, whose
+replicas split each attention's batch rows; the check then runs over the
+whole world.
 """
 from __future__ import annotations
 
@@ -113,6 +126,7 @@ from repro_torch.core.telemetry import MetricsRegistry
 from repro_torch.kernels import ops
 from repro_torch.models import LM
 from repro_torch.models.common import resolve_device
+from repro_torch.parallel.pagedkv import PoolGroup
 from repro_torch.serve.faults import (FaultEvent, FaultPlan,
                                       TransientDispatchError)
 from repro_torch.serve.kvcache import (StagedBuffer, decode_transient_bytes,
@@ -161,10 +175,6 @@ class _PrefillState:
     tokens: Optional[np.ndarray] = None
 
 
-#: the JAX engine's keywords the port does not serve yet, and their items
-UNPORTED = {"host_pages": 13}
-
-
 class EngineStuckError(RuntimeError):
     """``run_until_drained`` ran out of ``max_iters`` with work in flight.
     ``.stuck`` holds the wedged requests, each ``status="stuck"`` with the
@@ -193,16 +203,9 @@ class ServeEngine:
                  watchdog_iters: int = 0, max_retries: int = 3,
                  verify_cache: bool = False, alerts=None,
                  health_every: int = 16,
-                 locality_chips: Optional[int] = None, **unported):
+                 locality_chips: Optional[int] = None, dp_group=None,
+                 host_pages: int = 0, prefix_store=None):
         assert lm.cfg.family == "dense", lm.cfg.family
-        for name, value in unported.items():
-            if name not in UNPORTED:
-                raise TypeError(f"ServeEngine got an unexpected keyword "
-                                f"argument {name!r}")
-            if value:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not ported yet (ROADMAP "
-                    f"Queue 1 item {UNPORTED[name]})")
         if cache_backend not in ("paged", "contiguous"):
             raise ValueError(f"cache_backend {cache_backend!r} not in "
                              "('paged', 'contiguous')")
@@ -218,6 +221,7 @@ class ServeEngine:
         self.B, self.S = max_batch, max_seq
         self.decode_impl = decode_impl
         self.pool_group = pool_group
+        self.dp_group = dp_group
         self.reg = registry if registry is not None else MetricsRegistry()
         self.finished: List[Request] = []
         # the health loop (``step``): debug-mode cache checks every
@@ -232,7 +236,12 @@ class ServeEngine:
                                 prefix_sharing=prefix_sharing,
                                 device=self.device, dtype=dtype,
                                 kv_dtype=kv_dtype, pool_group=pool_group,
-                                locality_chips=locality_chips)
+                                locality_chips=locality_chips,
+                                dp_group=dp_group, host_pages=host_pages,
+                                prefix_store=prefix_store)
+        # the store keeps running totals and may serve several engines:
+        # each engine publishes them as counter deltas from its own marks
+        self._host_synced: Dict[str, int] = {}
         # fault injection, detection and recovery (``serve/faults.py``): the
         # plan is polled once a step; all detection state is on the host
         self.fault_plan = fault_plan
@@ -357,7 +366,8 @@ class ServeEngine:
           "prefill chunks deferred because a page grant was not banker-safe")
         c("serve_prefill_chunks_skipped_total",
           "prefill chunks whose forward was skipped because every position "
-          "was already backed by landed shared pages")
+          "was already backed by landed shared pages (device-shared or "
+          "prefetched from the host tier)")
         c("serve_decode_stall_iters",
           "iterations where live decode streams waited on prefill work "
           "exceeding the per-iteration budget")
@@ -411,6 +421,19 @@ class ServeEngine:
           buckets=(1, 2, 4, 8, 16, 32, 64, float("inf")))
         g("serve_streams_quarantined",
           "streams currently re-queued by fault recovery (awaiting resume)")
+        c("serve_prefix_store_hits_total",
+          "prefix-store page lookups served from the host tier")
+        c("serve_prefix_store_misses_total",
+          "prefix-store page lookups that missed (cold, evicted, digest "
+          "collision, or quarantined-poisoned) and recomputed prefill")
+        c("serve_host_evictions_total",
+          "host-tier pages LRU-evicted to make room for newer prefixes")
+        c("serve_host_offload_bytes_total",
+          "wire bytes copied device->host by cold-prefix offload")
+        c("serve_host_prefetch_bytes_total",
+          "wire bytes copied host->device by prefix-hit prefetch")
+        g("serve_host_pages_in_use",
+          "prefix pages resident in the host-RAM tier's pinned buffers")
 
     def _tensor(self, a, dtype=None):
         """A fresh device tensor, for the prefill and the eager sampling of
@@ -900,7 +923,7 @@ class ServeEngine:
         logits, _ = self.lm.prefill_chunk(
             self.params, self._tensor(tokens), cache, self._tensor(starts),
             self._tensor(dest), self._tensor(lasts),
-            pool_group=self.pool_group)
+            pool_group=self.pool_group, dp_group=self.dp_group)
         toks = self._sample_for(
             logits[:, -1, :self.lm.cfg.vocab_size].float(),
             [st.req for _, st, _, _ in group])
@@ -963,7 +986,8 @@ class ServeEngine:
         CUDA graph captures this call; the eager step runs it as it is."""
         logits, _ = self.lm.decode_step(
             self.params, self._tokens.dev, view, self._positions.dev,
-            decode_impl=self.decode_impl, pool_group=self.pool_group)
+            decode_impl=self.decode_impl, pool_group=self.pool_group,
+            dp_group=self.dp_group)
         rows = logits[:, -1, :self.lm.cfg.vocab_size].float().masked_fill(
             self._poison.dev[:, None], float("nan"))
         tok = self._guard(rows, torch.argmax(rows, dim=-1).to(torch.int32))
@@ -1199,6 +1223,19 @@ class ServeEngine:
             saved = page_kv_bytes(self.lm.cfg, st.page_size, self.kv.dtype) \
                 * (st.pages_total + 1) - st.bytes_total
         self.reg.gauge("serve_kv_quant_bytes_saved").set(saved)
+        self.reg.gauge("serve_host_pages_in_use").set(st.host_pages_in_use)
+        if self.kv.store is not None:
+            totals = self.kv.store.stats()
+            for metric, key in (
+                    ("serve_prefix_store_hits_total", "hits"),
+                    ("serve_prefix_store_misses_total", "misses"),
+                    ("serve_host_evictions_total", "evictions"),
+                    ("serve_host_offload_bytes_total", "offload_bytes"),
+                    ("serve_host_prefetch_bytes_total", "prefetch_bytes")):
+                delta = totals[key] - self._host_synced.get(key, 0)
+                if delta:
+                    self.reg.counter(metric).inc(delta)
+                self._host_synced[key] = totals[key]
 
     def run_until_drained(self, max_iters: int = 10_000,
                           on_stuck: str = "raise") -> List[Request]:
@@ -1240,12 +1277,15 @@ class ServeEngine:
             + "; ".join(what), stuck)
 
     def _check_ranks_agree(self) -> None:
+        """Sharded: every rank of the world (both groups of a 2-D mesh)
+        emitted the same streams, else ``RankDivergenceError``."""
         if self.pool_group is None:
             return
+        world = (self.pool_group if self.dp_group is None
+                 else PoolGroup.of())
         streams = sorted((r.id, r.status, r.out_tokens)
                          for r in self.finished)
-        if not self.pool_group.same_on_every_rank(
-                json.dumps(streams).encode()):
+        if not world.same_on_every_rank(json.dumps(streams).encode()):
             raise RankDivergenceError(
-                f"rank {self.pool_group.rank} of {self.pool_group.size}: "
+                f"rank {world.rank} of {world.size}: "
                 "the ranks' token streams differ")

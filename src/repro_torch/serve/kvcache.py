@@ -1,7 +1,8 @@
 """KV caches of the port: the paged cache (counterpart of ``PagedCache`` in
-the JAX ``repro.serve.kvcache``, without its host tier and 2-D meshes) and
-the contiguous one (``ContiguousCache``: dense (L, B, S, KV, D) rows, every
-slot reserving ``max_seq`` positions, written in place).
+the JAX ``repro.serve.kvcache``, with its host-RAM page tier and its split
+over 1-D and 2-D meshes) and the contiguous one (``ContiguousCache``: dense
+(L, B, S, KV, D) rows, every slot reserving ``max_seq`` positions, written
+in place).
 
 Storage is a per-layer (L, P, page, KV, D) K and V pool on the device; each
 slot owns a row of a host-side (B, M) int32 page table mapping logical page
@@ -24,11 +25,14 @@ of n ranks): the pool is padded to a multiple of n pages and rank c holds
 global pages ``[c*P/n, (c+1)*P/n)`` plus one sink page past them, where
 writes that belong to another rank land (``memory_stats`` counts it).  Every
 rank keeps the same host-side bookkeeping and the same global page table.
-The free list is per chip and locality-first: a request's fresh pages come
-from the one chip that fits them with the fewest to spare, or spill across
-chips from the fullest; admission depends only on the total free count.
-``locality_chips`` partitions the free list the same way without sharding
-the tensors (the JAX cache's mesh-free knob).
+On a 2-D batch x pages mesh ``pool_group`` is the rank's model group and
+``dp_group`` its dp group (the JAX ``dp_axis``): the pool is split over the
+model group and replicated across the dp group, whose ranks split the
+attention's batch rows.  The free list is per chip and locality-first: a
+request's fresh pages come from the one chip that fits them with the fewest
+to spare, or spill across chips from the fullest; admission depends only on
+the total free count.  ``locality_chips`` partitions the free list the same
+way without sharding the tensors (the JAX cache's mesh-free knob).
 
 Multi-tenant serving: ``alloc``/``alloc_chunked`` take a ``tenant`` whose
 whole footprint is charged against its page quota (``set_quota``) at
@@ -40,15 +44,32 @@ pages out of prefix sharing, and ``fail_chip`` drains a chip's pages for
 good, so ``usable_pages`` shrinks (on a sharded pool the rank keeps
 running: the loss is simulated in the bookkeeping, as in JAX).
 
+**Host-RAM page tier** (``host_pages``/``prefix_store``,
+``repro_torch.serve.offload``): when a registered prefix page's last
+reference drops, ``free`` enqueues its copy into a pinned host buffer on the
+compute stream at once.  JAX takes an immutable slice there and reads it
+later; here ``pool[:, pid]`` is a view of a pool that the next admission,
+usually handed this very page, rewrites, so the copy has to be ordered
+before that write.  ``drain_offloads`` (before a store lookup, in
+``memory_stats`` and ``verify``) waits on each copy's event and puts the
+page into the store.  An admission whose prompt runs past its device-shared
+pages into pages the store holds claims fresh device pages for them and
+copies the bytes in place (``_prefetch``), so the pools' addresses, which
+the decode graph captured, never change; the copies' event fences the slab
+slots they read.  Behind a split pool the owning rank copies the page and
+the drain broadcasts it over the model group, so every rank's store is the
+same and every rank's finite check of a prefetched payload agrees.
+
 All bookkeeping is host-side numpy.  Unlike the JAX cache, whose pools are
 immutable values threaded through each dispatch, the pools here are written
-in place by the prefill scatter and the decode step, and never
-re-allocated.  The device page table is one tensor for the life of the
+in place by the prefill scatter, the prefetch and the decode step, and
+never re-allocated.  The device page table is one tensor for the life of the
 cache (a ``StagedBuffer``), refreshed from the numpy table when alloc or
 free has changed it, so a CUDA graph of the decode step reads it.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -60,11 +81,18 @@ from repro_torch.models.common import resolve_device
 from repro_torch.models.transformer import init_cache
 from repro_torch.parallel.pagedkv import (chip_of_page, chip_page_range,
                                           sharded_write_prefill)
+from repro_torch.serve.offload import PrefixStore
 
 #: fp32 bytes of the scale stored beside each int8 K/V row.
 SCALE_BYTES = 4
 
 KV_DTYPES = ("native", "int8")
+
+#: float dtype -> (integer view, exponent mask): all exponent bits set is
+#: NaN or Inf
+_EXPONENT_BITS = {torch.bfloat16: (torch.int16, 0x7F80),
+                  torch.float16: (torch.int16, 0x7C00),
+                  torch.float32: (torch.int32, 0x7F800000)}
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -169,6 +197,11 @@ class MemoryStats:
     chips_failed: int = 0     # chips drained by fail_chip (degraded pool)
     # footprint pages charged per tenant (empty without tenant tags)
     tenant_pages: Dict[str, int] = field(default_factory=dict)
+    # the host-RAM page tier: prefix pages resident in the PrefixStore's
+    # host slabs (zero without the tier)
+    host_pages_total: int = 0     # tier capacity (pages)
+    host_pages_in_use: int = 0    # prefix pages stored
+    host_bytes: int = 0           # wire bytes they pin in host RAM
 
 
 class PagedCache:
@@ -178,7 +211,8 @@ class PagedCache:
                  num_pages: Optional[int] = None, prefix_sharing: bool = True,
                  device="cuda", dtype=torch.bfloat16,
                  kv_dtype: str = "native", pool_group=None,
-                 locality_chips: Optional[int] = None):
+                 locality_chips: Optional[int] = None, dp_group=None,
+                 host_pages: int = 0, prefix_store=None):
         assert cfg.family == "dense", cfg.family
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
@@ -193,7 +227,11 @@ class PagedCache:
             raise ValueError("locality_chips partitions the free list "
                              "without a pool group; with one, the chip "
                              "count is the group's size")
+        assert dp_group is None or pool_group is not None, (
+            "dp_group splits dispatch batch rows over a 2-D mesh; pass "
+            "pool_group=")
         self.pool_group = pool_group
+        self.dp_group = dp_group
         self.chips = (pool_group.size if pool_group is not None
                       else locality_chips or 1)
         # pad the pool so every chip holds the same number of pages
@@ -248,6 +286,25 @@ class PagedCache:
         self.last_deny: Optional[str] = None
         #: chips drained by ``fail_chip``: their pages never return
         self._failed_chips: set = set()
+        # the host-RAM page tier: ``prefix_store`` is owned by the caller
+        # and outlives this cache; ``host_pages`` alone builds a private
+        # store.  The store key is the sharing key, so sharing is required
+        self.store = None
+        if prefix_store is not None or host_pages:
+            assert prefix_sharing, (
+                "the host page tier stores pages under the prefix-sharing "
+                "key; construct the cache with prefix_sharing=True")
+            self.store = (prefix_store if prefix_store is not None
+                          else PrefixStore(host_pages))
+            # one page of every pool: the pool's shape without its P dim
+            self._page_spec = {name: ((t.shape[0], *t.shape[2:]), t.dtype)
+                               for name, t in layers.items()}
+            self.store.bind(self._page_spec, pin=self.device.type == "cuda")
+        #: device-to-host page copies started by ``free`` and not yet in
+        #: the store: (key, host buffer, owning rank, event), drained at
+        #: the next lookup, stats or verify point
+        self._pending_offload: List[tuple] = []
+        self._pending_keys: set = set()
 
     # ------------------------------------------------------------ sizing ----
     def pages_needed(self, length: int) -> int:
@@ -367,7 +424,8 @@ class PagedCache:
         """Reserve pages covering ``length`` positions for ``slot``.
         ``prefix`` (the tokens to prefill) keys prefix sharing; ``tenant``
         is charged the footprint against its quota.  Returns the number of
-        leading positions backed by shared pages, or ``None`` to defer, with
+        leading positions backed by shared pages, device-shared or
+        prefetched from the host tier, or ``None`` to defer, with
         ``last_deny`` "quota" or "pool"."""
         assert not self._slot_pages[slot], f"slot {slot} already allocated"
         assert 0 < length <= self.S, (length, self.S)
@@ -378,9 +436,11 @@ class PagedCache:
             return None                 # the tenant's cap, not the pool
         # only pages wholly inside the prompt are shareable: the page
         # holding the first decode write is always private
-        shared = self._match_shared(prefix, n_pages)
+        shared, _, host_hits = self._match_shared(prefix, n_pages)
         # bump shared refs before the check: a page going ref 1 -> 2 stops
-        # being freeable by its first owner (rolled back on deferral)
+        # being freeable by its first owner (rolled back on deferral).
+        # Host-tier hits still take fresh device pages: the check sees a
+        # cold request's demand, only the recompute is saved
         for pid in shared:
             self._ref[pid] += 1
         if not self._grant_safe(n_pages - len(shared), 0):
@@ -392,30 +452,169 @@ class PagedCache:
         for pid in fresh:
             self._ref[pid] = 1
         pages = shared + fresh
+        # granted: the host hits land in the first fresh pages (their
+        # logical pages continue the device-shared run)
+        self._prefetch(host_hits, fresh[:len(host_hits)])
+        covered = len(shared) + len(host_hits)
         self.page_table[slot, :] = 0
         self.page_table[slot, :n_pages] = pages
         self._table_stale = True
         self._slot_pages[slot] = pages
-        self._slot_shared[slot] = len(shared)
+        self._slot_shared[slot] = covered
         self._charge(slot, tenant, n_pages)
         # register this request's new full prompt pages now: their content
         # lands in the same admission's prefill
         if prefix is not None:
             self.register_landed(slot, prefix, len(prefix))
-        return len(shared) * self.page
+        return covered * self.page
 
-    def _match_shared(self, prefix: Optional[np.ndarray],
-                      n_pages: int) -> List[int]:
-        """The registered pages of the prompt's leading full pages, in
-        order, up to the first miss."""
+    def _match_shared(self, prefix: Optional[np.ndarray], n_pages: int):
+        """The prompt's leading full pages that need no recompute: returns
+        ``(shared, full, host_hits)``.  ``shared`` are registered device
+        pages, in order up to the first miss; ``host_hits`` continue the
+        run with pages the host tier holds, ``(logical page, key,
+        payload)`` for the caller to prefetch once its admission passes;
+        ``full`` counts the shareable pages.  A host payload that is not
+        finite is quarantined (a poisoned miss) and ends the run, so it
+        never reaches the pools."""
         shared: List[int] = []
+        host_hits: List[tuple] = []
+        full = 0
         if self.prefix_sharing and prefix is not None:
-            for i in range(min(len(prefix) // self.page, n_pages)):
+            full = min(len(prefix) // self.page, n_pages)
+            i = 0
+            while i < full:
                 pid = self._hash_to_page.get(self._key(prefix, i))
                 if pid is None:
                     break
                 shared.append(pid)
-        return shared
+                i += 1
+            if self.store is not None and i < full:
+                self.drain_offloads()
+                while i < full:
+                    key = self._key(prefix, i)
+                    payload = self.store.lookup(key)
+                    if payload is None:
+                        break
+                    if not self._payload_finite(payload):
+                        self.store.quarantine(key)
+                        break
+                    host_hits.append((i, key, payload))
+                    i += 1
+        return shared, full, host_hits
+
+    # ------------------------------------------------------ host tier ----
+    @staticmethod
+    def _payload_finite(payload: Dict[str, torch.Tensor]) -> bool:
+        """The prefetch's corruption guard: every float payload of the page
+        (for int8 pages the scales, which carry a poison) is finite.  An
+        IEEE value is NaN or Inf exactly when its exponent bits are all
+        ones; testing them on an integer view of the slab reads a bf16
+        page several times faster than ``torch.isfinite`` on the host."""
+        for a in payload.values():
+            if not a.is_floating_point():
+                continue
+            if a.dtype in _EXPONENT_BITS:
+                view, mask = _EXPONENT_BITS[a.dtype]
+                if bool(((a.view(view) & mask) == mask).any()):
+                    return False
+            elif not bool(torch.isfinite(a).all()):
+                return False
+        return True
+
+    def _local_page(self, pid: int) -> Optional[int]:
+        """``pid``'s index in this rank's pools, ``None`` if another rank
+        of the split pool holds it."""
+        if self.pool_group is None:
+            return pid
+        if chip_of_page(pid, self.pages_per_chip) != self.pool_group.rank:
+            return None
+        return pid - self.pool_group.rank * self.pages_per_chip
+
+    def _prefetch(self, host_hits: List[tuple], pids: List[int]) -> None:
+        """Copy ``host_hits``'s payloads from the slabs into the freshly
+        claimed pages ``pids``, in place (only the rank holding a page
+        writes it), and register their keys: the content has landed, so a
+        later admission of the same batch shares it at once.  On the card
+        the copies are asynchronous; their event fences the slab slots
+        they read."""
+        assert len(host_hits) == len(pids)
+        if not host_hits:
+            return
+        wrote = False
+        for (_, _, payload), pid in zip(host_hits, pids):
+            local = self._local_page(pid)
+            if local is None:
+                continue
+            for name, pool in self.state["layers"].items():
+                check_pool_write(pool, payload[name], f"_prefetch[{name}]")
+                pool[:, local].copy_(payload[name], non_blocking=True)
+            wrote = True
+        if wrote and self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            self.store.tier.fence(event)
+        for (_, key, _), pid in zip(host_hits, pids):
+            self._hash_to_page[key] = pid
+            self._page_to_hash[pid] = key
+        self.store.note_prefetch(len(host_hits))
+
+    def _page_buffer(self) -> torch.Tensor:
+        """A host buffer of one page's payloads: one flat uint8 tensor,
+        pinned on the card (PyTorch's host allocator caches the blocks), so
+        a copy into it is asynchronous and one broadcast moves it over a
+        split pool."""
+        return torch.empty(self.store.tier.page_bytes, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+
+    def _page_views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``buf``'s payloads, typed views in the pools' order."""
+        views, at = {}, 0
+        for name, (shape, dt) in self._page_spec.items():
+            n = math.prod(shape) * _itemsize(dt)
+            views[name] = buf[at:at + n].view(dt).view(shape)
+            at += n
+        return views
+
+    def _offload(self, key: bytes, pid: int) -> None:
+        """Start the device-to-host copy of page ``pid`` under ``key`` (from
+        ``free``, as its last reference drops).  The copy is enqueued now,
+        on the compute stream, so it reads the page before any later write
+        into the pools; ``drain_offloads`` puts it into the store.  A key
+        the store holds, or that is on its way, is only LRU-refreshed."""
+        if self.store.has(key) or key in self._pending_keys:
+            self.store.touch(key)
+            return
+        buf = self._page_buffer()
+        local, event = self._local_page(pid), None
+        if local is not None:
+            views = self._page_views(buf)
+            for name, pool in self.state["layers"].items():
+                views[name].copy_(pool[:, local], non_blocking=True)
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+        owner = chip_of_page(pid, self.pages_per_chip)
+        self._pending_offload.append((key, buf, owner, event))
+        self._pending_keys.add(key)
+
+    def drain_offloads(self) -> None:
+        """Put every pending offloaded page into the store, in the order the
+        pages were freed: wait on its copy's event, and behind a split pool
+        broadcast its bytes from the owning rank over the model group
+        (every rank drains at the same points, so the broadcasts pair up).
+        Called before store lookups, from ``memory_stats`` and ``verify``,
+        and harmlessly when nothing is pending."""
+        if not self._pending_offload:
+            return
+        for key, buf, owner, event in self._pending_offload:
+            if event is not None:
+                event.synchronize()
+            if self.pool_group is not None:
+                self.pool_group.broadcast(buf, owner)
+            self.store.put(key, self._page_views(buf))
+        self._pending_offload.clear()
+        self._pending_keys.clear()
 
     # ------------------------------------------------- chunked allocation ----
     def alloc_chunked(self, slot: int, length: int, first: int,
@@ -427,9 +626,9 @@ class PagedCache:
         ``extend`` claims chunk by chunk.  Admission needs the pool to stay
         banker-safe after the grant, a weaker demand than ``alloc``'s.
         Sharing matches only registered pages, whose content has landed.
-        ``tenant`` is charged the whole footprint now.  Returns the shared
-        leading positions, or ``None`` to defer (``last_deny`` as in
-        ``alloc``)."""
+        ``tenant`` is charged the whole footprint now.  Returns the leading
+        positions backed by shared or prefetched pages, or ``None`` to defer
+        (``last_deny`` as in ``alloc``)."""
         assert not self._slot_pages[slot], f"slot {slot} already allocated"
         assert 0 < first <= length <= self.S, (first, length, self.S)
         n_total = self.pages_needed(length)
@@ -437,8 +636,13 @@ class PagedCache:
         if not self._quota_ok(tenant, n_total):
             self.last_deny = "quota"
             return None
-        shared = self._match_shared(prefix, n_total)
+        shared, _, host_hits = self._match_shared(prefix, n_total)
+        # host-tier hits are claimed and landed up front with the first
+        # chunk: the chunks they cover skip their forward, so a later claim
+        # would only bring the recompute back; the check still guards the
+        # whole grant
         n_first = max(self.pages_needed(first) - len(shared), 0)
+        n_first = max(n_first, len(host_hits))
         remaining = n_total - len(shared) - n_first
         for pid in shared:          # bumped before the check, as in alloc
             self._ref[pid] += 1
@@ -451,14 +655,16 @@ class PagedCache:
         for pid in fresh:
             self._ref[pid] = 1
         pages = shared + fresh
+        self._prefetch(host_hits, fresh[:len(host_hits)])
+        covered = len(shared) + len(host_hits)
         self.page_table[slot, :] = 0
         self.page_table[slot, :len(pages)] = pages
         self._table_stale = True
         self._slot_pages[slot] = pages
-        self._slot_shared[slot] = len(shared)
+        self._slot_shared[slot] = covered
         self._slot_need[slot] = remaining
         self._charge(slot, tenant, n_total)
-        return len(shared) * self.page
+        return covered * self.page
 
     def extend(self, slot: int, cover: int) -> bool:
         """Grow ``slot``'s pages to cover ``cover`` positions (the next
@@ -596,6 +802,11 @@ class PagedCache:
                 key = self._page_to_hash.pop(pid, None)
                 if key is not None:
                     del self._hash_to_page[key]
+                    # a registered page's content is a landed prefix: it
+                    # spills to the host tier before the page is recycled
+                    # (poison-recovered pages were unregistered first)
+                    if self.store is not None:
+                        self._offload(key, pid)
                 # a failed chip's page leaves the pool with its last owner
                 chip = chip_of_page(pid, self.pages_per_chip)
                 if chip not in self._failed_chips:
@@ -737,8 +948,21 @@ class PagedCache:
             # case), so banker safety holds on intact pools only
             check(self._safe(len(free), self._banker_items()),
                   "pool not banker-safe (a live slot can never complete)")
+        if self.store is not None:
+            # memory_stats drained the offloads: the store is settled
+            self.store.verify()
+            check(st.host_pages_total == self.store.capacity
+                  and st.host_pages_in_use == self.store.pages_in_use()
+                  and st.host_bytes == self.store.bytes_in_use(),
+                  "memory_stats host-tier accounting drifted from store")
+            check(self.store.tier.page_bytes == pb,
+                  "host tier page bytes != device wire page bytes")
 
     def memory_stats(self) -> MemoryStats:
+        """The pools' byte and page accounting; with the host tier it first
+        drains the pending offloads, so the host numbers are settled."""
+        if self.store is not None:
+            self.drain_offloads()
         pb = page_kv_bytes(self.cfg, self.page, self.dtype, self.kv_dtype)
         usable = self.usable_pages()
         in_use = usable - self._free_count()
@@ -757,7 +981,11 @@ class PagedCache:
             slots_total=self.B,
             slots_in_use=sum(bool(p) for p in self._slot_pages),
             chips_failed=len(self._failed_chips),
-            tenant_pages=dict(self._tenant_pages))
+            tenant_pages=dict(self._tenant_pages),
+            host_pages_total=self.store.capacity if self.store else 0,
+            host_pages_in_use=(self.store.pages_in_use()
+                               if self.store else 0),
+            host_bytes=self.store.bytes_in_use() if self.store else 0)
 
 
 class ContiguousCache:
@@ -773,6 +1001,7 @@ class ContiguousCache:
     backend = "contiguous"
     quantized = False           # int8 pages are a paged-format feature
     chips = 1
+    store = None                # no pages, so no host tier
     last_deny = None            # alloc never fails, so never a deny reason
 
     def __init__(self, cfg, batch: int, max_seq: int, device="cuda",

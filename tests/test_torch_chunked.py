@@ -416,8 +416,9 @@ def test_tight_pool_admits_what_whole_prompt_defers():
 
 def test_chunked_engine_refusals_match_jax():
     """JAX's constructor refusals, with its messages, chunked and for
-    ``tenancy=``/``fault_plan=`` against the backend; the host tier, which
-    the port does not serve yet, raises naming its item."""
+    ``tenancy=``/``fault_plan=`` against the backend; the fault keywords
+    and the host tier are served chunked; an unknown keyword is a
+    ``TypeError``."""
     _, jlm, jparams, _, tlm, tparams = setup()
     cases = [(dict(cache_backend="contiguous", prefill_chunk=8),
               "page-aware"),
@@ -468,9 +469,10 @@ def test_chunked_engine_refusals_match_jax():
                       watchdog_iters=4,
                       fault_plan=tserve.FaultPlan.parse("stall_chunk@1"))
     assert (eng.watchdog_iters, len(eng.fault_plan)) == (4, 1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ServeEngine(tlm, tparams, 2, 32, device="cpu", prefill_chunk=8,
-                    host_pages=8)
+    # and so is the host tier, chunked too
+    eng = ServeEngine(tlm, tparams, 2, 32, device="cpu", prefill_chunk=8,
+                      host_pages=8)
+    assert eng.kv.store.capacity == 8 and eng.chunk == 8
     with pytest.raises(TypeError, match="mesh"):
         ServeEngine(tlm, tparams, 2, 32, device="cpu", mesh=object())
 

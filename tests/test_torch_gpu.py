@@ -4,7 +4,10 @@ kernel-path train step against the plain path, the launch counts of a
 chunked served run, Autopilot's two probes on the card, the serving
 health loop around the CUDA-graph step, K1 carrying a poisoned page's NaN
 to its victim only (``chip_smoke.py`` phase 5c's cases), and the poison
-mask and fault plans through the graph step.  Without a card every test
+mask and fault plans through the graph step, and the host-RAM page tier's
+two hazards (a freed page's offload must be a snapshot, a prefetch must
+be fenced against the host's next write of its slab slot) and its round
+trip through the graph step.  Without a card every test
 here skips; the file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -1190,3 +1193,60 @@ def test_faulted_run_graph_equals_eager(plan):
                     sorted(eng.reg.counter(
                         "serve_stream_retries_total").labels_values())))
     assert out[0] == out[1] and out[0][1]
+
+
+@pytest.mark.gpu
+def test_host_tier_offload_is_a_snapshot_and_prefetch_is_fenced():
+    """``chip_smoke.py`` phase 5d (c) with the stream held busy: the store
+    holds a freed page's first bytes although a chunked slot claimed and
+    rewrote the page before the drain, and a page prefetched just before
+    the host poisons its store entry holds the clean bytes.  A cache that
+    stores a view of the freed page fails the first check."""
+    _card()
+    cs = _chip_smoke()
+    assert cs.tier_hazards() == {"view_holds_a": True, "view_holds_b": False,
+                                 "fence_clean": True}
+    view = cs.tier_hazards("view")
+    assert view["view_holds_b"] and not view["view_holds_a"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_host_tier_warm_engine_equals_cold_through_the_graph(kv_dtype):
+    """A cold engine lands three 48-token prefixes in chunks of 8 (page 8,
+    bf16) and offloads them; a new engine on the same store prefetches
+    them (6 hits, 6 of 7 chunks skipped a prompt): its streams are
+    bitwise the cold ones, every decode step one replay of the graph it
+    captured, and the pools never re-allocated."""
+    from repro_torch.serve import PrefixStore
+    _card()
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(),
+                              dtype="bfloat16")
+    lm = LM(cfg)
+    params = lm.init(5, device="cuda")
+    rng = np.random.default_rng(4)
+    prompts = [np.concatenate([rng.integers(0, cfg.vocab_size, 48),
+                               rng.integers(0, cfg.vocab_size, 3)])
+               .astype(np.int32) for _ in range(3)]
+    store, streams = PrefixStore(32), []
+    for phase in ("cold", "warm"):
+        eng = ServeEngine(lm, params, max_batch=2, max_seq=64, page_size=8,
+                          device="cuda", prefill_chunk=8, prefix_store=store,
+                          kv_dtype=kv_dtype)
+        captured, replays = eng._graph, []
+
+        def counted(view, replay=eng._replay):
+            replays.append(1)
+            return replay(view)
+
+        eng._replay = counted
+        before = store.stats()
+        streams.append([cs._serve_one(eng, i, p)[1]
+                        for i, p in enumerate(prompts)])
+        decodes = eng.reg.counter("serve_decode_dispatches_total").get()
+        assert len(replays) == decodes and eng._graph is captured
+        hits = store.stats()["hits"] - before["hits"]
+        skipped = eng.reg.counter("serve_prefill_chunks_skipped_total").get()
+        assert (hits, skipped) == ((0, 0) if phase == "cold" else (18, 18))
+    assert streams[1] == streams[0]

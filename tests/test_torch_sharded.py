@@ -472,9 +472,13 @@ def test_launch_serve_mesh_2_under_torchrun():
 
 
 def test_launch_serve_refuses_2d_mesh_and_missing_ranks():
+    """A mesh without ``torch.distributed.run`` behind it exits naming it:
+    ``--mesh 2x2`` (served since 2-D meshes were ported) asks for four
+    processes, ``--mesh 2`` for two."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(SystemExit, match="--nproc-per-node 4"):
         serve.main(["--device", "cpu", "--mesh", "2x2"])
+    assert serve.parse_mesh("2x2") == (2, 2)
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--mesh", "2"], capture_output=True, text=True, cwd=ROOT,
