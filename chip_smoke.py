@@ -220,9 +220,43 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    two dp replicas, every rank's store the same and the single card's,
    K1's partials mode 4 times a decode step.
 
+11. biased dense (starcoder2-3b, granite-13b, granite-20b-code: LayerNorm,
+   GELU, biases; every bias and norm leaf redrawn from a seed, since
+   ``LM.init`` zeros them as JAX does): (a) K1 at their head layouts, KV=1
+   G=48, KV=40 G=1 and KV=2 G=12 (D=128, page 16, phase 3's ragged
+   positions and NaN dead pages), native and int8, fp32 and bf16 q,
+   against its plain version and its plain split schedule, one launch a
+   call, two calls bitwise equal, the plan's shared memory equal to the
+   kernel's, timed at phase 3's serve positions; K2 at KV=1 G=48 and KV=40
+   G=1 (8 prompts of 256, causal), bf16 and fp32, against its plain
+   version, timed beside SDPA (``enable_gqa``) and the bound; (b) fp32, the
+   kernel path against the plain path over native and int8 pages:
+   starcoder2-3b at full width and depth, granite-13b and granite-20b-code
+   at full width cut to 4 layers, one batched prefill and 16 decode steps,
+   logits to 1e-3, greedy tokens equal wherever the plain top-2 gap exceeds
+   the error, launches exact (K2 L times a prefill, K1 L times a decode
+   step, no K3); (c) granite-20b-code at full width and depth in bf16
+   served by ``ServeEngine`` on phase 5's workload through the graph over
+   native and int8 pages and eagerly: graph streams equal eager streams,
+   K1 52 times a replay, K2 52 times a prefill dispatch; ``LM.init``'s
+   peak memory, tok/s, decode step, TTFT and pool bytes printed;
+12. recurrent decode (zamba2-1.2b, rwkv6-1.6b, full width): (a) fp32 with
+   the plain mixers at phase 8's gated depth, ``LM.prefill`` of 511 tokens
+   and a decode step against the forward's row 511, then 8 chained decode
+   steps against the forward over 520 tokens, each to 1e-3; (b) bf16, 4
+   prompts of 512 and 64 greedy tokens on the kernel and plain paths:
+   prefill ms, decode step ms (CUDA events), tok/s, state and shared-cache
+   bytes, peak memory; launches exact (zamba2's prefill K2 6 and K3 89
+   times, each decode step K3 89 times and no K2; rwkv6 none); the first
+   tokens and the two paths' stream agreement printed.
+
 It then prints a ``kernels`` JSON line (K1's entries at the serve shape,
-with the long shape's numbers under ``long``), the card's name and power
-limit, and, last, ``{"ok": true, "device": {...}}``.
+with the long shape's numbers under ``long``; phase 11's head layouts as
+entries of their own, ``name[KV=..,G=..]`` and for K1, whose q dtypes take
+different paths, ``name[KV=..,G=..,fp32|bf16]``, each timed in the mode
+that phase 11's runs launch at that layout and holding those launches,
+never 0), the card's name and power limit, and,
+last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -333,13 +367,15 @@ K1_RAGGED_LONG_POS = (4095, 15, 16, 17, 130, 255, 511, 0)
 
 
 def k1_inputs(dtype, gen, m: int = 32,
-              positions=(0, 15, 16, 17, 130, 255, 511, 0), nan_dead=True):
+              positions=(0, 15, 16, 17, 130, 255, 511, 0), nan_dead=True,
+              kv: int = 8, g: int = 4):
     """qwen3-4b decode shapes: B=8, KV=8, G=4, D=128, page 16, M=m (32: the
-    served max_seq 512; 256: a 4,096-position context).  Ragged positions
-    (0, page boundaries, a full table), one freed slot (all-zero row at
-    position 0, where the last slot's position is 0), and every dead page
-    filled with NaN (``nan_dead``)."""
-    b, kv, g, d, page = 8, 8, 4, 128, 16
+    served max_seq 512; 256: a 4,096-position context), or another head
+    layout (``kv``, ``g``; phase 11).  Ragged positions (0, page
+    boundaries, a full table), one freed slot (all-zero row at position 0,
+    where the last slot's position is 0), and every dead page filled with
+    NaN (``nan_dead``)."""
+    b, d, page = 8, 128, 16
     n_pages = b * m + 1
     positions = torch.tensor(positions, dtype=torch.int32)
     perm = torch.randperm(n_pages - 1, generator=gen) + 1
@@ -427,8 +463,9 @@ def k1_bound(q, table, rows: int, quant: bool, partials: bool):
     """K1's least time for ``rows`` live rows: each K/V byte (int8: and its
     fp32 scale) read once, q read once, the output (partials: the fp32
     triple) written once, the table and positions read once; operations:
-    QK and PV (int8: and the dequantization) at the bf16 peak for bf16
-    pools and the fp32 peak for int8.  Returns (ms, "bytes" or
+    QK and PV at q's peak (bf16 q, native or int8 rows: the tensor cores,
+    where the kernel converts int8 rows to bf16), and int8's
+    dequantization at the fp32 peak.  Returns (ms, "bytes" or
     "operations", bytes)."""
     b, kv, g, d = q.shape
     row_b = kv * (d + 4) if quant else kv * d * q.element_size()
@@ -436,9 +473,12 @@ def k1_bound(q, table, rows: int, quant: bool, partials: bool):
         q.numel() * q.element_size()
     nbytes = (2 * rows * row_b + q.numel() * q.element_size() + out_b
               + 4 * (table.numel() + b))
-    flops = 4 * kv * g * d * rows + (2 * rows * kv * d if quant else 0)
-    return (*bound(nbytes, flops, torch.float32 if quant else q.dtype),
-            nbytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (4 * kv * g * d * rows / PEAK_FLOPS[q.dtype]
+             + (2 * rows * kv * d if quant else 0)
+             / PEAK_FLOPS[torch.float32]) * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else
+            (t_ops, "operations")) + (nbytes,)
 
 
 def k1_splits(pd, q, k_pool, table, quant=False) -> int:
@@ -1779,7 +1819,9 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
             f"{tag} {len(replays)} graph replays for {decodes} decode steps"
         assert eng._graph is captured, f"{tag} the decode step was recaptured"
         L = cfg.num_layers
-        norms = L * (2 + 2 * cfg.qk_norm) + 1
+        # K3 runs every RMSNorm; a LayerNorm config's norms are plain torch
+        norms = (L * (2 + 2 * cfg.qk_norm) + 1 if cfg.norm == "rmsnorm"
+                 else 0)
         k1 = None
         if eng.kv.backend == "paged" and eng.decode_impl == "kernel":
             k1 = ("paged_flash_decode" + ("_partials" if sharded else "")
@@ -3363,7 +3405,8 @@ def recurrent_parity():
     amplifies fp32 rounding (its first positions' heads can output little,
     and ln_x's eps 64e-5 scales that up) so far that any two fp32
     implementations differ by ~1e-3-1e-2 there.  The choice of depth reads
-    only the plain path and float64, never the kernel path."""
+    only the plain path and float64, never the kernel path.  Returns the
+    depth gated for each config (phase 12 decodes at it)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import LM
@@ -3376,6 +3419,7 @@ def recurrent_parity():
     def rms(a, b):
         return float((a - b).norm() / b.norm())
 
+    depths = {}
     for name in RECURRENT:
         full = dataclasses.replace(get_config(name), dtype="float32")
         params = LM(full).init(12, device=DEV)
@@ -3418,8 +3462,10 @@ def recurrent_parity():
                 f"{depth} layers: 1e-3 between fp32 paths is no test of the "
                 f"kernels there; halving the depth")
             depth //= 2
+        depths[name] = depth
         del params, a, b
         free()
+    return depths
 
 
 def _first_layers(tree, n: int):
@@ -4017,6 +4063,449 @@ def mesh2d_main(rank: int, port: int) -> int:
     return 0
 
 
+# ------------------------------------------------------------ phase 11 ----
+
+#: the biased dense configs' head layouts: (config, KV, G)
+BIAS_LAYOUTS = (("granite-20b-code", 1, 48), ("granite-13b", 40, 1),
+                ("starcoder2-3b", 2, 12))
+
+
+def layout_entry(kernel: str, kv: int, g: int, dtype) -> str:
+    """A ``kernels`` entry's name for a kernel mode at a head layout.  K1's
+    name covers both q dtypes, which take different paths (bf16 the tensor
+    cores, fp32 the CUDA cores), so its entries name the dtype; K2's modes
+    have a name each."""
+    tail = f",{str(dtype)[6:]}" if kernel.startswith("paged_") else ""
+    return f"{kernel}[KV={kv},G={g}{tail}]"
+
+
+#: the q dtypes a phase-11 run launches K1 with at each layout: fp32 in (b)
+#: at all three, bf16 only where granite-20b-code is served (c)
+K1_LAYOUT_DTYPES = {48: (torch.float32, torch.bfloat16),
+                    1: (torch.float32,), 12: (torch.float32,)}
+
+
+def redraw_biases(params, seed: int) -> None:
+    """Every bias leaf ~ N(0, 0.2) and every norm scale ~ N(1, 0.2), in
+    place, from a generator on the card seeded with ``seed``: the port
+    initializes biases at zero and LayerNorm at (1, 0), as JAX does, which
+    would leave the bias and LayerNorm code with nothing to show."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def walk(tree, key=None):
+        if isinstance(tree, torch.Tensor):
+            if key in ("bias", "scale"):
+                noise = torch.randn(tree.shape, generator=gen, device=DEV)
+                tree.copy_(noise.mul_(0.2).add_(float(key == "scale")))
+            return
+        for k, v in tree.items():
+            walk(v, k)
+
+    walk(params)
+
+
+def check_bias_layouts(report) -> None:
+    """(a) K1 at the biased configs' head layouts (KV=1 G=48, KV=40 G=1,
+    KV=2 G=12; D=128, page 16, phase 3's ragged positions and NaN dead
+    pages), native and int8, fp32 and bf16 q, against its plain version
+    and its plain split schedule, one launch a call, two calls bitwise
+    equal; the plan's shared memory equal to the kernel's; its times at
+    phase 3's serve positions.  K2 at KV=1 G=48 and KV=40 G=1 (8 prompts
+    of 256, causal), bf16 and fp32, against its plain version, timed
+    beside SDPA (``enable_gqa``) and its bound."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.quant import quantize_kv
+    gen = torch.Generator().manual_seed(25)
+    smem = _build.entry("paged_decode_smem_bytes")
+    for name, kv, g in BIAS_LAYOUTS:
+        tag = f"KV={kv} G={g} D=128 page=16 M=32 ({name})"
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, table, pos = k1_inputs(dtype, gen, kv=kv, g=g)
+            k1_agree(pd, f"K1 paged_flash_decode {str(dtype)[6:]:8s} {tag}",
+                     q, (k, v), table, pos, TOL[dtype])
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            k1_agree(pd, f"K1 int8 paged_flash_decode_int8 q "
+                     f"{str(dtype)[6:]:8s} {tag}", q, (kq, vq, ks, vs),
+                     table, pos, TOL[dtype])
+            for quant in (False, True):
+                pl = pd.plan(8, kv, g, 128, 16, 32, dtype, quant, False,
+                             pd._n_sms(0))
+                mine = smem(0 if dtype == torch.float32 else 1, int(quant),
+                            g, 128, 32)
+                log(f"K1 plan {tag} {'int8' if quant else 'native'} "
+                    f"{str(dtype)[6:]}: splits {pl.splits} (grid {pl.grid}, "
+                    f"{pl.g_blocks} query blocks of {pl.group}, tensor cores "
+                    f"{pl.tensor_cores}), smem {pl.smem} B, kernel's {mine} B")
+                assert pl.smem == mine, "K1 plan's shared memory differs"
+        pos = torch.tensor(K1_SERVE_POS, dtype=torch.int32, device=DEV)
+        for dtype in (torch.float32, torch.bfloat16):
+            # an entry for each dtype a phase-11 run launches at the
+            # layout; the other dtype's times are logged only
+            q, k, v, table, _ = k1_inputs(dtype, gen, nan_dead=False,
+                                          kv=kv, g=g)
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            dt = str(dtype)[6:]
+            for mode, pools in (("paged_flash_decode", (k, v)),
+                                ("paged_flash_decode_int8",
+                                 (kq, vq, ks, vs))):
+                r = k1_timed(pd, f"K1 {mode} timing {dt} q serve {tag}", q,
+                             pools, table, pos)
+                if dtype in K1_LAYOUT_DTYPES[g]:
+                    report[layout_entry(mode, kv, g, dtype)] = dict(
+                        r, launches=0)
+    # K2: bf16 where granite-20b-code is served (c), fp32 where (b) runs
+    # both; the bf16 time at granite-13b's layout is logged only
+    gen = torch.Generator(device=DEV).manual_seed(26)
+    for name, kv, g in BIAS_LAYOUTS[:2]:
+        for dtype, mode in ((torch.bfloat16, "flash_attention_bhsd"),
+                            (torch.float32, "flash_attention_bhsd_fp32")):
+            r = time_k2(fa, f"{name} prefill (8 prompts of bucket 256)", 8,
+                        256, kv, g, 128, dtype, gen)
+            if dtype == torch.float32 or name == "granite-20b-code":
+                report[layout_entry(mode, kv, g, dtype)] = dict(
+                    r, launches=0)
+    free()
+
+
+def count_layout(report, launches, cfg) -> None:
+    """Add a run's K1 and K2 launches to the entries of its head layout and
+    compute dtype (K1's q dtype)."""
+    for kernel, n in launches.items():
+        key = layout_entry(kernel, cfg.num_kv_heads,
+                           cfg.num_heads // cfg.num_kv_heads,
+                           getattr(torch, cfg.dtype))
+        if n and key in report:
+            report[key]["launches"] += n
+
+
+#: (b)'s configs: full width, full depth or cut to 4 layers
+BIAS_FP32 = (("starcoder2-3b", None), ("granite-13b", 4),
+             ("granite-20b-code", 4))
+
+
+def bias_kernel_vs_plain(report) -> None:
+    """(b) fp32, TF32 off: the kernel path (K2 prefill, K1 decode) against
+    the plain path (dense prefill, gathered decode, plain norms) over
+    native and int8 pages, each config at full width with its biases and
+    LayerNorm leaves redrawn: one batched prefill of 4 prompts (70-128
+    tokens, one bucket of 128) and 16 decode steps fed the plain path's
+    greedy token.  Logits to 1e-3 relative max error; greedy tokens equal
+    wherever the plain top-2 gap exceeds the error; launches exact (K2
+    fp32 L times a prefill, K1 L times a decode step, nothing on the plain
+    path, K3 never: LayerNorm has no kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import ForwardOpts, LM
+    from repro_torch.serve.kvcache import PagedCache
+    opts = {"kernel": ForwardOpts("flash", "kernel"),
+            "plain": ForwardOpts("dense", "plain")}
+    # path -> (prefill opts, decode impl, page format)
+    paths = {"kernel": ("kernel", "kernel", "native"),
+             "plain": ("plain", "gather", "native"),
+             "kernel-int8": ("kernel", "kernel", "int8"),
+             "plain-int8": ("plain", "gather", "int8")}
+    rng = np.random.default_rng(25)
+    lens = [70, 97, 115, 128]
+    n, bucket, steps = len(lens), 128, 16
+    for name, layers in BIAS_FP32:
+        cfg = dataclasses.replace(get_config(name), dtype="float32",
+                                  **({"num_layers": layers} if layers
+                                     else {}))
+        L = cfg.num_layers
+        lm = LM(cfg)
+        t0 = time.perf_counter()
+        params = lm.init(25, device=DEV)
+        redraw_biases(params, 25)
+        torch.cuda.synchronize()
+        log(f"[{name} fp32] {L} layers, "
+            f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+            f"parameters in {time.perf_counter() - t0:.1f}s")
+        tokens = np.zeros((n, bucket), np.int64)
+        for j, plen in enumerate(lens):
+            tokens[j, :plen] = rng.integers(0, cfg.vocab_size, plen)
+        tok_dev = torch.as_tensor(tokens, device=DEV)
+        last = torch.as_tensor(np.array(lens) - 1, device=DEV)
+        caches, logits = {}, {}
+        for oname, o in opts.items():
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                lg, cache = lm.forward(params, tok_dev, o, collect_cache=True)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            want = ({"flash_attention_bhsd_fp32": L} if oname == "kernel"
+                    else {})
+            assert launches == want, \
+                f"[{name}] {oname}-path prefill launched {launches}, not {want}"
+            count_layout(report, launches, cfg)
+            for pname, (pre, _, kv_dtype) in paths.items():
+                if pre != oname:
+                    continue
+                kv = PagedCache(cfg, n, 256, page_size=16, device=DEV,
+                                dtype=torch.float32, kv_dtype=kv_dtype)
+                dest = np.zeros((n, bucket), np.int32)
+                for j, plen in enumerate(lens):
+                    assert kv.alloc(j, plen + steps) == 0
+                    dest[j] = kv.prefill_dest(j, bucket, plen)
+                kv.staged_write_prefill(kv.quantize_block(cache["layers"]),
+                                        torch.as_tensor(dest, device=DEV))
+                caches[pname] = kv
+                logits[pname] = [lg[torch.arange(n, device=DEV), last]]
+            del lg, cache
+        pos = torch.as_tensor(np.array(lens, np.int32), device=DEV)
+        nxt = logits["plain"][0].argmax(-1)
+        for t in range(steps):
+            for pname, (pre, impl, kv_dtype) in paths.items():
+                ops.reset_launch_counts()
+                with torch.no_grad():
+                    lg, _ = lm.decode_step(params, nxt[:, None],
+                                           caches[pname].decode_view(),
+                                           pos + t, decode_impl=impl,
+                                           norm_impl=opts[pre].norm_impl)
+                launches = {k: v for k, v in ops.launch_counts().items()
+                            if v}
+                k1 = "paged_flash_decode" + ("_int8" if kv_dtype == "int8"
+                                             else "")
+                want = {k1: L} if impl == "kernel" else {}
+                assert launches == want, \
+                    f"[{name}] {pname} decode launched {launches}"
+                count_layout(report, launches, cfg)
+                logits[pname].append(lg[:, -1])
+            nxt = logits["plain"][-1].argmax(-1)
+        for kernel, plain in (("kernel", "plain"),
+                              ("kernel-int8", "plain-int8")):
+            worst, agree, decided = 0.0, 0, 0
+            for a, b in zip(logits[kernel], logits[plain]):
+                a = a[:, :cfg.vocab_size].float()
+                b = b[:, :cfg.vocab_size].float()
+                assert bool(torch.isfinite(a).all())
+                diff = (a - b).abs()
+                worst = max(worst, float(diff.max() / b.abs().max()))
+                top2 = b.topk(2, dim=-1).values
+                gap = top2[:, 0] - top2[:, 1] > diff.max(-1).values
+                same = a.argmax(-1) == b.argmax(-1)
+                assert bool((same | ~gap).all()), \
+                    f"[{name}] {kernel}: greedy tokens disagree"
+                agree += int(same.sum())
+                decided += int(gap.sum())
+            log(f"[{name} fp32] {kernel} vs {plain} path: prefill + {steps} "
+                f"decode steps, logits rel max err {worst:.3e} (limit 1e-3), "
+                f"greedy agree {agree}/{n * (steps + 1)} ({decided} decided "
+                f"by a gap above the error) [{nvidia_smi_line()}]")
+            assert worst <= 1e-3, f"[{name}] {kernel} path leaves {plain}"
+        del params, caches, logits, lm
+        free()
+
+
+def granite_serve(report) -> None:
+    """(c) granite-20b-code at full width and full depth in bf16, random
+    weights from a seed (biases and LayerNorm leaves redrawn), served by
+    ``ServeEngine`` on phase 5's workload (16 requests, 32 new tokens,
+    max_batch 8, page 16) through the CUDA-graph step over native and int8
+    pages, then the same eagerly: graph streams equal eager streams, one
+    replay a decode step, K1 52 times a replay and K2 52 times a prefill
+    dispatch (``serve_runs``'s gates).  ``LM.init``'s peak allocated
+    memory is printed, and each run's fused step and one prefill forward
+    are profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = get_config("granite-20b-code")
+    lm = LM(cfg)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(20, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    redraw_biases(params, 20)
+    log(f"[granite-20b-code] bf16 parameters "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held; LM.init "
+        f"{init_s:.1f}s, peak allocated during LM.init "
+        f"{init_peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+        f"[{nvidia_smi_line()}]")
+    runs = serve_runs(lm, params, (
+        ("native", {}), ("int8", {"kv_dtype": "int8"}),
+        ("native-eager", {"cuda_graph": False}),
+        ("int8-eager", {"kv_dtype": "int8", "cuda_graph": False})),
+        "granite-20b-code")
+    for label in ("native", "int8"):
+        run, eager = runs[label], runs[label + "-eager"]
+        count_layout(report, run["launches"], cfg)
+        same = run["streams"] == eager["streams"]
+        log(f"[granite-20b-code {label}] graph streams equal the eager "
+            f"streams token for token: {same}; {run['tok_s']:.1f} tok/s, "
+            f"decode step {run['decode_ms']:.2f} ms (graph; one replay on "
+            f"the device {run.get('replay_ms', float('nan')):.3f} ms) vs "
+            f"{eager['decode_ms']:.2f} ms eager, TTFT p50 "
+            f"{run['ttft_ms']:.1f} ms, pool {run['pool_tensor_bytes']} B "
+            f"[{nvidia_smi_line()}]")
+        assert same, f"[granite-20b-code {label}] graph streams differ"
+    del params, runs
+    free()
+
+
+# ------------------------------------------------------------ phase 12 ----
+
+def _grow_shared(cache, extra: int):
+    """Zamba2's shared K/V rows grown by ``extra`` zero rows along S, so
+    decode steps past the prompt have rows to write."""
+    if "shared" in cache:
+        cache["shared"] = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0,
+                                                          extra))
+                           for k, v in cache["shared"].items()}
+    return cache
+
+
+def _state_bytes(cache) -> tuple:
+    layers = sum(t.numel() * t.element_size()
+                 for t in cache["layers"].values())
+    shared = sum(t.numel() * t.element_size()
+                 for t in cache.get("shared", {}).values())
+    return layers, shared
+
+
+def recurrent_decode_parity(depths) -> None:
+    """(a) fp32, plain mixers (K2 and K3 otherwise), full width at phase
+    8's gated depth (the fp32 plain forward within 1e-4 of float64): a
+    prefill of 511 tokens and one decode step against the forward's row
+    511, then 8 chained decode steps against the forward over the 520-token
+    sequence; each to 1e-3 relative max error."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ForwardOpts, LM
+    opts = ForwardOpts(attn_impl="flash", norm_impl="kernel",
+                       mixer_impl="plain")
+    rng = np.random.default_rng(26)
+    b, pre, steps = 2, 511, 9
+    for name in RECURRENT:
+        full = dataclasses.replace(get_config(name), dtype="float32")
+        cfg = dataclasses.replace(full, num_layers=depths[name])
+        lm = LM(cfg)
+        params = LM(full).init(12, device=DEV)
+        p = dict(params, layers=_first_layers(params["layers"],
+                                              cfg.num_layers))
+        v = cfg.vocab_size
+        toks = torch.as_tensor(rng.integers(0, v, (b, pre + steps)),
+                               device=DEV)
+        with torch.no_grad():
+            ref = lm.forward(p, toks, opts)[0][..., :v].double()
+            _, cache = lm.prefill(p, toks[:, :pre], opts)
+            cache = _grow_shared(cache, steps)
+            errs = []
+            for t in range(steps):
+                lg, cache = lm.decode_step(
+                    p, toks[:, pre + t:pre + t + 1], cache,
+                    torch.full((b,), pre + t, dtype=torch.int32, device=DEV))
+                a, r = lg[:, 0, :v].double(), ref[:, pre + t]
+                assert bool(torch.isfinite(a).all())
+                errs.append(float((a - r).abs().max() / r.abs().max()))
+        log(f"[{name} fp32] {cfg.num_layers} of {full.num_layers} layers, "
+            f"B={b}: prefill {pre} + decode: rel max err against the "
+            f"forward's row {pre} {errs[0]:.3e}, then {steps - 1} chained "
+            f"steps worst {max(errs[1:]):.3e} (limit 1e-3) "
+            f"[{nvidia_smi_line()}]")
+        assert max(errs) <= 1e-3, f"{name}: decode leaves the forward"
+        del params, p, ref, cache
+        free()
+
+
+def recurrent_decode_serve() -> None:
+    """(b) bf16, B=4 prompts of 512, 64 greedy tokens (the prefill's and
+    63 decode steps'), the kernel path (K2, K3; a collected cache runs the
+    plain mixers) and the plain path: prefill ms, decode step ms (CUDA
+    events), tok/s, state and shared-cache bytes, peak memory.  Launches
+    exact: zamba2's prefill runs K2 6 times and K3 89 times, each decode
+    step K3 89 times and no K2; rwkv6 launches none; the plain path none.
+    The kernel path's first tokens and its agreement with the plain path
+    are printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import ForwardOpts, LM
+    paths = {"kernel": ForwardOpts(),
+             "plain": ForwardOpts(attn_impl="dense", norm_impl="plain",
+                                  mixer_impl="plain")}
+    b, s, new = 4, 512, 64
+    rng = np.random.default_rng(27)
+    for name in RECURRENT:
+        cfg = get_config(name)
+        assert cfg.dtype == "bfloat16"
+        lm = LM(cfg)
+        params = lm.init(13, device=DEV)
+        v = cfg.vocab_size
+        toks = torch.as_tensor(rng.integers(0, v, (b, s)), device=DEV)
+        hybrid = cfg.family == "hybrid"
+        n_shared = cfg.num_layers // cfg.hybrid_attn_every if hybrid else 0
+        norms = 2 * cfg.num_layers + 2 * n_shared + 1 if hybrid else 0
+        streams = {}
+        for path, o in paths.items():
+            kernel = path == "kernel"
+            free()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, cache = lm.prefill(params, toks, o)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: c for k, c in ops.launch_counts().items() if c}
+            want = ({"flash_attention_bhsd": n_shared, "rmsnorm_rows": norms}
+                    if kernel and hybrid else {})
+            assert launches == want, \
+                f"[{name} {path}] prefill launched {launches}, not {want}"
+            cache = _grow_shared(cache, new)
+            state_b, shared_b = _state_bytes(cache)
+            nxt = logits[:, -1, :v].argmax(-1)
+            out = [nxt]
+            events = []
+            t0 = time.perf_counter()
+            for t in range(new - 1):
+                ops.reset_launch_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                with torch.no_grad():
+                    lg, cache = lm.decode_step(
+                        params, nxt[:, None], cache,
+                        torch.full((b,), s + t, dtype=torch.int32,
+                                   device=DEV), norm_impl=o.norm_impl)
+                end.record()
+                events.append((start, end))
+                launches = {k: c for k, c in ops.launch_counts().items()
+                            if c}
+                want = ({"rmsnorm_rows": norms} if kernel and hybrid
+                        else {})
+                assert launches == want, \
+                    f"[{name} {path}] decode step launched {launches}"
+                nxt = lg[:, -1, :v].argmax(-1)
+                out.append(nxt)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            step_ms = float(np.mean([a.elapsed_time(z) for a, z in events]))
+            streams[path] = torch.stack(out, dim=1).cpu()
+            assert streams[path].shape == (b, new)
+            log(f"[{name} bf16 {path}] B={b} prompts of {s}: prefill "
+                f"{prefill_ms:.2f} ms, decode step {step_ms:.3f} ms (CUDA "
+                f"events, mean of {new - 1}), {b * (new - 1) / decode_s:.1f} "
+                f"decode tok/s ({decode_s * 1e3:.1f} ms for {new - 1} steps "
+                f"on the host clock); states {state_b} B, shared K/V "
+                f"{shared_b} B; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                f"[{nvidia_smi_line()}]")
+            del logits, cache, lg
+        same = int((streams["kernel"] == streams["plain"]).sum())
+        first = int((streams["kernel"][:, 0] == streams["plain"][:, 0]).sum())
+        log(f"[{name} bf16] kernel path's first tokens "
+            f"{streams['kernel'][:, :8].tolist()}; {same}/{b * new} tokens "
+            f"equal the plain path's, first tokens {first}/{b} (bf16, "
+            f"random weights: reported, not a gate)")
+        del params
+        free()
+
+
 # ----------------------------------------------------------------- main ----
 
 def free() -> None:
@@ -4136,7 +4625,7 @@ def main() -> int:
 
     phase("8 full-width zamba2-1.2b and rwkv6-1.6b fp32: kernel path vs "
           "plain path")
-    recurrent_parity()
+    depths = recurrent_parity()
 
     phase("9 eval full-width zamba2-1.2b and rwkv6-1.6b bf16")
     recurrent_eval(report)
@@ -4150,6 +4639,17 @@ def main() -> int:
     free()
     mesh2d_ranks()
     free()
+
+    phase("11 biased dense: K1 and K2 at the new head layouts, the fp32 "
+          "kernel path vs the plain path, granite-20b-code served in bf16")
+    check_bias_layouts(report)
+    bias_kernel_vs_plain(report)
+    granite_serve(report)
+
+    phase("12 recurrent decode: zamba2-1.2b and rwkv6-1.6b prefill states "
+          "and decode steps, fp32 against the forward, then bf16")
+    recurrent_decode_parity(depths)
+    recurrent_decode_serve()
 
     csrc = "src/repro_torch/csrc/"
     meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",
@@ -4184,8 +4684,14 @@ def main() -> int:
                               "src/repro/kernels/mamba2_ssd.py:52"),
             "wkv6_scan_bhsd": ("cuda", csrc + "rwkv6_wkv.cu",
                                "src/repro/kernels/rwkv6_wkv.py:50")}
+    # phase 11's head layouts: their own entries, beside the base mode's,
+    # each launched by a phase-11 run in the mode it was timed in
+    layouts = sorted(k for k in report if "[" in k)
+    idle = [k for k in layouts if not report[k]["launches"]]
+    assert not idle, f"no phase-11 run launched {idle}"
     kernels = []
-    for name, (route, source, replaces) in meta.items():
+    for name in list(meta) + layouts:
+        route, source, replaces = meta[name.split("[")[0]]
         r = report[name]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": r["launches"],

@@ -1,16 +1,24 @@
 """Config registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
-The dense decoder configs the port serves and trains, and the recurrent
-configs whose forward and eval it runs (zamba2-1.2b, hybrid; rwkv6-1.6b,
-ssm).  Their files are copies of the JAX package's, values unchanged (the
-port is held to the JAX package, not to the hub configs the files cite)."""
+The dense decoder configs the port serves and trains (qwen3-4b,
+llama3.2-3b, llama3-405b, starcoder2-3b and the paper's Granite family,
+the last two with LayerNorm, GELU and biases), and the recurrent configs
+whose forward, eval, prefill and decode it runs (zamba2-1.2b, hybrid;
+rwkv6-1.6b, ssm).  Their files are copies of the JAX package's, values
+unchanged (the port is held to the JAX package, not to the hub configs the
+files cite)."""
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.granite import GRANITE_8B, GRANITE_13B, GRANITE_20B
 from repro_torch.configs.llama3_2_3b import CONFIG as _llama32
+from repro_torch.configs.llama3_405b import CONFIG as _llama405
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
 from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
+from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2
 from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
 
-CONFIGS = {c.name: c for c in (_qwen3, _llama32, _zamba2, _rwkv6)}
+CONFIGS = {c.name: c for c in (_qwen3, _llama32, _llama405, _starcoder2,
+                               GRANITE_8B, GRANITE_13B, GRANITE_20B,
+                               _zamba2, _rwkv6)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -36,38 +36,45 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import (check_pool_write, dequantize_kv,
                                        quantize_kv)
-from repro_torch.models.common import P, apply_rope, depth_scale, norm_spec, \
-    rms_norm
+from repro_torch.models.common import (P, add_bias, apply_rope, dense_spec,
+                                       depth_scale, norm_spec, rms_norm)
 
 NEG_INF = -1e30
 
 
 def attention_spec(cfg):
+    """The JAX layouts: ``wq`` (d, H, D), ``wk``/``wv`` (d, KV, D), ``wo``
+    (H, D, d); with ``cfg.use_bias`` their biases are (H, D), (KV, D) and
+    (d,)."""
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
-    assert not cfg.use_bias, "the port's dense configs have no biases"
-    spec = {"wq": {"kernel": P((d, h, hd))},
-            "wk": {"kernel": P((d, kv, hd))},
-            "wv": {"kernel": P((d, kv, hd))},
+    bias = cfg.use_bias
+    spec = {"wq": dense_spec((d, h, hd), bias),
+            "wk": dense_spec((d, kv, hd), bias),
+            "wv": dense_spec((d, kv, hd), bias),
             "wo": {"kernel": P((h, hd, d), scale=depth_scale(cfg))}}
+    if bias:
+        spec["wo"]["bias"] = P((d,), init="zeros")
     if cfg.qk_norm:
         spec["q_norm"] = norm_spec(cfg, hd)
         spec["k_norm"] = norm_spec(cfg, hd)
     return spec
 
 
-def _proj(w, x):
-    """x (B, S, d) @ w (d, H, D) -> (B, S, H, D), in x's dtype."""
+def _proj(p, x):
+    """x (B, S, d) @ kernel (d, H, D) -> (B, S, H, D), in x's dtype, plus
+    the (H, D) bias where ``p`` has one."""
+    w = p["kernel"]
     w2 = w.reshape(w.shape[0], -1).to(x.dtype)
-    return (x @ w2).reshape(*x.shape[:2], *w.shape[1:])
+    return add_bias(p, (x @ w2).reshape(*x.shape[:2], *w.shape[1:]))
 
 
 def project_qkv(p, cfg, x, positions, norm_impl: str = "kernel"):
     """Returns q (B, S, KV, G, D) grouped for GQA and k, v (B, S, KV, D).
-    qwen3's q/k norms come before RoPE."""
-    q = _proj(p["wq"]["kernel"], x)
-    k = _proj(p["wk"]["kernel"], x)
-    v = _proj(p["wv"]["kernel"], x)
+    Biases are added before qwen3's q/k norms, which come before RoPE."""
+    q = _proj(p["wq"], x)
+    k = _proj(p["wk"], x)
+    v = _proj(p["wv"], x)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps, norm_impl)
         k = rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps, norm_impl)
@@ -79,10 +86,12 @@ def project_qkv(p, cfg, x, positions, norm_impl: str = "kernel"):
 
 
 def output_proj(p, cfg, y):
-    """y (B, S, KV, G, D) -> (B, S, d)."""
+    """y (B, S, KV, G, D) -> (B, S, d), plus ``wo``'s bias where it has
+    one."""
     b, s = y.shape[:2]
     wo = p["wo"]["kernel"]
-    return y.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1]).to(y.dtype)
+    return add_bias(p["wo"], y.reshape(b, s, -1)
+                    @ wo.reshape(-1, wo.shape[-1]).to(y.dtype))
 
 
 def dense_attention(q, k, v, causal: bool):

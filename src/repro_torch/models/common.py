@@ -69,6 +69,23 @@ def norm_spec(cfg, d: int = 0):
             "bias": P((d,), init="zeros", fp32=True)}
 
 
+def dense_spec(shape, use_bias: bool, scale: float = 0.02):
+    """A matrix ``{"kernel": (d_in, *out)}`` and, with ``use_bias``, a
+    ``"bias"`` over every output dim (``shape[1:]``), zeros at init (the
+    JAX ``dense_spec``)."""
+    spec = {"kernel": P(tuple(shape), scale=scale)}
+    if use_bias:
+        spec["bias"] = P(tuple(shape[1:]), init="zeros")
+    return spec
+
+
+def add_bias(p, y):
+    """``y`` plus ``p``'s bias, cast to y's dtype, where ``p`` has one: the
+    bias is added after the matmul in the activations' dtype, as the JAX
+    ``dense`` adds it."""
+    return y + p["bias"].to(y.dtype) if "bias" in p else y
+
+
 def stack_spec(spec, n: int):
     """Add a leading stacked-layers dim to every leaf."""
     if isinstance(spec, P):

@@ -1,6 +1,6 @@
 """Top-level model facade of the port (counterpart of the JAX
-``repro.models.lm.LM``) for the dense family and, forward and loss only,
-the hybrid and ssm families."""
+``repro.models.lm.LM``) for the dense, hybrid and ssm families; the
+recurrent ones prefill and decode over their raw state cache only."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -12,7 +12,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.common import (DTYPES, cross_entropy, init_params,
                                        resolve_device)
-from repro_torch.models.transformer import ForwardOpts, refuse_recurrent
+from repro_torch.models.transformer import ForwardOpts
 
 
 @dataclass
@@ -47,6 +47,15 @@ class LM:
                                  z_loss=z_loss, impl=opts.xent_impl)
         return loss, {"loss": loss, "nll": ce["nll"], "z_loss": ce["z_loss"],
                       "moe_aux": torch.zeros((), device=loss.device)}
+
+    def prefill(self, params, tokens, opts: ForwardOpts = ForwardOpts()):
+        """The JAX ``LM.prefill``: (the last row's logits (B, 1, Vp), the
+        cache of ``forward(collect_cache=True)``).  For the recurrent
+        families the cache holds the final states (and zamba2's shared K/V
+        over the S prompt rows), which ``decode_step`` continues from once
+        the K/V rows are copied into a cache of the decode length."""
+        logits, cache = self.forward(params, tokens, opts, collect_cache=True)
+        return logits[:, -1:], cache
 
     def decode_step(self, params, tokens, cache, positions,
                     decode_impl: str = "kernel", norm_impl: str = "kernel",
@@ -90,8 +99,17 @@ class LM:
         x pages mesh; ``locality_chips`` (paged only) partitions only the
         free list; ``host_pages`` / ``prefix_store`` (paged only) put a
         host-RAM page tier behind the pool (``repro_torch.serve.offload``).
-        The recurrent families have no KV cache: refused."""
-        refuse_recurrent(self.cfg, "init_cache")
+        The recurrent families take ``backend=None`` only: their states
+        (and zamba2's shared K/V rows) have no pages, and the serve engine
+        does not serve them, as in JAX."""
+        if self.cfg.family != "dense" and (
+                backend is not None or pool_group is not None
+                or dp_group is not None):
+            raise ValueError(
+                f"the {self.cfg.family} family ({self.cfg.name}) decodes "
+                "over its raw state cache (backend=None): recurrent state "
+                "has no page structure for a managed backend or a pool "
+                "group")
         dtype = dtype or DTYPES[self.cfg.dtype]
         if backend == "paged":
             from repro_torch.serve.kvcache import PagedCache

@@ -1,5 +1,6 @@
-"""Mamba2 block of the port, forward only (counterpart of the JAX
-``repro.models.mamba2`` without its decode step and final states).
+"""Mamba2 block of the port (counterpart of the JAX ``repro.models.mamba2``):
+the full-sequence forward, its final conv and SSM states, and the exact
+single-step decode recurrence.
 
 The SSD scan runs ``impl="kernel"`` (K6; its plain version on CPU tensors)
 or ``"plain"``: ``ssd_chunked``, the JAX model's chunked form, which rounds
@@ -11,9 +12,10 @@ keeps every intermediate in fp32, and K6's bf16 mode rounds three of them
 the tensor cores, which moves the fp32 scan's output by ~7e-3 at zamba2's
 eval shape before its own rounding (``kernels/mamba2_ssd.py``).  K6
 returns Y in the model layout, contiguous on the card, so the reshape
-after it is a view.  The depthwise conv is
-shift-and-add in the model dtype, as in JAX (an fp32 ``F.conv1d`` on the
-card would go through cuDNN in TF32).
+after it is a view.  K6 has no initial or final state (nor has the TPU
+kernel): a prefill that keeps its states runs ``ssd_chunked``.  The
+depthwise conv is shift-and-add in the model dtype, as in JAX (an fp32
+``F.conv1d`` on the card would go through cuDNN in TF32).
 """
 from __future__ import annotations
 
@@ -44,17 +46,22 @@ def mamba_spec(cfg):
     }
 
 
-def _causal_conv(x, kernel):
+def _causal_conv(x, kernel, state=None):
     """Depthwise causal conv by shift-and-add in x's dtype.  x (B, S, C);
-    kernel (w, C)."""
+    kernel (w, C); ``state`` (B, w-1, C), the previous segment's last
+    inputs (zeros when None).  Returns (y, the new state: the last w-1
+    rows of the padded input)."""
     w = kernel.shape[0]
     s = x.shape[1]
-    xp = F.pad(x, (0, 0, w - 1, 0))
+    if state is None:
+        xp = F.pad(x, (0, 0, w - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
     kernel = kernel.to(x.dtype)
     y = xp[:, 0:s] * kernel[0]
     for i in range(1, w):
         y = y + xp[:, i:i + s] * kernel[i]
-    return y
+    return y, xp[:, xp.shape[1] - (w - 1):]
 
 
 def _segsum_decay(dac):
@@ -68,10 +75,13 @@ def _segsum_decay(dac):
     return torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0), cs
 
 
-def ssd_chunked(X, dA, Bm, Cm, chunk: int):
-    """The JAX ``ssd_chunked`` (no initial or final state).  X (B, S, H, P)
-    dt-scaled; dA (B, S, H) = dt * A <= 0; Bm, Cm (B, S, N).  A ragged tail
-    is padded with steps that do nothing.  Returns Y (B, S, H, P)."""
+def ssd_chunked(X, dA, Bm, Cm, chunk: int, initial_state=None,
+                return_final: bool = False):
+    """The JAX ``ssd_chunked``.  X (B, S, H, P) dt-scaled; dA (B, S, H) =
+    dt * A <= 0; Bm, Cm (B, S, N); ``initial_state`` (B, H, P, N) fp32
+    (zeros when None).  A ragged tail is padded with steps that do nothing
+    (decay 1, no update), so the final state is the last real step's.
+    Returns Y (B, S, H, P) [, the final state (B, H, P, N) fp32]."""
     b, s, h, p = X.shape
     n = Bm.shape[-1]
     dtype = X.dtype
@@ -99,7 +109,8 @@ def ssd_chunked(X, dA, Bm, Cm, chunk: int):
     states = torch.einsum("bcjn,bcjh,bcjhp->bchpn", Bc,
                           decay_to_end.to(dtype), Xc)          # (b,c,h,p,n)
     chunk_decay = torch.exp(cs[:, :, -1, :])                   # (b,c,h)
-    hprev = torch.zeros((b, h, p, n), dtype=torch.float32, device=X.device)
+    hprev = (initial_state if initial_state is not None else
+             torch.zeros((b, h, p, n), dtype=torch.float32, device=X.device))
     starts = []
     for c in range(nc):
         starts.append(hprev)
@@ -109,36 +120,65 @@ def ssd_chunked(X, dA, Bm, Cm, chunk: int):
 
     Yoff = torch.einsum("bcin,bcih,bchpn->bcihp", Cc,
                         torch.exp(cs).to(dtype), h_starts.to(dtype))
-    return (Ydiag + Yoff).reshape(b, s, h, p)[:, :s_orig]
+    Y = (Ydiag + Yoff).reshape(b, s, h, p)[:, :s_orig]
+    return (Y, hprev) if return_final else Y
 
 
-def mamba_block(p, cfg, x, *, impl: str = "kernel", norm_impl: str = "kernel"):
-    """x (B, S, d) -> (B, S, d), the full-sequence forward.  ``impl`` picks
-    the SSD scan (``"kernel"``: K6; ``"plain"``: ``ssd_chunked``),
-    ``norm_impl`` the gated RMSNorm (K3 or its plain version).  Weights are
-    cast to x's dtype at each use, as JAX casts its fp32 masters."""
+def mamba_block(p, cfg, x, *, impl: str = "kernel", norm_impl: str = "kernel",
+                conv_state=None, ssm_state=None, decode: bool = False):
+    """x (B, S, d) -> (y (B, S, d), (conv state, SSM state)), as JAX's.
+    The conv state (B, w-1, d_inner + 2N) comes in concatenated, as a
+    cache holds it, and goes out as its three slices (x, B, C) in x's
+    dtype, concatenated by the caller that keeps it; the SSM state is
+    (B, H, P, N) fp32.  ``impl`` picks the SSD scan of the full-sequence forward
+    (``"kernel"``: K6, which has no state, so its SSM state is None;
+    ``"plain"``: ``ssd_chunked`` from ``ssm_state``), ``norm_impl`` the
+    gated RMSNorm (K3 or its plain version).  ``decode`` (S = 1) runs
+    JAX's exact single-step recurrence from ``conv_state``/``ssm_state``
+    (zeros when None): the state update and readout in fp32, Y cast to the
+    model dtype.  Weights are cast to x's dtype at each use, as JAX casts
+    its fp32 masters."""
     b, s, d = x.shape
-    din, h, pdim = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    din, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
     dtype = x.dtype
 
     def proj(name):
         return x @ p[name]["kernel"].to(dtype)
 
     z, xs, Bm, Cm, dt = (proj(k) for k in ("wz", "wx", "wB", "wC", "wdt"))
-    xs = F.silu(_causal_conv(xs, p["conv_x"]))
-    Bm = F.silu(_causal_conv(Bm, p["conv_B"]))
-    Cm = F.silu(_causal_conv(Cm, p["conv_C"]))
+    cs = ((None,) * 3 if conv_state is None else
+          (conv_state[..., :din], conv_state[..., din:din + n],
+           conv_state[..., din + n:]))
+    xs, cs_x = _causal_conv(xs, p["conv_x"], cs[0])
+    Bm, cs_b = _causal_conv(Bm, p["conv_B"], cs[1])
+    Cm, cs_c = _causal_conv(Cm, p["conv_C"], cs[2])
+    xs, Bm, Cm = F.silu(xs), F.silu(Bm), F.silu(Cm)
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())         # (B, S, H)
     dA = dt * -torch.exp(p["A_log"].float())                   # <= 0
     X = xs.reshape(b, s, h, pdim)
     Xdt = X * dt[..., None].to(dtype)
-    if impl == "kernel":
+    final = None
+    if decode:
+        assert s == 1, "a decode step takes one token"
+        st = ssm_state if ssm_state is not None else torch.zeros(
+            (b, h, pdim, n), dtype=torch.float32, device=x.device)
+        upd = torch.einsum("bn,bhp->bhpn", Bm[:, 0].float(),
+                           Xdt[:, 0].float())
+        final = st * torch.exp(dA[:, 0])[:, :, None, None] + upd
+        Y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(),
+                         final)[:, None].to(dtype)
+    elif impl == "kernel":
+        if ssm_state is not None:
+            raise ValueError("K6 has no initial state: a prefill from a "
+                             "state runs impl='plain'")
         Y = ops.mamba2_ssd(Xdt, dA, Bm, Cm, chunk=cfg.ssm_chunk)
     else:
         assert impl == "plain", impl
-        Y = ssd_chunked(Xdt, dA, Bm, Cm, cfg.ssm_chunk)
+        Y, final = ssd_chunked(Xdt, dA, Bm, Cm, cfg.ssm_chunk,
+                               initial_state=ssm_state, return_final=True)
     Y = Y + p["D"].to(dtype)[None, None, :, None] * X
     Y = Y.reshape(b, s, din)
     Y = rms_norm(Y * F.silu(z), p["norm"]["scale"], cfg.norm_eps, norm_impl)
-    return Y @ p["wo"]["kernel"].to(dtype)
+    return Y @ p["wo"]["kernel"].to(dtype), ((cs_x, cs_b, cs_c), final)

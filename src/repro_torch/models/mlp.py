@@ -1,24 +1,29 @@
 """Dense FFN of the port: SwiGLU ``act(x @ wg) * (x @ wi) @ wo`` (the gate is
-``wg``), or ``act(x @ wi) @ wo`` when the config has no gate."""
+``wg``), or ``act(x @ wi) @ wo`` when the config has no gate; with
+``cfg.use_bias`` each matrix has a bias, added after its matmul."""
 from __future__ import annotations
 
-from repro_torch.models.common import P, activation, depth_scale
+from repro_torch.models.common import activation, add_bias, dense_spec, \
+    depth_scale
 
 
 def mlp_spec(cfg):
-    d, f = cfg.d_model, cfg.d_ff
-    assert not cfg.use_bias, "the port's dense configs have no biases"
-    spec = {"wi": {"kernel": P((d, f))},
-            "wo": {"kernel": P((f, d), scale=depth_scale(cfg))}}
+    d, f, bias = cfg.d_model, cfg.d_ff, cfg.use_bias
+    spec = {"wi": dense_spec((d, f), bias),
+            "wo": dense_spec((f, d), bias, scale=depth_scale(cfg))}
     if cfg.act == "silu":
-        spec["wg"] = {"kernel": P((d, f))}
+        spec["wg"] = dense_spec((d, f), bias)
     return spec
 
 
 def mlp(p, cfg, x):
-    """Weights are cast to x's dtype at each use (a no-op for weights stored
-    in it), as JAX casts its fp32 masters."""
+    """Weights (and biases) are cast to x's dtype at each use (a no-op for
+    leaves stored in it), as JAX casts its fp32 masters."""
     act = activation(cfg.act)
-    h = x @ p["wi"]["kernel"].to(x.dtype)
-    h = act(x @ p["wg"]["kernel"].to(x.dtype)) * h if "wg" in p else act(h)
-    return h @ p["wo"]["kernel"].to(x.dtype)
+
+    def dense(q, y):
+        return add_bias(q, y @ q["kernel"].to(y.dtype))
+
+    h = dense(p["wi"], x)
+    h = act(dense(p["wg"], x)) * h if "wg" in p else act(h)
+    return dense(p["wo"], h)

@@ -1,16 +1,19 @@
-"""RWKV6 ("Finch") blocks of the port, forward only (counterpart of the JAX
-``repro.models.rwkv6`` without its decode step and final states): token
-shift with data-dependent mixing, the WKV6 recurrence with per-channel
-data-dependent decay, and the channel-mix FFN.
+"""RWKV6 ("Finch") blocks of the port (counterpart of the JAX
+``repro.models.rwkv6``): token shift with data-dependent mixing, the WKV6
+recurrence with per-channel data-dependent decay, the channel-mix FFN, and
+their final states and single-step decode.
 
 The recurrence runs ``impl="kernel"`` (K7; its plain version on CPU
 tensors) or ``"plain"``: ``wkv6_chunked``, the JAX model's chunked form.
 Both floor the per-step log decay at ``LOG_DECAY_FLOOR`` and split the
 intra-chunk decay around the chunk midpoint, exact for chunks of at most
-``CHUNK`` steps.  Two places keep JAX's mixed precision: the decay LoRA's
-second matrix ``wB`` multiplies in fp32 (so it is stored fp32, see
+``CHUNK`` steps.  K7 has no initial or final state (nor has the TPU
+kernel): a prefill that keeps its states runs ``wkv6_chunked``, a decode
+step ``wkv6_decode``.  Two places keep JAX's mixed precision: the decay
+LoRA's second matrix ``wB`` multiplies in fp32 (so it is stored fp32, see
 ``repro_torch.models.params``), and the ``ln_x`` group norm takes its mean
-in the model dtype and its variance in fp32.
+in the model dtype and its variance in fp32.  The shift states are the
+last row of each block's input, the normed residual.
 """
 from __future__ import annotations
 
@@ -60,15 +63,21 @@ def cmix_spec(cfg):
     }
 
 
-def _shift(x):
-    """The previous token's embedding, zeros at t = 0."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _shift(x, shift_state=None):
+    """The previous token's embedding: ``shift_state`` (B, 1, d), the
+    previous segment's last row, at t = 0 (zeros when None)."""
+    if shift_state is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([shift_state.to(x.dtype), x[:, :-1]], dim=1)
 
 
-def wkv6_chunked(r, k, v, lw, u, chunk: int = CHUNK):
-    """The JAX ``wkv6_chunked`` (no initial or final state).  r, k, lw
-    (B, S, H, K); v (B, S, H, V); u (H, K); lw <= 0, floored.  A ragged tail
-    is padded with steps that do nothing.  Returns fp32 (B, S, H, V)."""
+def wkv6_chunked(r, k, v, lw, u, chunk: int = CHUNK, initial_state=None,
+                 return_final: bool = False):
+    """The JAX ``wkv6_chunked``.  r, k, lw (B, S, H, K); v (B, S, H, V);
+    u (H, K); lw <= 0, floored; ``initial_state`` (B, H, K, V) fp32 (zeros
+    when None).  A ragged tail is padded with steps that do nothing (decay
+    1, no update).  Returns fp32 (B, S, H, V) [, the final state (B, H, K,
+    V) fp32]."""
     b, s, h, kd = r.shape
     vd = v.shape[-1]
     chunk = min(chunk, s)
@@ -97,7 +106,9 @@ def wkv6_chunked(r, k, v, lw, u, chunk: int = CHUNK):
     dte = torch.exp(cs[:, :, -1:] - cs)     # decay j -> chunk end, <= 1
     chunk_kv = torch.einsum("bcjhk,bcjhv->bchkv", kc * dte, vc)
     chunk_decay = torch.exp(cs[:, :, -1])   # (b, c, h, k)
-    sprev = torch.zeros((b, h, kd, vd), dtype=torch.float32, device=r.device)
+    sprev = (initial_state if initial_state is not None else
+             torch.zeros((b, h, kd, vd), dtype=torch.float32,
+                         device=r.device))
     starts = []
     for c in range(nc):
         starts.append(sprev)
@@ -105,7 +116,19 @@ def wkv6_chunked(r, k, v, lw, u, chunk: int = CHUNK):
     s_starts = torch.stack(starts, dim=1)   # (b, c, h, k, v)
 
     Yinter = torch.einsum("bcihk,bchkv->bcihv", rc * torch.exp(ce), s_starts)
-    return (Yintra + Yinter).reshape(b, s, h, vd)[:, :s_orig]
+    Y = (Yintra + Yinter).reshape(b, s, h, vd)[:, :s_orig]
+    return (Y, sprev) if return_final else Y
+
+
+def wkv6_decode(r, k, v, lw, u, state):
+    """One step of the recurrence, fp32 (the JAX ``wkv6_decode``): r, k, lw
+    (B, H, K); v (B, H, V); state (B, H, K, V).  Returns (out (B, H, V),
+    the new state)."""
+    rf, kf, vf = r.float(), k.float(), v.float()
+    a = kf[..., :, None] * vf[..., None, :]                # (B, H, K, V)
+    out = torch.einsum("bhk,bhkv->bhv", rf,
+                       state + u.float()[None, :, :, None] * a)
+    return out, state * torch.exp(lw.float())[..., None] + a
 
 
 def _mix_inputs(p, x, sx):
@@ -129,13 +152,19 @@ def log_decay(p, xw):
     return torch.clamp(lw, min=LOG_DECAY_FLOOR)
 
 
-def tmix_block(p, cfg, x, *, impl: str = "kernel"):
-    """Time mix, x (B, S, d) -> (B, S, d).  ``impl`` picks the WKV
-    recurrence (``"kernel"``: K7; ``"plain"``: ``wkv6_chunked``)."""
+def tmix_block(p, cfg, x, *, impl: str = "kernel", shift_state=None,
+               wkv_state=None, decode: bool = False):
+    """Time mix, x (B, S, d) -> (y (B, S, d), (the shift state x[:, -1:],
+    the WKV state (B, H, K, V) fp32)), as JAX's.  ``impl``
+    picks the recurrence of the full-sequence forward (``"kernel"``: K7,
+    which has no state, so its WKV state is None; ``"plain"``:
+    ``wkv6_chunked`` from ``wkv_state``); ``decode`` (S = 1) runs
+    ``wkv6_decode`` from ``wkv_state`` (zeros when None).  ``shift_state``
+    seeds the token shift."""
     b, s, d = x.shape
     h, kd = cfg.rwkv_heads, cfg.rwkv_head_dim
     dtype = x.dtype
-    sx = _shift(x) - x
+    sx = _shift(x, shift_state) - x
     xr, xw, xk, xv, xg = _mix_inputs(p, x, sx)
 
     r = xr @ p["wr"]["kernel"].to(dtype)
@@ -145,11 +174,23 @@ def tmix_block(p, cfg, x, *, impl: str = "kernel"):
     lw = log_decay(p, xw)
 
     rh, kh, vh, lwh = (t.reshape(b, s, h, kd) for t in (r, kk, vv, lw))
-    if impl == "kernel":
+    state = None
+    if decode:
+        assert s == 1, "a decode step takes one token"
+        st = wkv_state if wkv_state is not None else torch.zeros(
+            (b, h, kd, kd), dtype=torch.float32, device=x.device)
+        out, state = wkv6_decode(rh[:, 0], kh[:, 0], vh[:, 0], lwh[:, 0],
+                                 p["u"], st)
+        out = out[:, None]
+    elif impl == "kernel":
+        if wkv_state is not None:
+            raise ValueError("K7 has no initial state: a prefill from a "
+                             "state runs impl='plain'")
         out = ops.rwkv6_wkv(rh, kh, vh, lwh, p["u"], chunk=CHUNK)
     else:
         assert impl == "plain", impl
-        out = wkv6_chunked(rh, kh, vh, lwh, p["u"])
+        out, state = wkv6_chunked(rh, kh, vh, lwh, p["u"],
+                                  initial_state=wkv_state, return_final=True)
     out = out.to(dtype)
     # per-head group norm (ln_x): mean in the model dtype, variance in fp32
     mu = out.float().mean(dim=-1, keepdim=True).to(dtype)
@@ -157,16 +198,17 @@ def tmix_block(p, cfg, x, *, impl: str = "kernel"):
     out = ((out - mu) * torch.rsqrt(var + 64e-5).to(dtype)).reshape(b, s, d)
     out = out * p["ln_x"]["scale"].to(dtype) + p["ln_x"]["bias"].to(dtype)
     out = out * g
-    return out @ p["wo"]["kernel"].to(dtype)
+    return out @ p["wo"]["kernel"].to(dtype), (x[:, -1:], state)
 
 
-def cmix_block(p, cfg, x):
-    """Channel mix, x (B, S, d) -> (B, S, d)."""
+def cmix_block(p, cfg, x, *, shift_state=None):
+    """Channel mix, x (B, S, d) -> (y (B, S, d), the shift state
+    x[:, -1:]), as JAX's.  ``shift_state`` seeds the token shift."""
     dtype = x.dtype
-    sx = _shift(x) - x
+    sx = _shift(x, shift_state) - x
     xk = x + sx * p["mu_k"].to(dtype)
     xr = x + sx * p["mu_r"].to(dtype)
     kk = torch.square(F.relu(xk @ p["wk"]["kernel"].to(dtype)))
     vv = kk @ p["wv"]["kernel"].to(dtype)
     rr = torch.sigmoid(xr @ p["wr"]["kernel"].to(dtype))
-    return rr * vv
+    return rr * vv, x[:, -1:]

@@ -5,16 +5,18 @@ Layers are stacked along a leading dim of every parameter and applied in a
 Python loop.  Three entry points share the weights:
 
 * ``forward``     — full sequence (training and eval; prefill when
-  ``collect_cache``, for the dense family only)
+  ``collect_cache``: K/V for the dense family, the final recurrent states
+  and zamba2's shared-block K/V for the others)
 * ``decode_step`` — one token per slot at (B,) positions over a paged cache,
   whose pools it updates in place (dense family only), over this rank's
-  shards of pools split over a ``PoolGroup``, or over the dense cache of
-  ``init_cache`` (the contiguous layout)
+  shards of pools split over a ``PoolGroup``, or over the cache of
+  ``init_cache`` (the dense contiguous layout; the recurrent states, which
+  it also updates in place)
 * ``prefill_chunk`` — a (B, C) chunk of prompt tokens at per-request
   offsets over a paged cache (dense family only), the chunked prefill
 
-The recurrent families run forward only: their prefill (final states) and
-decode step wait for ROADMAP Queue 1 item 16's "decode states".
+Recurrent state has no per-position mask: a recurrent prefill takes
+equal-length prompts, as JAX's does.
 """
 from __future__ import annotations
 
@@ -26,10 +28,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, rwkv6
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (DTYPES, P, apply_norm, norm_spec,
-                                       rms_norm, stack_spec)
-
-RECURRENT = ("hybrid", "ssm")
-
+                                       stack_spec)
 
 @dataclass(frozen=True)
 class ForwardOpts:
@@ -46,15 +45,6 @@ class ForwardOpts:
         if self.remat != "none":
             raise ValueError(f"remat={self.remat!r}: the port keeps every "
                              "activation (remat 'none' only)")
-
-
-def refuse_recurrent(cfg, what: str) -> None:
-    """Raise for a family whose ``what`` the port does not run yet."""
-    if cfg.family in RECURRENT:
-        raise NotImplementedError(
-            f"{what} for the {cfg.family} family ({cfg.name}): the port runs "
-            "its full-sequence forward and eval only; prefill, decode and "
-            "training are the next slices (ROADMAP Queue 1 item 16)")
 
 
 def layer_spec(cfg):
@@ -111,83 +101,140 @@ def unembed(params, cfg, h, norm_impl: str = "kernel"):
     return h @ params["lm_head"]["kernel"].to(h.dtype)
 
 
-def _attn_layer(lp, cfg, h, opts: ForwardOpts):
-    a_in = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps, opts.norm_impl)
-    a, kv = attn.attention_block(lp["attn"], cfg, a_in, impl=opts.attn_impl,
-                                 norm_impl=opts.norm_impl,
-                                 q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
+def _attn_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
+    del collect                  # the K/V come with the attention output
+    a_in = apply_norm(lp["ln1"], h, cfg, opts.norm_impl)
+    a, (k, v) = attn.attention_block(lp["attn"], cfg, a_in,
+                                     impl=opts.attn_impl,
+                                     norm_impl=opts.norm_impl,
+                                     q_chunk=opts.q_chunk,
+                                     kv_chunk=opts.kv_chunk)
     h = h + a
-    f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, opts.norm_impl)
-    return h + mlp_mod.mlp(lp["mlp"], cfg, f_in), kv
+    f_in = apply_norm(lp["ln2"], h, cfg, opts.norm_impl)
+    return h + mlp_mod.mlp(lp["mlp"], cfg, f_in), {"k": k, "v": v}
 
 
-def _ssm_layer(lp, cfg, h, opts: ForwardOpts):
+# K6 and K7 have no final-state output (neither have the TPU kernels), so a
+# collected cache takes the plain chunked forms, as JAX takes "xla" there
+
+def _ssm_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
     x = apply_norm(lp["ln1"], h, cfg, opts.norm_impl)
-    h = h + rwkv6.tmix_block(lp["tmix"], cfg, x, impl=opts.mixer_impl)
+    y, (shift1, wkv) = rwkv6.tmix_block(
+        lp["tmix"], cfg, x, impl="plain" if collect else opts.mixer_impl)
+    h = h + y
     x2 = apply_norm(lp["ln2"], h, cfg, opts.norm_impl)
-    return h + rwkv6.cmix_block(lp["cmix"], cfg, x2)
+    y2, shift2 = rwkv6.cmix_block(lp["cmix"], cfg, x2)
+    return h + y2, {"shift1": shift1, "wkv": wkv, "shift2": shift2}
 
 
-def _hybrid_layer(lp, cfg, h, opts: ForwardOpts):
+def _hybrid_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
     x = apply_norm(lp["ln1"], h, cfg, opts.norm_impl)
-    return h + mamba2.mamba_block(lp["mamba"], cfg, x, impl=opts.mixer_impl,
-                                  norm_impl=opts.norm_impl)
+    y, (conv, ssm) = mamba2.mamba_block(
+        lp["mamba"], cfg, x, impl="plain" if collect else opts.mixer_impl,
+        norm_impl=opts.norm_impl)
+    if not collect:
+        return h + y, None
+    return h + y, {"conv": torch.cat(conv, dim=-1), "ssm": ssm}
+
+
+def _shared_in(sp, h, emb0):
+    """Zamba2's shared block input: the residual stream and the embedding
+    output, concatenated and projected (2d -> d)."""
+    return torch.cat([h, emb0], dim=-1) @ sp["in_proj"]["kernel"].to(h.dtype)
+
+
+def _shared_ffn(sp, cfg, u, norm_impl: str):
+    return u + mlp_mod.mlp(sp["mlp"], cfg,
+                           apply_norm(sp["ln2"], u, cfg, norm_impl))
 
 
 def _shared_block(sp, cfg, h, emb0, opts: ForwardOpts):
-    """Zamba2's shared block: the residual stream and the embedding output,
-    concatenated and projected (2d -> d), through attention (K2 under
-    ``attn_impl="flash"``) and the FFN; its output is added to h."""
-    u = torch.cat([h, emb0], dim=-1) @ sp["in_proj"]["kernel"].to(h.dtype)
-    a, _ = attn.attention_block(sp["attn"], cfg,
-                                apply_norm(sp["ln1"], u, cfg, opts.norm_impl),
-                                impl=opts.attn_impl, norm_impl=opts.norm_impl,
-                                q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
-    u = u + a
-    u = u + mlp_mod.mlp(sp["mlp"], cfg,
-                        apply_norm(sp["ln2"], u, cfg, opts.norm_impl))
-    return h + u
+    """Zamba2's shared block through attention (K2 under
+    ``attn_impl="flash"``) and the FFN; its output is added to h.  Returns
+    (h, {"k", "v"})."""
+    u = _shared_in(sp, h, emb0)
+    a, (k, v) = attn.attention_block(
+        sp["attn"], cfg, apply_norm(sp["ln1"], u, cfg, opts.norm_impl),
+        impl=opts.attn_impl, norm_impl=opts.norm_impl, q_chunk=opts.q_chunk,
+        kv_chunk=opts.kv_chunk)
+    return h + _shared_ffn(sp, cfg, u + a, opts.norm_impl), {"k": k, "v": v}
+
+
+def _fires(cfg, i: int) -> bool:
+    """Whether zamba2's shared block runs after layer i."""
+    every = cfg.hybrid_attn_every
+    return cfg.family == "hybrid" and bool(every) and i % every == every - 1
+
+
+def _stack(caches):
+    return {name: torch.stack([c[name] for c in caches])
+            for name in caches[0]}
 
 
 def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
             collect_cache: bool = False):
-    """tokens (B, S).  Returns (logits (B, S, Vp), cache | None) where cache
-    is ``{"layers": {"k": (L, B, S, KV, D), "v": ...}}`` (dense family
-    only).  A hybrid stack runs its shared block after layer i whenever
+    """tokens (B, S).  Returns (logits (B, S, Vp), cache | None).  The
+    collected cache is ``{"layers": ...}`` of per-layer leaves stacked along
+    a leading L dim: ``{"k", "v"}`` (L, B, S, KV, D) for the dense family,
+    ``{"shift1", "wkv", "shift2"}`` (L, B, 1, d), (L, B, H, K, V) fp32 and
+    (L, B, 1, d) for ssm, ``{"conv", "ssm"}`` (L, B, w-1, d_inner + 2N) and
+    (L, B, H, P, N) fp32 for hybrid, whose cache also holds ``"shared"``:
+    the shared block's ``{"k", "v"}`` (n_shared, B, S, KV, D), use j at
+    index j.  A hybrid stack runs its shared block after layer i whenever
     i % every == every - 1."""
-    if collect_cache:
-        refuse_recurrent(cfg, "forward(collect_cache=True)")
+    layer = {"dense": _attn_layer, "ssm": _ssm_layer,
+             "hybrid": _hybrid_layer}[cfg.family]
     h = embed(params, cfg, tokens)
-    emb0, every = h, cfg.hybrid_attn_every
-    ks, vs = [], []
+    emb0 = h
+    caches, shared = [], []
     for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        if cfg.family == "dense":
-            h, (k, v) = _attn_layer(lp, cfg, h, opts)
-            if collect_cache:
-                ks.append(k)
-                vs.append(v)
-        elif cfg.family == "ssm":
-            h = _ssm_layer(lp, cfg, h, opts)
-        else:
-            h = _hybrid_layer(lp, cfg, h, opts)
-            if every and i % every == every - 1:
-                h = _shared_block(params["shared"], cfg, h, emb0, opts)
+        h, cache = layer(layer_params(params, i), cfg, h, opts, collect_cache)
+        if _fires(cfg, i):
+            h, kv = _shared_block(params["shared"], cfg, h, emb0, opts)
+            shared.append(kv)
+        if collect_cache:
+            caches.append(cache)
     logits = unembed(params, cfg, h, opts.norm_impl)
-    cache = ({"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-             if collect_cache else None)
+    if not collect_cache:
+        return logits, None
+    cache = {"layers": _stack(caches)}
+    if shared:
+        cache["shared"] = _stack(shared)
     return logits, cache
 
 
 def init_cache(cfg, batch_size: int, max_seq: int, device, dtype):
-    """The dense decode cache (the JAX ``transformer.init_cache`` of the
-    dense family): ``{"layers": {"k": (L, B, S, KV, D), "v": ...}}`` of
-    zeros, the contiguous layout that ``decode_step`` takes directly."""
-    refuse_recurrent(cfg, "init_cache")
-    shape = (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"layers": {name: torch.zeros(shape, dtype=dtype, device=device)
-                       for name in "kv"}}
+    """The raw decode cache (the JAX ``transformer.init_cache``), zeros:
+    ``{"layers": {"k", "v"}}`` (L, B, S, KV, D) for the dense family (the
+    contiguous layout that ``decode_step`` takes directly); for ssm the
+    shift states (L, B, 1, d) in ``dtype`` and the WKV state (L, B, H, K, K)
+    fp32; for hybrid the conv state (L, B, w-1, d_inner + 2N) in ``dtype``,
+    the SSM state (L, B, H, P, N) fp32 and the shared block's ``{"k", "v"}``
+    (n_shared, B, S, KV, D)."""
+    L, b = cfg.num_layers, batch_size
+    kv_shape = (b, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if cfg.family == "dense":
+        return {"layers": {"k": zeros((L, *kv_shape)),
+                           "v": zeros((L, *kv_shape))}}
+    if cfg.family == "ssm":
+        d, h, kd = cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim
+        return {"layers": {"shift1": zeros((L, b, 1, d)),
+                           "wkv": zeros((L, b, h, kd, kd), torch.float32),
+                           "shift2": zeros((L, b, 1, d))}}
+    din, n = cfg.d_inner, cfg.ssm_state
+    cache = {"layers": {
+        "conv": zeros((L, b, cfg.ssm_conv_dim - 1, din + 2 * n)),
+        "ssm": zeros((L, b, cfg.ssm_heads, cfg.ssm_head_dim, n),
+                     torch.float32)}}
+    n_shared = sum(_fires(cfg, i) for i in range(L))
+    if n_shared:
+        cache["shared"] = {"k": zeros((n_shared, *kv_shape)),
+                           "v": zeros((n_shared, *kv_shape))}
+    return cache
 
 
 def decode_step(params, cfg, tokens, cache, positions,
@@ -206,24 +253,78 @@ def decode_step(params, cfg, tokens, cache, positions,
     each layer's attention rows are split.  A cache with no
     ``"page_table"`` is the dense (L, B, S, KV, D) layout of
     ``init_cache``, written in place, each slot at its own position
-    (``decode_impl`` ignored).  Returns (logits (B, 1, Vp), cache)."""
-    refuse_recurrent(cfg, "decode_step")
+    (``decode_impl`` ignored).  The recurrent families take the cache of
+    ``init_cache`` (or of ``forward(collect_cache=True)``) only, whose
+    states they update in place (``_recurrent_decode``).  Returns (logits
+    (B, 1, Vp), cache)."""
     page_table = cache.get("page_table")
+    if cfg.family != "dense":
+        if page_table is not None or pool_group is not None \
+                or dp_group is not None:
+            raise ValueError(
+                "paged KV decode is attention-cache families only; recurrent "
+                f"state has no page structure (family={cfg.family})")
+        return _recurrent_decode(params, cfg, tokens, cache, positions,
+                                 norm_impl), cache
     pools = cache["layers"]
     quantized = "k_scale" in pools
     h = embed(params, cfg, tokens)
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
-        a_in = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps, norm_impl)
+        a_in = apply_norm(lp["ln1"], h, cfg, norm_impl)
         scales = ({"k_scale": pools["k_scale"][i],
                    "v_scale": pools["v_scale"][i]} if quantized else {})
         h = h + attn.attention_decode_block(
             lp["attn"], cfg, a_in, pools["k"][i], pools["v"][i], positions,
             page_table, decode_impl=decode_impl, norm_impl=norm_impl,
             pool_group=pool_group, dp_group=dp_group, **scales)
-        f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, norm_impl)
+        f_in = apply_norm(lp["ln2"], h, cfg, norm_impl)
         h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
     return unembed(params, cfg, h, norm_impl), cache
+
+
+def _recurrent_decode(params, cfg, tokens, cache, positions, norm_impl):
+    """The ssm and hybrid decode step (the JAX ``decode_step`` bodies):
+    every layer's exact single-step recurrence (plain torch: neither
+    package has a kernel for it), its new states copied into the cache in
+    place; zamba2's shared block decodes over its raw dense K/V rows at
+    ``positions``.  Returns the logits (B, 1, Vp)."""
+    states = cache["layers"]
+    h = embed(params, cfg, tokens)
+    emb0 = h
+    n_shared = 0
+    for i in range(cfg.num_layers):
+        lp = layer_params(params, i)
+        x = apply_norm(lp["ln1"], h, cfg, norm_impl)
+        if cfg.family == "ssm":
+            y, (shift1, wkv) = rwkv6.tmix_block(
+                lp["tmix"], cfg, x, shift_state=states["shift1"][i],
+                wkv_state=states["wkv"][i], decode=True)
+            h = h + y
+            x2 = apply_norm(lp["ln2"], h, cfg, norm_impl)
+            y2, shift2 = rwkv6.cmix_block(lp["cmix"], cfg, x2,
+                                          shift_state=states["shift2"][i])
+            h = h + y2
+            new = {"shift1": shift1, "wkv": wkv, "shift2": shift2}
+        else:
+            y, (conv, ssm) = mamba2.mamba_block(
+                lp["mamba"], cfg, x, norm_impl=norm_impl,
+                conv_state=states["conv"][i], ssm_state=states["ssm"][i],
+                decode=True)
+            h = h + y
+            new = {"conv": torch.cat(conv, dim=-1), "ssm": ssm}
+            if _fires(cfg, i):
+                sp, skv = params["shared"], cache["shared"]
+                u = _shared_in(sp, h, emb0)
+                a = attn.attention_decode_block(
+                    sp["attn"], cfg, apply_norm(sp["ln1"], u, cfg, norm_impl),
+                    skv["k"][n_shared], skv["v"][n_shared], positions,
+                    norm_impl=norm_impl)
+                h = h + _shared_ffn(sp, cfg, u + a, norm_impl)
+                n_shared += 1
+        for name, t in new.items():
+            states[name][i].copy_(t)
+    return unembed(params, cfg, h, norm_impl)
 
 
 def prefill_chunk(params, cfg, tokens, cache, start_pos, dest, last_pos,
@@ -247,14 +348,14 @@ def prefill_chunk(params, cfg, tokens, cache, start_pos, dest, last_pos,
     h = embed(params, cfg, tokens)
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
-        a_in = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps, norm_impl)
+        a_in = apply_norm(lp["ln1"], h, cfg, norm_impl)
         scales = ({"k_scale": pools["k_scale"][i],
                    "v_scale": pools["v_scale"][i]} if quantized else {})
         h = h + attn.attention_prefill_chunk_block(
             lp["attn"], cfg, a_in, pools["k"][i], pools["v"][i], start_pos,
             dest, page_table, last_pos, norm_impl=norm_impl,
             pool_group=pool_group, dp_group=dp_group, **scales)
-        f_in = rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps, norm_impl)
+        f_in = apply_norm(lp["ln2"], h, cfg, norm_impl)
         h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
     take = (last_pos - start_pos).long()
     h_last = h[torch.arange(h.shape[0], device=h.device), take][:, None]

@@ -32,6 +32,7 @@ from repro_torch.serve import PagedCache, Request, ServeEngine
 from test_torch_contiguous import (ROOT, _assert_streams_match,
                                    _jax_launcher_requests, setup)
 from test_torch_sharded import _env, _free_port
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 COUNTERS = ("serve_prefill_chunks_total", "serve_prefill_chunk_stalls_total",

@@ -33,6 +33,7 @@ from repro_torch.models.params import from_jax
 from repro_torch.serve import (ContiguousCache, PagedCache, Request,
                                ServeEngine)
 from repro_torch.serve.kvcache import contiguous_kv_bytes
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen3-4b", "llama3.2-3b"]

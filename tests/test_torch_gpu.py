@@ -61,11 +61,15 @@ def _splits(q, k_pool, table, quant=False) -> int:
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d,page,g", [(32, 4, 4), (128, 16, 4), (40, 4, 4),
-                                      (256, 16, 4), (128, 16, 12)])
+                                      (256, 16, 4), (128, 16, 12),
+                                      (128, 16, 1), (128, 16, 48)])
 def test_paged_decode_kernel_matches_plain(dtype, d, page, g):
     """Boundary positions (0, page edges, a full table), a freed slot on
     scratch page 0, and NaN in every dead page.  bf16 at D=40 and D=256
-    takes the CUDA-core path, and G=12 two clusters of query rows."""
+    takes the CUDA-core path, G=12 two clusters of query rows; G=1
+    (granite-13b's MHA, 7 of 8 tensor-core rows padding) and G=48
+    (granite-20b-code's MQA, six 8-row query blocks) the biased configs'
+    head layouts."""
     dev = _card()
     gen = torch.Generator().manual_seed(1)
     b, kv, m = 6, 2, 6
@@ -321,12 +325,13 @@ def _k2_launches():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("g", [1, 4, 48])
 @pytest.mark.parametrize("s,causal", [(16, True), (200, True), (256, False),
                                       (2048, True)])
 def test_flash_attention_kernel_head_dims_and_groups(dtype, d, g, s, causal):
     """Each bf16 instantiation (D = 32, 64, 128) and the fp32 mode, with
-    and without GQA, ragged and long S; each launch counts in its mode."""
+    and without GQA (G = 48: granite-20b-code's MQA), ragged and long S;
+    each launch counts in its mode."""
     dev = _card()
     td, kv = DTYPES[dtype], 2
     q = torch.randn(2 * kv * g, s, d, device=dev).to(td)

@@ -38,6 +38,7 @@ from repro_torch.models.attention import _scatter_paged_kv
 from repro_torch.models.params import cache_from_jax, from_jax
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve import kvcache as tkvcache
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=2e-5, atol=2e-5)

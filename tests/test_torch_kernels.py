@@ -18,6 +18,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_decode as tpd
 from repro_torch.kernels import softmax_xent as tsx
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng(7)
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -33,6 +33,7 @@ from repro_torch.models import mamba2 as tmamba
 from repro_torch.models.params import from_jax
 from repro_torch.models.transformer import layer_params
 from repro_torch.train import make_eval_step, make_train_step
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 NAME = "zamba2-1.2b"
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -151,8 +152,9 @@ def test_mamba_block_matches_jax(impl, jimpl, dtype):
     jx = jnp.asarray(x, JDT[dtype])
     jp = jax.tree.map(lambda a: a[0], jparams["layers"])["mamba"]
     exp, _ = jmamba.mamba_block(jp, jcfg, jx, impl=jimpl)
-    got = tmamba.mamba_block(layer_params(tp, 0)["mamba"], tcfg,
-                             _t(np.asarray(jx, np.float32), dtype), impl=impl)
+    got, _ = tmamba.mamba_block(layer_params(tp, 0)["mamba"], tcfg,
+                                _t(np.asarray(jx, np.float32), dtype),
+                                impl=impl)
     assert got.dtype == TDT[dtype]
     np.testing.assert_allclose(_np(got), _np(exp), **TOL[dtype])
 
@@ -243,17 +245,24 @@ def test_config_copy_equals_jax():
     assert j.param_count() == t.param_count()
 
 
-def test_recurrent_prefill_decode_and_training_are_refused():
+def test_recurrent_training_and_paged_backend_stay_refused():
+    """Prefill and decode run over the raw state cache (item 16); training
+    (item 17) and the managed cache backends stay refused, as JAX's paged
+    decode and engine refuse recurrent state."""
     _, _, _, tcfg, tlm, tparams = setup()
-    toks = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tlm.forward(tparams, toks, collect_cache=True)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tlm.init_cache(1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tlm.decode_step(tparams, toks[:, :1], {}, torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    with pytest.raises(NotImplementedError, match="item 17"):
         make_train_step(tlm, TrainConfig())
+    for backend in ("paged", "contiguous"):
+        with pytest.raises(ValueError, match="page structure"):
+            tlm.init_cache(1, 16, backend=backend, device="cpu")
+    with pytest.raises(ValueError, match="page structure"):
+        tlm.init_cache(1, 16, backend=None, device="cpu",
+                       pool_group=object())
+    cache = tlm.init_cache(1, 16, backend=None, device="cpu")
+    cache["page_table"] = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="page structure"):
+        tlm.decode_step(tparams, torch.zeros(1, 1, dtype=torch.long), cache,
+                        torch.zeros(1, dtype=torch.int32))
 
 
 def test_cpu_kernel_path_counts_no_launch():

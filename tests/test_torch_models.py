@@ -22,6 +22,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models.params import from_jax
 from repro_torch.models.transformer import layer_params
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 ARCHS = ["qwen3-4b", "llama3.2-3b"]
 TOL = dict(rtol=2e-5, atol=2e-5)

@@ -19,6 +19,7 @@ from repro.kernels import paged_decode as jpd
 from repro.kernels import ref as jref
 from repro_torch.kernels import paged_decode as tpd
 from repro_torch.kernels.quant import quantize_kv
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 TOL = {"fp32": 2e-5, "bf16": 2e-2, "int8": 2e-5}
 B, KV, G, D, PAGE = 5, 2, 2, 32, 4

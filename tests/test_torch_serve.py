@@ -28,6 +28,7 @@ from repro_torch.models import LM
 from repro_torch.models.params import from_jax
 from repro_torch.serve import (Request, SamplingParams, ServeEngine,
                                filtered_probs, sample_batch)
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

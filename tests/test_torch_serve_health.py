@@ -25,6 +25,7 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.kvcache import CacheInvariantError
 from test_torch_contiguous import _assert_streams_match, _workload, setup
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 EVERY = 4
 

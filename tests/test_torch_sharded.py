@@ -34,6 +34,7 @@ from repro_torch.models.params import from_jax
 from repro_torch.parallel import PoolGroup
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.kvcache import PagedCache, page_kv_bytes
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"fp32": 2e-5, "bf16": 2e-2, "int8": 2e-5}

@@ -46,6 +46,7 @@ from repro_torch.models.params import from_jax, train_state_from_jax
 from repro_torch.train import (adamw_update, init_opt_state, lr_schedule,
                                make_eval_step, make_train_step)
 from repro_torch.train.optimizer import tree_leaves
+from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen3-4b", "llama3.2-3b"]
@@ -354,12 +355,9 @@ def test_checkpoints_cross_between_jax_and_port(tmp_path, writer):
 
 # ------------------------------------------------------------------ FT loop --
 
-@pytest.mark.parametrize("fail", [(5, 10), (1, 5, 10)])
-def test_ft_loop_failure_equivalence(tmp_path, fail):
-    """The loss trajectory with injected crashes equals the failure-free run
-    (rel 1e-5, as the JAX reference asserts); a crash before the first
-    checkpoint restarts from a freshly built initial state."""
-    jcfg, _, jparams, tcfg, tlm = setup("qwen3-4b")
+def _ft_parts():
+    """The FT runs' train step, initial-state function and 12 batches."""
+    jcfg, _, _, tcfg, tlm = setup("qwen3-4b")
     init_np = jax_trajectory("qwen3-4b", 1)[0][0]
     step = make_train_step(tlm, TrainConfig(**TCFG), TOPTS)
     batches = {i: _batch(jcfg, 100 + i, b=2) for i in range(12)}
@@ -367,8 +365,26 @@ def test_ft_loop_failure_equivalence(tmp_path, fail):
     def init():
         return train_state_from_jax(init_np, tcfg, "cpu")
 
-    clean = FTTrainLoop(step, init, str(tmp_path / "a"), ckpt_every=3)
+    return step, init, batches
+
+
+@pytest.fixture(scope="module")
+def clean_ft_run(tmp_path_factory):
+    """The failure-free run, shared by the failure cases."""
+    step, init, batches = _ft_parts()
+    clean = FTTrainLoop(step, init, str(tmp_path_factory.mktemp("clean")),
+                        ckpt_every=3)
     clean.run(batches.__getitem__, 12)
+    return clean
+
+
+@pytest.mark.parametrize("fail", [(5, 10), (1, 5, 10)])
+def test_ft_loop_failure_equivalence(tmp_path, fail, clean_ft_run):
+    """The loss trajectory with injected crashes equals the failure-free run
+    (rel 1e-5, as the JAX reference asserts); a crash before the first
+    checkpoint restarts from a freshly built initial state."""
+    step, init, batches = _ft_parts()
+    clean = clean_ft_run
     faulty = FTTrainLoop(step, init, str(tmp_path / "b"), ckpt_every=3)
     final = faulty.run(batches.__getitem__, 12, fail_at=lambda s: s in fail)
     assert faulty.restarts == len(fail)
