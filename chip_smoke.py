@@ -249,14 +249,43 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    bytes, peak memory; launches exact (zamba2's prefill K2 6 and K3 89
    times, each decode step K3 89 times and no K2; rwkv6 none); the first
    tokens and the two paths' stream agreement printed.
+13. recurrent training (zamba2-1.2b, rwkv6-1.6b at full width and depth,
+   fp32 parameters and moments, bf16 compute, random weights from seed
+   0): ``FTTrainLoop`` over ``make_train_step`` (blockwise attention, plain
+   norms, the plain chunked mixers; K4 and K5) on one fixed batch from a
+   synthetic corpus, 6 steps under each remat policy: "none" at 4 x 512
+   (at 4 x 1024 its activations would pass the card), "selective" and
+   "full" at 4 x 1024; losses finite and falling, K4 forward and backward
+   once a step, K5 once a parameter tensor a step, no other kernel; step
+   0's loss bitwise equal across the policies and its grad_norm within
+   1e-4 relative ("none" against one step of each other policy at 4 x 512,
+   selective against full at 4 x 1024); step ms, tok/s, MFU and peak
+   memory of each run; K4 at the phase's logits (4,096 x 32,000 and 4,096
+   x 65,536, bf16) and K5 at each model's largest parameter tensor, timed;
+14. vlm (internvl2-2b: the dense GQA decoder behind 256 stub-ViT patch
+   embeddings, KV=8 G=2 D=128): K1 at that head layout against its plain
+   version and split schedule, native and int8, fp32 and bf16 q, timed;
+   K2 at the image-prefixed blocks (fp32 4 x 384, bf16 8 x 512) timed; (a)
+   fp32 at full width cut to 4 layers, ``img_pos`` redrawn, 4 prompts
+   behind seeded images: the kernel path against the plain path over
+   native and int8 pages, one prefill and 16 decode steps, logits to 1e-3,
+   greedy tokens equal wherever decided, K1/K2/K3 launches exact; (b)
+   bf16 at full size on phase 5's workload, a seeded random (256, 2048)
+   image a request, through the graph and eagerly, native and int8 pages
+   (``serve_runs``' gates): graph streams equal the eager ones, no page
+   shared; tok/s, TTFT p50, one replay's device ms, pool bytes; (c) 4 train
+   steps at full size (remat "selective"), batch 4 x (256 + 256): losses
+   finite and falling, K4/K5 launches exact, step ms, MFU, peak memory.
 
 It then prints a ``kernels`` JSON line (K1's entries at the serve shape,
-with the long shape's numbers under ``long``; phase 11's head layouts as
-entries of their own, ``name[KV=..,G=..]`` and for K1, whose q dtypes take
-different paths, ``name[KV=..,G=..,fp32|bf16]``, each timed in the mode
-that phase 11's runs launch at that layout and holding those launches,
-never 0), the card's name and power limit, and,
-last, ``{"ok": true, "device": {...}}``.
+with the long shape's numbers under ``long``; phases 11 and 14's head
+layouts as entries of their own, ``name[KV=..,G=..]`` and for K1, whose q
+dtypes take different paths, ``name[KV=..,G=..,fp32|bf16]``, each timed in
+the mode that the phase's runs launch at that layout and holding those
+launches; phase 13's K4 and K5 as ``name[<arch> train]``, timed at that
+phase's shapes and holding its launches; none with 0 launches), the
+card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -857,33 +886,35 @@ def check_k3(report):
 K4_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}   # elementwise rel
 
 
+def k4_check(x, y, g_nll, g_lse, vocab, what):
+    """Forward (nll, lse to 1e-4 absolute; fp32 math on either dtype) and
+    backward (each element to K4_BWD_TOL of its own size, the padded
+    tail exactly 0) against the plain versions."""
+    from repro_torch.kernels import softmax_xent as sx
+    dtype = x.dtype
+    nll, lse = sx.softmax_xent_fwd(x, y, vocab)
+    rnll, rlse = sx.softmax_xent_ref(x, y, vocab)
+    d = sx.softmax_xent_bwd(x, y, lse, g_nll, g_lse, vocab)
+    rd = sx.softmax_xent_bwd_ref(x, y, lse, g_nll, g_lse, vocab)
+    torch.cuda.synchronize()
+    e_f = max(max_err(nll, rnll), max_err(lse, rlse))
+    e_b, r_b = max_err(d, rd), elem_rel_err(d, rd)
+    tail = float(d[:, vocab:].float().abs().sum())
+    log(f"K4 softmax_xent {str(dtype)[6:]:8s} {what}: fwd max_abs_err "
+        f"{e_f:.3e} (tol {TOL[torch.float32]}); bwd elementwise rel err "
+        f"{r_b:.3e} (tol {K4_BWD_TOL[dtype]}), max_abs_err {e_b:.3e} "
+        f"(|dlogits| in [{float(rd[:, :vocab].float().abs().min()):.2e}, "
+        f"{float(rd.float().abs().max()):.2e}]), padded-tail grad {tail}")
+    assert e_f <= TOL[torch.float32], "K4 fwd disagrees with plain"
+    assert r_b <= K4_BWD_TOL[dtype] and tail == 0.0, \
+        "K4 bwd disagrees with plain"
+    return e_f, e_b, lse
+
+
 def check_k4(report):
     from repro_torch.kernels import softmax_xent as sx
     gen = torch.Generator().manual_seed(6)
-
-    def check(x, y, g_nll, g_lse, vocab, what):
-        """Forward (nll, lse to 1e-4 absolute; fp32 math on either dtype)
-        and backward (each element to K4_BWD_TOL of its own size, the
-        padded tail exactly 0) against the plain versions."""
-        dtype = x.dtype
-        nll, lse = sx.softmax_xent_fwd(x, y, vocab)
-        rnll, rlse = sx.softmax_xent_ref(x, y, vocab)
-        d = sx.softmax_xent_bwd(x, y, lse, g_nll, g_lse, vocab)
-        rd = sx.softmax_xent_bwd_ref(x, y, lse, g_nll, g_lse, vocab)
-        torch.cuda.synchronize()
-        e_f = max(max_err(nll, rnll), max_err(lse, rlse))
-        e_b, r_b = max_err(d, rd), elem_rel_err(d, rd)
-        tail = float(d[:, vocab:].float().abs().sum())
-        log(f"K4 softmax_xent {str(dtype)[6:]:8s} {what}: fwd max_abs_err "
-            f"{e_f:.3e} (tol {TOL[torch.float32]}); bwd elementwise rel err "
-            f"{r_b:.3e} (tol {K4_BWD_TOL[dtype]}), max_abs_err {e_b:.3e} "
-            f"(|dlogits| in [{float(rd[:, :vocab].float().abs().min()):.2e}, "
-            f"{float(rd.float().abs().max()):.2e}]), padded-tail grad {tail}")
-        assert e_f <= TOL[torch.float32], "K4 fwd disagrees with plain"
-        assert r_b <= K4_BWD_TOL[dtype] and tail == 0.0, \
-            "K4 bwd disagrees with plain"
-        return e_f, e_b, lse
-
+    check = k4_check
     # the train path's rows (8 x 256 tokens, qwen3 vocab) and a padded
     # vocab, with O(1) upstream gradients so both the softmax term and the
     # label term of the backward are of a size that the check can see
@@ -910,14 +941,24 @@ def check_k4(report):
     log("K4 refuses a 1001-column bf16 pitch (not 16-byte aligned)")
     # timing at the train path's shape, bf16 logits, the train path's
     # upstream gradients (mean loss with z-loss 1e-4)
-    n, vp = 2048, 151936
+    fwd, bwd = k4_timed(2048, 151936, gen)
+    report["softmax_xent_fwd"] = fwd
+    report["softmax_xent_bwd"] = bwd
+
+
+def k4_timed(n, vp, gen, what=""):
+    """K4's forward and backward at N x Vp bf16 logits (every column live),
+    the train path's upstream gradients (mean loss, z-loss 1e-4): checked
+    against the plain versions (``k4_check``), then timed beside them, the
+    library call and the bound.  Returns the two report entries."""
+    from repro_torch.kernels import softmax_xent as sx
     x = (2 * torch.randn(n, vp, generator=gen)).to(DEV, torch.bfloat16)
     y = torch.randint(0, vp, (n,), generator=gen).to(DEV, torch.int32)
     g_nll = torch.full((n,), 1.0 / n, device=DEV)
     _, rlse = sx.softmax_xent_ref(x, y, vp)
     g_lse = 2e-4 * rlse / n
-    err_f, err_b, lse = check(x, y, g_nll, g_lse, vp,
-                              f"timed inputs N={n} Vp={vp}")
+    err_f, err_b, lse = k4_check(x, y, g_nll, g_lse, vp,
+                                 f"timed inputs N={n} Vp={vp}{what}")
     ce = torch.nn.functional.cross_entropy
     fwd = dict(
         ms=time_ms(lambda: sx.softmax_xent_fwd(x, y, vp)),
@@ -944,65 +985,83 @@ def check_k4(report):
     for name, r, err, lib in (("forward", fwd, err_f, "F.cross_entropy"),
                               ("backward", bwd, err_b,
                                "autograd of F.cross_entropy, eager")):
-        log(f"K4 {name} timing bf16 N={n} Vp={vp}: kernel {r['ms']:.4f} ms "
-            f"(eager back-to-back {r['host_ms']:.4f} ms), plain "
-            f"{r['plain_ms']:.4f} ms, {lib} on fp32 {r['library_ms']:.4f} "
-            f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        log(f"K4 {name} timing bf16 N={n} Vp={vp}{what}: kernel "
+            f"{r['ms']:.4f} ms (eager back-to-back {r['host_ms']:.4f} ms), "
+            f"plain {r['plain_ms']:.4f} ms, {lib} on fp32 "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}) [{nvidia_smi_line()}]")
         r["max_abs_err"] = err
-    report["softmax_xent_fwd"] = fwd
-    report["softmax_xent_bwd"] = bwd
+    del x, y, lse
+    return fwd, bwd
+
+
+K5_HYPER = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1,
+                bias_corr1=1 - 0.9 ** 3, bias_corr2=1 - 0.95 ** 3)
+
+
+def k5_inputs(n, gdtype, gen):
+    g = torch.randn(n, generator=gen).to(DEV, gdtype)
+    m = (0.1 * torch.randn(n, generator=gen)).to(DEV)
+    v = (0.1 * torch.rand(n, generator=gen)).to(DEV)
+    p = (0.02 * torch.randn(n, generator=gen)).to(DEV)
+    return g, m, v, p
+
+
+def k5_agree(g, m, v, p, what) -> float:
+    """K5 against its plain version on copies of these operands (1e-6)."""
+    from repro_torch.kernels import adamw_update as aw
+    scale = torch.tensor(0.5, device=DEV)
+    km, kv, kp = m.clone(), v.clone(), p.clone()
+    rm, rv, rp = m.clone(), v.clone(), p.clone()
+    aw.adamw_fused(g, km, kv, kp, scale, **K5_HYPER)
+    aw.adamw_ref(g, rm, rv, rp, scale, **K5_HYPER)
+    torch.cuda.synchronize()
+    err = max(max_err(km, rm), max_err(kv, rv), max_err(kp, rp))
+    log(f"K5 adamw grad {str(g.dtype)[6:]:8s} {what}: max_abs_err "
+        f"{err:.3e} (tol 1e-6)")
+    assert err <= 1e-6, "K5 disagrees with its plain version"
+    return err
 
 
 def check_k5(report):
-    from repro_torch.kernels import adamw_update as aw
     gen = torch.Generator().manual_seed(7)
-    hyper = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1,
-                 bias_corr1=1 - 0.9 ** 3, bias_corr2=1 - 0.95 ** 3)
-    scale = torch.tensor(0.5, device=DEV)
-
-    def inputs(n, gdtype):
-        g = torch.randn(n, generator=gen).to(DEV, gdtype)
-        m = (0.1 * torch.randn(n, generator=gen)).to(DEV)
-        v = (0.1 * torch.rand(n, generator=gen)).to(DEV)
-        p = (0.02 * torch.randn(n, generator=gen)).to(DEV)
-        return g, m, v, p
-
     # the tied embedding's size (151936 x 2560), a ragged size and the
     # smallest leaves (qk norms)
     emb = 151936 * 2560
     for gdtype in (torch.float32, torch.bfloat16):
         for n in (emb, 3 * 4096 + 7, 128):
-            g, m, v, p = inputs(n, gdtype)
-            km, kv, kp = m.clone(), v.clone(), p.clone()
-            aw.adamw_fused(g, km, kv, kp, scale, **hyper)
-            aw.adamw_ref(g, m, v, p, scale, **hyper)
-            torch.cuda.synchronize()
-            err = max(max_err(km, m), max_err(kv, v), max_err(kp, p))
-            log(f"K5 adamw grad {str(gdtype)[6:]:8s} n={n:9d}: max_abs_err "
-                f"{err:.3e} (tol 1e-6)")
-            assert err <= 1e-6, "K5 disagrees with its plain version"
-            if n == emb and gdtype == torch.float32:
-                err_main = err                 # the timed case's inputs
-            del g, m, v, p, km, kv, kp
+            k5_agree(*k5_inputs(n, gdtype, gen), f"n={n:9d}")
     # timing at the embedding's size with fp32 gradients (the train path's)
-    g, m, v, p = inputs(emb, torch.float32)
-    ms = time_ms(lambda: aw.adamw_fused(g, m, v, p, scale, **hyper), iters=10)
-    host_ms = eager_ms(lambda: aw.adamw_fused(g, m, v, p, scale, **hyper),
-                       iters=10)
-    plain_ms = time_ms(lambda: aw.adamw_ref(g, m, v, p, scale, **hyper),
+    report["adamw_fused"] = k5_timed(emb, gen, " (tied embedding)")
+
+
+def k5_timed(n, gen, what=""):
+    """K5 over n fp32 parameters with fp32 gradients (the train path's):
+    checked against its plain version, then timed beside it, the library
+    call and the bound.  Returns the report entry."""
+    from repro_torch.kernels import adamw_update as aw
+    g, m, v, p = k5_inputs(n, torch.float32, gen)
+    err = k5_agree(g, m, v, p, f"n={n}{what}, the timed operands")
+    scale = torch.tensor(0.5, device=DEV)
+    ms = time_ms(lambda: aw.adamw_fused(g, m, v, p, scale, **K5_HYPER),
+                 iters=10)
+    host_ms = eager_ms(lambda: aw.adamw_fused(g, m, v, p, scale,
+                                              **K5_HYPER), iters=10)
+    plain_ms = time_ms(lambda: aw.adamw_ref(g, m, v, p, scale, **K5_HYPER),
                        iters=10)
     steps = [torch.tensor(3.0, device=DEV)]
     lib_ms = time_ms(lambda: torch._fused_adamw_(
-        [p], [g], [m], [v], [], steps, lr=hyper["lr"], beta1=0.9, beta2=0.95,
-        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False,
-        grad_scale=None, found_inf=None), iters=10)
-    bms, by = bound(emb * 28, 15 * emb, torch.float32)
-    log(f"K5 timing fp32 grads, n={emb} (tied embedding): kernel {ms:.4f} ms "
-        f"(eager back-to-back {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"torch._fused_adamw_ {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
-    report["adamw_fused"] = dict(
-        max_abs_err=err_main, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=lib_ms)
+        [p], [g], [m], [v], [], steps, lr=K5_HYPER["lr"], beta1=0.9,
+        beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False,
+        maximize=False, grad_scale=None, found_inf=None), iters=10)
+    bms, by = bound(n * 28, 15 * n, torch.float32)
+    log(f"K5 timing fp32 grads, n={n}{what}: kernel {ms:.4f} ms (eager "
+        f"back-to-back {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"torch._fused_adamw_ {lib_ms:.4f} ms, bound {bms:.5f} ms ({by}) "
+        f"[{nvidia_smi_line()}]")
+    del g, m, v, p
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
 
 
 def k6_inputs(b, s, h, p, n, dtype, gen):
@@ -1690,15 +1749,16 @@ def serve_prompts(cfg):
     return prompts
 
 
-def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
+def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True,
+               images=None):
     """Phase 5's served runs (phase 10's on one rank of a sharded pool):
     after a two-request warm-up, the 16 requests through one engine per
     ``(label, engine keywords)`` of ``runs`` (max_batch 8, max_seq 512, page
     16; the default pool, 257 pages), each run gated on its own launch
     counts and, on one card, on one graph replay per decode iteration
-    (none with ``cuda_graph=False``; a sharded pool steps eagerly).
-    Returns {label: {"streams", "launches", "decode_ms", "pool_bytes",
-    ...}}."""
+    (none with ``cuda_graph=False``; a sharded pool steps eagerly).  A vlm
+    config's request i carries ``images[i]``.  Returns {label: {"streams",
+    "launches", "decode_ms", "pool_bytes", ...}}."""
     from repro_torch.kernels import ops
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.serve.kvcache import page_kv_bytes
@@ -1710,7 +1770,9 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True):
         # staggered: 8-56 new tokens, so streams finish at different
         # iterations and later admissions land among live streams
         return [Request(i, p, max_new_tokens=8 + 13 * i % 49 if staggered
-                        else 32) for i, p in enumerate(prompts)]
+                        else 32,
+                        img_embeds=None if images is None else images[i])
+                for i, p in enumerate(prompts)]
 
     def engine(**kw):
         return ServeEngine(lm, params, max_batch=8, max_seq=512,
@@ -3208,8 +3270,10 @@ def train_run(report, steps: int = 10):
     lm = LM(cfg)
     b, s, microbatches = 8, 256, 1
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=steps)
+    # remat "none", as the train launchers pass it: the numbers stay those
+    # of the runs before remat (phase 13 runs every remat policy)
     opts = ForwardOpts(attn_impl="blockwise", norm_impl="plain", q_chunk=s,
-                       kv_chunk=s)
+                       kv_chunk=s, remat="none")
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         toks = synthetic_corpus(max(2_000_000, b * s * 20), cfg.vocab_size,
@@ -4186,18 +4250,40 @@ BIAS_FP32 = (("starcoder2-3b", None), ("granite-13b", 4),
 
 
 def bias_kernel_vs_plain(report) -> None:
-    """(b) fp32, TF32 off: the kernel path (K2 prefill, K1 decode) against
-    the plain path (dense prefill, gathered decode, plain norms) over
-    native and int8 pages, each config at full width with its biases and
-    LayerNorm leaves redrawn: one batched prefill of 4 prompts (70-128
-    tokens, one bucket of 128) and 16 decode steps fed the plain path's
-    greedy token.  Logits to 1e-3 relative max error; greedy tokens equal
-    wherever the plain top-2 gap exceeds the error; launches exact (K2
-    fp32 L times a prefill, K1 L times a decode step, nothing on the plain
-    path, K3 never: LayerNorm has no kernel)."""
+    """(b) fp32, TF32 off: ``kernel_vs_plain`` for each of ``BIAS_FP32``'s
+    configs at full width with its biases and LayerNorm leaves redrawn."""
     from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    for name, layers in BIAS_FP32:
+        cfg = dataclasses.replace(get_config(name), dtype="float32",
+                                  **({"num_layers": layers} if layers
+                                     else {}))
+        lm = LM(cfg)
+        t0 = time.perf_counter()
+        params = lm.init(25, device=DEV)
+        redraw_biases(params, 25)
+        torch.cuda.synchronize()
+        log(f"[{name} fp32] {cfg.num_layers} layers, "
+            f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+            f"parameters in {time.perf_counter() - t0:.1f}s")
+        kernel_vs_plain(report, name, lm, params)
+        del params, lm
+        free()
+
+
+def kernel_vs_plain(report, name, lm, params, images=None) -> None:
+    """fp32, TF32 off: the kernel path (K2 prefill, K1 decode, K3 at every
+    RMSNorm) against the plain path (dense prefill, gathered decode, plain
+    norms) over native and int8 pages: one batched prefill of 4 prompts
+    (70-128 tokens, one bucket of 128; behind each prompt its image of
+    ``images`` (4, n, d) for a vlm config, a block of n + 128) and 16
+    decode steps fed the plain path's greedy token.  Logits to 1e-3
+    relative max error; greedy tokens equal wherever the plain top-2 gap
+    exceeds the error; launches exact (K2 fp32 L times a prefill, K1 L
+    times a decode step, K3 once a norm of a prefill or a decode step (a
+    LayerNorm has no kernel), nothing on the plain path)."""
     from repro_torch.kernels import ops
-    from repro_torch.models import ForwardOpts, LM
+    from repro_torch.models import ForwardOpts
     from repro_torch.serve.kvcache import PagedCache
     opts = {"kernel": ForwardOpts("flash", "kernel"),
             "plain": ForwardOpts("dense", "plain")}
@@ -4209,93 +4295,87 @@ def bias_kernel_vs_plain(report) -> None:
     rng = np.random.default_rng(25)
     lens = [70, 97, 115, 128]
     n, bucket, steps = len(lens), 128, 16
-    for name, layers in BIAS_FP32:
-        cfg = dataclasses.replace(get_config(name), dtype="float32",
-                                  **({"num_layers": layers} if layers
-                                     else {}))
-        L = cfg.num_layers
-        lm = LM(cfg)
-        t0 = time.perf_counter()
-        params = lm.init(25, device=DEV)
-        redraw_biases(params, 25)
+    cfg = lm.cfg
+    L = cfg.num_layers
+    img = 0 if images is None else images.shape[1]
+    norms = (L * (2 + 2 * cfg.qk_norm) + 1 if cfg.norm == "rmsnorm"
+             else 0)
+    tokens = np.zeros((n, bucket), np.int64)
+    for j, plen in enumerate(lens):
+        tokens[j, :plen] = rng.integers(0, cfg.vocab_size, plen)
+    tok_dev = torch.as_tensor(tokens, device=DEV)
+    last = torch.as_tensor(img + np.array(lens) - 1, device=DEV)
+    caches, logits = {}, {}
+    for oname, o in opts.items():
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            lg, cache = lm.forward(params, tok_dev, o, collect_cache=True,
+                                   img_embeds=images)
         torch.cuda.synchronize()
-        log(f"[{name} fp32] {L} layers, "
-            f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
-            f"parameters in {time.perf_counter() - t0:.1f}s")
-        tokens = np.zeros((n, bucket), np.int64)
-        for j, plen in enumerate(lens):
-            tokens[j, :plen] = rng.integers(0, cfg.vocab_size, plen)
-        tok_dev = torch.as_tensor(tokens, device=DEV)
-        last = torch.as_tensor(np.array(lens) - 1, device=DEV)
-        caches, logits = {}, {}
-        for oname, o in opts.items():
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        want = ({"flash_attention_bhsd_fp32": L, "rmsnorm_rows": norms}
+                if oname == "kernel" else {})
+        want = {k: v for k, v in want.items() if v}
+        assert launches == want, \
+            f"[{name}] {oname}-path prefill launched {launches}, not {want}"
+        count_layout(report, launches, cfg)
+        for pname, (pre, _, kv_dtype) in paths.items():
+            if pre != oname:
+                continue
+            kv = PagedCache(cfg, n, 512 if img else 256, page_size=16,
+                            device=DEV, dtype=torch.float32,
+                            kv_dtype=kv_dtype)
+            dest = np.zeros((n, img + bucket), np.int32)
+            for j, plen in enumerate(lens):
+                assert kv.alloc(j, img + plen + steps) == 0
+                dest[j] = kv.prefill_dest(j, img + bucket, img + plen)
+            kv.staged_write_prefill(kv.quantize_block(cache["layers"]),
+                                    torch.as_tensor(dest, device=DEV))
+            caches[pname] = kv
+            logits[pname] = [lg[torch.arange(n, device=DEV), last]]
+        del lg, cache
+    pos = torch.as_tensor(img + np.array(lens, np.int32), device=DEV)
+    nxt = logits["plain"][0].argmax(-1)
+    for t in range(steps):
+        for pname, (pre, impl, kv_dtype) in paths.items():
             ops.reset_launch_counts()
             with torch.no_grad():
-                lg, cache = lm.forward(params, tok_dev, o, collect_cache=True)
-            torch.cuda.synchronize()
+                lg, _ = lm.decode_step(params, nxt[:, None],
+                                       caches[pname].decode_view(),
+                                       pos + t, decode_impl=impl,
+                                       norm_impl=opts[pre].norm_impl)
             launches = {k: v for k, v in ops.launch_counts().items() if v}
-            want = ({"flash_attention_bhsd_fp32": L} if oname == "kernel"
+            k1 = "paged_flash_decode" + ("_int8" if kv_dtype == "int8"
+                                         else "")
+            want = ({k1: L, "rmsnorm_rows": norms} if impl == "kernel"
                     else {})
+            want = {k: v for k, v in want.items() if v}
             assert launches == want, \
-                f"[{name}] {oname}-path prefill launched {launches}, not {want}"
+                f"[{name}] {pname} decode launched {launches}"
             count_layout(report, launches, cfg)
-            for pname, (pre, _, kv_dtype) in paths.items():
-                if pre != oname:
-                    continue
-                kv = PagedCache(cfg, n, 256, page_size=16, device=DEV,
-                                dtype=torch.float32, kv_dtype=kv_dtype)
-                dest = np.zeros((n, bucket), np.int32)
-                for j, plen in enumerate(lens):
-                    assert kv.alloc(j, plen + steps) == 0
-                    dest[j] = kv.prefill_dest(j, bucket, plen)
-                kv.staged_write_prefill(kv.quantize_block(cache["layers"]),
-                                        torch.as_tensor(dest, device=DEV))
-                caches[pname] = kv
-                logits[pname] = [lg[torch.arange(n, device=DEV), last]]
-            del lg, cache
-        pos = torch.as_tensor(np.array(lens, np.int32), device=DEV)
-        nxt = logits["plain"][0].argmax(-1)
-        for t in range(steps):
-            for pname, (pre, impl, kv_dtype) in paths.items():
-                ops.reset_launch_counts()
-                with torch.no_grad():
-                    lg, _ = lm.decode_step(params, nxt[:, None],
-                                           caches[pname].decode_view(),
-                                           pos + t, decode_impl=impl,
-                                           norm_impl=opts[pre].norm_impl)
-                launches = {k: v for k, v in ops.launch_counts().items()
-                            if v}
-                k1 = "paged_flash_decode" + ("_int8" if kv_dtype == "int8"
-                                             else "")
-                want = {k1: L} if impl == "kernel" else {}
-                assert launches == want, \
-                    f"[{name}] {pname} decode launched {launches}"
-                count_layout(report, launches, cfg)
-                logits[pname].append(lg[:, -1])
-            nxt = logits["plain"][-1].argmax(-1)
-        for kernel, plain in (("kernel", "plain"),
-                              ("kernel-int8", "plain-int8")):
-            worst, agree, decided = 0.0, 0, 0
-            for a, b in zip(logits[kernel], logits[plain]):
-                a = a[:, :cfg.vocab_size].float()
-                b = b[:, :cfg.vocab_size].float()
-                assert bool(torch.isfinite(a).all())
-                diff = (a - b).abs()
-                worst = max(worst, float(diff.max() / b.abs().max()))
-                top2 = b.topk(2, dim=-1).values
-                gap = top2[:, 0] - top2[:, 1] > diff.max(-1).values
-                same = a.argmax(-1) == b.argmax(-1)
-                assert bool((same | ~gap).all()), \
-                    f"[{name}] {kernel}: greedy tokens disagree"
-                agree += int(same.sum())
-                decided += int(gap.sum())
-            log(f"[{name} fp32] {kernel} vs {plain} path: prefill + {steps} "
-                f"decode steps, logits rel max err {worst:.3e} (limit 1e-3), "
-                f"greedy agree {agree}/{n * (steps + 1)} ({decided} decided "
-                f"by a gap above the error) [{nvidia_smi_line()}]")
-            assert worst <= 1e-3, f"[{name}] {kernel} path leaves {plain}"
-        del params, caches, logits, lm
-        free()
+            logits[pname].append(lg[:, -1])
+        nxt = logits["plain"][-1].argmax(-1)
+    for kernel, plain in (("kernel", "plain"), ("kernel-int8", "plain-int8")):
+        worst, agree, decided = 0.0, 0, 0
+        for a, b in zip(logits[kernel], logits[plain]):
+            a = a[:, :cfg.vocab_size].float()
+            b = b[:, :cfg.vocab_size].float()
+            assert bool(torch.isfinite(a).all())
+            diff = (a - b).abs()
+            worst = max(worst, float(diff.max() / b.abs().max()))
+            top2 = b.topk(2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1] > diff.max(-1).values
+            same = a.argmax(-1) == b.argmax(-1)
+            assert bool((same | ~gap).all()), \
+                f"[{name}] {kernel}: greedy tokens disagree"
+            agree += int(same.sum())
+            decided += int(gap.sum())
+        log(f"[{name} fp32] {kernel} vs {plain} path: prefill + {steps} "
+            f"decode steps, logits rel max err {worst:.3e} (limit 1e-3), "
+            f"greedy agree {agree}/{n * (steps + 1)} ({decided} decided "
+            f"by a gap above the error) [{nvidia_smi_line()}]")
+        assert worst <= 1e-3, f"[{name}] {kernel} path leaves {plain}"
+    del caches, logits
 
 
 def granite_serve(report) -> None:
@@ -4508,6 +4588,310 @@ def recurrent_decode_serve() -> None:
 
 # ----------------------------------------------------------------- main ----
 
+# ------------------------------------------------------------ phase 13 ----
+
+#: phase 13's remat runs: (policy, sequence length of the fixed batch); no
+#: remat keeps every layer's plain-scan activations, ~1.8 GiB a zamba2 layer
+#: at 4 x 1024, which with the 17.6 GiB of fp32 state passes the card: it
+#: runs at 4 x 512 (PERF.md's prediction for phase 13)
+REMAT_RUNS = (("none", 512), ("selective", 1024), ("full", 1024))
+
+
+def _train_loop_run(lm, tcfg, opts, batch, steps, tmp):
+    """``steps`` steps of ``make_train_step`` through ``FTTrainLoop`` on one
+    fixed batch from ``init_train_state(lm, 0)``: (metrics log, step
+    seconds, peak GiB, launches, parameter leaves)."""
+    from repro_torch.core import FTTrainLoop
+    from repro_torch.core.telemetry import MetricsRegistry
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+    reg = MetricsRegistry()
+    # checkpoints every steps + 1: none is written here
+    loop = FTTrainLoop(make_train_step(lm, tcfg, opts),
+                       lambda: init_train_state(lm, 0, tcfg, device=DEV),
+                       tmp, ckpt_every=steps + 1, registry=reg)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    final = loop.run(lambda step: batch, steps)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_leaves = len(tree_leaves(final["params"]))
+    del final
+    free()
+    return (loop.metrics_log, reg.histogram("train_step_seconds").recent(
+        steps), peak, launches, n_leaves)
+
+
+def _train_gates(tag, log_, launches, steps, n_leaves):
+    """Finite losses that fall on the fixed batch; K4 forward and backward
+    once a step, K5 once a leaf a step, no other kernel (the train forward
+    runs blockwise attention, plain norms and the plain mixers)."""
+    losses = [m["loss"] for m in log_]
+    want = {name: 0 for name in launches}
+    want.update(softmax_xent_fwd=steps, softmax_xent_bwd=steps,
+                adamw_fused=steps * n_leaves)
+    log(f"{tag} losses {[round(x, 4) for x in losses]}, grad_norm "
+        f"{[round(m['grad_norm'], 4) for m in log_]}; launch counts "
+        f"{ {k: v for k, v in launches.items() if v} }, expected "
+        f"{ {k: v for k, v in want.items() if v} }")
+    assert len(losses) == steps and all(np.isfinite(losses)), \
+        f"{tag} loss not finite"
+    assert losses[-1] < losses[0], f"{tag} loss did not fall"
+    assert launches == want, f"{tag} the train path's launches differ"
+
+
+def recurrent_train(report, steps: int = 6) -> None:
+    """Phase 13: zamba2-1.2b and rwkv6-1.6b at full width and depth (fp32
+    parameters and moments, bf16 compute, random weights from seed 0)
+    trained by ``FTTrainLoop`` over ``make_train_step`` (the plain chunked
+    mixers, blockwise attention, plain norms; K4 and K5) on one fixed batch
+    from a synthetic corpus, ``steps`` steps under each remat policy of
+    ``REMAT_RUNS``; gated by ``_train_gates``.  Step 0's loss must be equal
+    across the three policies (bitwise; the forward is the same ops) and
+    its grad_norm within 1e-4 relative (bitwise reported): "none" at 4 x
+    512 against one step of each other policy there, and selective against
+    full at 4 x 1024.  Step ms, tok/s, MFU and peak memory of each run;
+    then K4 at the phase's logits and K5 at each model's largest leaf,
+    timed beside their plain versions, library calls and bounds."""
+    import tempfile
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import (DeterministicLoader, LoaderConfig,
+                                  TokenDataset, synthetic_corpus,
+                                  write_token_shards)
+    from repro_torch.models import LM
+    from repro_torch.train import (TRAIN_OPTS, init_train_state,
+                                   make_train_step)
+    b, s_max = 4, max(s for _, s in REMAT_RUNS)
+    gen = torch.Generator().manual_seed(13)
+    (ROOT / "build").mkdir(exist_ok=True)
+    for name in RECURRENT:
+        cfg = get_config(name)
+        lm = LM(cfg)
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                           total_steps=steps)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            toks = synthetic_corpus(max(2_000_000, b * s_max * 20),
+                                    cfg.vocab_size, seed=0)
+            write_token_shards(f"{tmp}/data", toks)
+            full = DeterministicLoader(TokenDataset(f"{tmp}/data"),
+                                       LoaderConfig(b, s_max)).batch_at(0)
+
+            def cut(s):
+                return {k: np.ascontiguousarray(v[:, :s])
+                        for k, v in full.items()}
+
+            def opts(remat, s):
+                return dataclasses.replace(TRAIN_OPTS, remat=remat,
+                                           q_chunk=s, kv_chunk=s)
+
+            step0 = {}
+            for remat, s in REMAT_RUNS:
+                tag = f"[{name} train remat={remat} {b}x{s}]"
+                log_, step_s, peak, launches, n_leaves = _train_loop_run(
+                    lm, tcfg, opts(remat, s), cut(s), steps, f"{tmp}/{remat}")
+                _train_gates(tag, log_, launches, steps, n_leaves)
+                step0[(remat, s)] = (log_[0]["loss"], log_[0]["grad_norm"])
+                steady = float(np.mean(step_s[2:]))
+                flops = cfg.flops_per_token(s, "train") * b * s
+                log(f"{tag} {steps} steps: first {step_s[0] * 1e3:.1f} ms, "
+                    f"mean step {steady * 1e3:.2f} ms over steps 2..{steps - 1}"
+                    f" ({b * s / steady:.1f} tok/s), MFU "
+                    f"{flops / steady / 989e12 * 100:.2f}% of 989 TFLOP/s "
+                    f"({flops / 1e12:.2f} TFLOP a step), peak memory "
+                    f"{peak:.2f} GiB [{nvidia_smi_line()}]")
+                for kernel in ("softmax_xent_fwd", "softmax_xent_bwd",
+                               "adamw_fused"):
+                    key = f"{kernel}[{name} train]"
+                    report.setdefault(key, {"launches": 0})
+                    report[key]["launches"] += launches[kernel]
+            # step 0 of the other policies at "none"'s length
+            s0 = REMAT_RUNS[0][1]
+            for remat in ("selective", "full"):
+                state = init_train_state(lm, 0, tcfg, device=DEV)
+                _, m = make_train_step(lm, tcfg, opts(remat, s0))(
+                    state, cut(s0))
+                step0[(remat, s0)] = (float(m["loss"]), float(m["grad_norm"]))
+                del state, m
+                free()
+        for a, c in ((("none", s0), ("selective", s0)),
+                     (("none", s0), ("full", s0)),
+                     (("selective", s_max), ("full", s_max))):
+            (la, ga), (lc, gc) = step0[a], step0[c]
+            rel = abs(ga - gc) / abs(ga)
+            log(f"[{name} train] step 0 {a[0]} vs {c[0]} at {b}x{a[1]}: loss "
+                f"{la!r} vs {lc!r} (bitwise {la == lc}), grad_norm {ga!r} vs "
+                f"{gc!r} (bitwise {ga == gc}, rel diff {rel:.3e}, limit 1e-4)")
+            assert la == lc, f"[{name}] step 0's loss differs across remat"
+            assert rel <= 1e-4, f"[{name}] step 0's grad_norm differs"
+        # K4 at the phase's logits (b x s_max rows of the padded vocab) and
+        # K5 at the largest parameter leaf
+        fwd, bwd = k4_timed(b * s_max, cfg.padded_vocab, gen,
+                            f" ({name} train logits)")
+        report[f"softmax_xent_fwd[{name} train]"].update(fwd)
+        report[f"softmax_xent_bwd[{name} train]"].update(bwd)
+        def sizes(t):
+            return ([math.prod(t.shape)] if hasattr(t, "shape")
+                    else [n for v in t.values() for n in sizes(v)])
+        n = max(sizes(lm.spec()))
+        report[f"adamw_fused[{name} train]"].update(
+            k5_timed(n, gen, f" ({name}'s largest leaf)"))
+        free()
+
+
+# ------------------------------------------------------------ phase 14 ----
+
+def _vlm_params(lm, seed: int):
+    """Random weights from ``seed``, with ``img_pos`` redrawn ~ N(0, 0.5):
+    ``LM.init`` zeros it, as JAX does, which would hide a dropped table."""
+    params = lm.init(seed, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params["img_pos"].copy_(torch.randn(params["img_pos"].shape,
+                                        generator=gen, device=DEV) * 0.5)
+    return params
+
+
+def _vlm_images(cfg, n: int, seed: int) -> np.ndarray:
+    """n seeded random (num_image_tokens, d) stub-ViT images."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(
+        (n, cfg.num_image_tokens, cfg.d_model), dtype=np.float32)
+
+
+def vlm_kernel_vs_plain(report) -> None:
+    """(a) internvl2-2b at full width cut to 4 layers, fp32: the kernel path
+    against the plain path over native and int8 pages, each prompt behind
+    its image (``kernel_vs_plain``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_config("internvl2-2b"), dtype="float32",
+                              num_layers=4)
+    lm = LM(cfg)
+    params = _vlm_params(lm, 27)
+    kernel_vs_plain(report, "internvl2-2b", lm, params,
+                    torch.as_tensor(_vlm_images(cfg, 4, 27), device=DEV))
+    del params
+    free()
+
+
+def vlm_layouts(report) -> None:
+    """K1 at internvl2-2b's head layout (KV=8 G=2, D=128, page 16, phase
+    3's ragged positions and NaN dead pages), native and int8, fp32 and
+    bf16 q, against its plain version and its plain split schedule, and
+    timed at phase 3's serve positions; K2 at the image-prefixed blocks,
+    fp32 (a) 4 x (256 + 128) and bf16 (b) 8 x (256 + 256), causal, timed
+    beside SDPA and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.quant import quantize_kv
+    gen = torch.Generator().manual_seed(14)
+    kv, g = 8, 2
+    tag = f"KV={kv} G={g} D=128 page=16 M=32 (internvl2-2b)"
+    pos = torch.tensor(K1_SERVE_POS, dtype=torch.int32, device=DEV)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, table, p0 = k1_inputs(dtype, gen, kv=kv, g=g)
+        k1_agree(pd, f"K1 paged_flash_decode {str(dtype)[6:]:8s} {tag}", q,
+                 (k, v), table, p0, TOL[dtype])
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        k1_agree(pd, f"K1 int8 paged_flash_decode_int8 q "
+                 f"{str(dtype)[6:]:8s} {tag}", q, (kq, vq, ks, vs), table,
+                 p0, TOL[dtype])
+        q, k, v, table, _ = k1_inputs(dtype, gen, nan_dead=False, kv=kv, g=g)
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        for mode, pools in (("paged_flash_decode", (k, v)),
+                            ("paged_flash_decode_int8", (kq, vq, ks, vs))):
+            r = k1_timed(pd, f"K1 {mode} timing {str(dtype)[6:]} q serve "
+                         f"{tag}", q, pools, table, pos)
+            report[layout_entry(mode, kv, g, dtype)] = dict(r, launches=0)
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    for dtype, mode, n, s in ((torch.float32, "flash_attention_bhsd_fp32", 4,
+                               256 + 128),
+                              (torch.bfloat16, "flash_attention_bhsd", 8,
+                               256 + 256)):
+        r = time_k2(fa, f"internvl2-2b image-prefixed prefill ({n} x {s})", n,
+                    s, kv, g, 128, dtype, gen)
+        report[layout_entry(mode, kv, g, dtype)] = dict(r, launches=0)
+    free()
+
+
+def vlm_serve(report) -> None:
+    """(b) internvl2-2b at full size in bf16 (random weights from a seed,
+    ``img_pos`` redrawn) on phase 5's workload, each request with its own
+    seeded random (256, 2048) image, through the CUDA-graph step and
+    eagerly, over native and int8 pages (``serve_runs``' gates: launches
+    exact, one replay a decode step, all requests complete): the graph's
+    streams equal the eager ones token for token, and no page is shared
+    (image prompts skip prefix sharing)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = get_config("internvl2-2b")
+    lm = LM(cfg)
+    params = _vlm_params(lm, 28)
+    images = _vlm_images(cfg, 16, 28)
+    runs = serve_runs(lm, params, (
+        ("native", {}), ("int8", {"kv_dtype": "int8"}),
+        ("native-eager", {"cuda_graph": False}),
+        ("int8-eager", {"kv_dtype": "int8", "cuda_graph": False})),
+        "internvl2-2b", profile=False, images=images)
+    for label in ("native", "int8"):
+        run, eager = runs[label], runs[label + "-eager"]
+        count_layout(report, run["launches"], cfg)
+        same = run["streams"] == eager["streams"]
+        log(f"[internvl2-2b {label}] graph streams equal the eager streams "
+            f"token for token: {same}; {run['tok_s']:.1f} tok/s, decode step "
+            f"{run['decode_ms']:.2f} ms (graph; one replay on the device "
+            f"{run.get('replay_ms', float('nan')):.3f} ms) vs "
+            f"{eager['decode_ms']:.2f} ms eager, TTFT p50 "
+            f"{run['ttft_ms']:.1f} ms, mean prefill dispatch "
+            f"{run['prefill_ms']:.2f} ms, pool {run['pool_tensor_bytes']} B, "
+            f"pages shared {run['stats']['pages_shared']} "
+            f"[{nvidia_smi_line()}]")
+        assert same, f"[internvl2-2b {label}] graph streams differ"
+        assert run["stats"]["pages_shared"] == 0, "an image prompt shared"
+    del params, runs
+    free()
+
+
+def vlm_train(steps: int = 4) -> None:
+    """(c) internvl2-2b at full size (fp32 parameters, bf16 compute, the
+    default remat "selective"), ``steps`` steps of ``make_train_step`` on
+    one fixed batch of 4 x (256 image + 256 text) positions: losses finite
+    and falling, K4 and K5 launches exact, step ms, tok/s, MFU and peak
+    memory."""
+    import tempfile
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import LM
+    from repro_torch.train import TRAIN_OPTS
+    cfg = get_config("internvl2-2b")
+    lm = LM(cfg)
+    b, text = 4, 256
+    s = cfg.num_image_tokens + text
+    rng = np.random.default_rng(29)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, text)).astype(
+                 np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (b, text)).astype(
+                 np.int32),
+             "img_embeds": _vlm_images(cfg, b, 29)}
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=steps)
+    opts = dataclasses.replace(TRAIN_OPTS, q_chunk=s, kv_chunk=s)
+    tag = f"[internvl2-2b train remat={opts.remat} {b}x({s - text}+{text})]"
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        log_, step_s, peak, launches, n_leaves = _train_loop_run(
+            lm, tcfg, opts, batch, steps, tmp)
+    _train_gates(tag, log_, launches, steps, n_leaves)
+    steady = float(np.mean(step_s[1:]))
+    flops = cfg.flops_per_token(s, "train") * b * s
+    log(f"{tag} {steps} steps: first {step_s[0] * 1e3:.1f} ms, mean step "
+        f"{steady * 1e3:.2f} ms over steps 1..{steps - 1} "
+        f"({b * s / steady:.1f} positions/s), MFU "
+        f"{flops / steady / 989e12 * 100:.2f}% of 989 TFLOP/s, peak memory "
+        f"{peak:.2f} GiB [{nvidia_smi_line()}]")
+    free()
+
+
 def free() -> None:
     """Drop what a finished phase left, so the next one has the card."""
     gc.collect()
@@ -4650,6 +5034,22 @@ def main() -> int:
           "and decode steps, fp32 against the forward, then bf16")
     recurrent_decode_parity(depths)
     recurrent_decode_serve()
+    free()
+
+    phase("13 recurrent training: zamba2-1.2b and rwkv6-1.6b at full size, "
+          "remat none, selective and full")
+    t0 = time.perf_counter()
+    recurrent_train(report)
+    log(f"phase 13 took {time.perf_counter() - t0:.1f}s")
+
+    phase("14 vlm: internvl2-2b fp32 kernel path vs plain path, served in "
+          "bf16 with an image a request, trained")
+    t0 = time.perf_counter()
+    vlm_layouts(report)
+    vlm_kernel_vs_plain(report)
+    vlm_serve(report)
+    vlm_train()
+    log(f"phase 14 took {time.perf_counter() - t0:.1f}s")
 
     csrc = "src/repro_torch/csrc/"
     meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",
@@ -4684,11 +5084,12 @@ def main() -> int:
                               "src/repro/kernels/mamba2_ssd.py:52"),
             "wkv6_scan_bhsd": ("cuda", csrc + "rwkv6_wkv.cu",
                                "src/repro/kernels/rwkv6_wkv.py:50")}
-    # phase 11's head layouts: their own entries, beside the base mode's,
-    # each launched by a phase-11 run in the mode it was timed in
+    # phases 11 and 14's head layouts and phase 13's train shapes: their own
+    # entries, beside the base mode's, each launched by a run of its phase
+    # in the mode it was timed in
     layouts = sorted(k for k in report if "[" in k)
     idle = [k for k in layouts if not report[k]["launches"]]
-    assert not idle, f"no phase-11 run launched {idle}"
+    assert not idle, f"no run launched {idle}"
     kernels = []
     for name in list(meta) + layouts:
         route, source, replaces = meta[name.split("[")[0]]

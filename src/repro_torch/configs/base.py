@@ -6,7 +6,8 @@ nothing of the JAX package, so it carries its own copy.
 
 One ``ModelConfig`` dataclass covers every architecture family
 (dense / moe / hybrid / ssm / encdec / vlm); the port runs the dense,
-hybrid and ssm configs registered in ``repro_torch.configs``.  Configs are frozen; derived
+vlm, hybrid and ssm configs registered in ``repro_torch.configs``.
+Configs are frozen; derived
 quantities are properties.  ``reduced()`` produces a small same-family config
 for CPU tests.
 """

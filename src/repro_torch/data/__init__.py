@@ -1,6 +1,8 @@
 from repro_torch.data.pipeline import (DeterministicLoader, LoaderConfig,
-                                       TokenDataset, synthetic_corpus,
+                                       PrefetchLoader, TokenDataset,
+                                       pack_documents, synthetic_corpus,
                                        write_token_shards)
 
-__all__ = ["DeterministicLoader", "LoaderConfig", "TokenDataset",
-           "synthetic_corpus", "write_token_shards"]
+__all__ = ["DeterministicLoader", "LoaderConfig", "PrefetchLoader",
+           "TokenDataset", "pack_documents", "synthetic_corpus",
+           "write_token_shards"]

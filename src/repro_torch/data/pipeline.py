@@ -1,6 +1,7 @@
-"""Tokenized-dataset pipeline of the port: memmap-backed binary shards and
-deterministic sharded reads per data-parallel rank.  A copy, in numpy only,
-of the JAX package's ``data/pipeline.py`` (the port imports nothing of it),
+"""Tokenized-dataset pipeline of the port: memmap-backed binary shards,
+deterministic sharded reads per data-parallel rank, sequence packing and
+background prefetch.  A copy, in numpy and the standard library only, of
+the JAX package's ``data/pipeline.py`` (the port imports nothing of it),
 so the same corpus, seed and step give byte-identical batches in both.
 
 Determinism contract: ``batch_at(step)`` is a pure function of (step, seed,
@@ -8,6 +9,8 @@ topology), so a job restarted from a checkpoint consumes exactly the token
 stream it would have seen without the failure."""
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterator
@@ -102,3 +105,85 @@ class DeterministicLoader:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def pack_documents(docs: list, seq_len: int, eos_id: int,
+                   pad_id: int = 0) -> Dict[str, np.ndarray]:
+    """Sequence packing: greedy first-fit of documents into fixed-length rows
+    with EOS separators and a loss mask that excludes padding and the token
+    that would predict across a document boundary.
+
+    Returns {"tokens", "labels"} (n_rows, seq_len) int32 and "loss_mask"
+    (n_rows, seq_len) float32."""
+    rows: list = []
+    row: list = []
+    boundaries: list = []
+    row_bounds: list = []
+    for doc in docs:
+        need = len(doc) + 1
+        if len(row) + need > seq_len + 1 and row:
+            rows.append(row)
+            row_bounds.append(boundaries)
+            row, boundaries = [], []
+        row.extend(list(doc) + [eos_id])
+        boundaries.append(len(row) - 1)
+    if row:
+        rows.append(row)
+        row_bounds.append(boundaries)
+
+    n = len(rows)
+    tokens = np.full((n, seq_len), pad_id, np.int32)
+    labels = np.full((n, seq_len), pad_id, np.int32)
+    mask = np.zeros((n, seq_len), np.float32)
+    for i, (r, bnds) in enumerate(zip(rows, row_bounds)):
+        r = r[:seq_len + 1]
+        toks = np.asarray(r[:-1] if len(r) > seq_len else r, np.int32)
+        tokens[i, :len(toks)] = toks[:seq_len]
+        lab = np.asarray(r[1:len(toks) + 1], np.int32)
+        labels[i, :len(lab)] = lab
+        mask[i, :len(lab)] = 1.0
+        for b in bnds:                       # don't predict across docs
+            if 0 <= b < seq_len:
+                mask[i, b] = 0.0
+    return {"tokens": tokens, "labels": labels, "loss_mask": mask}
+
+
+class PrefetchLoader:
+    """Background-thread prefetch: a daemon thread fills a queue of
+    ``depth`` ``(step, batch)`` pairs from ``loader.batch_at``, starting at
+    ``start_step``; ``next()`` takes the next pair, ``close()`` stops the
+    thread, drains the queue and joins the thread."""
+
+    def __init__(self, loader: DeterministicLoader, depth: int = 2,
+                 start_step: int = 0):
+        self.loader = loader
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread.start()
+
+    def _fill(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self.loader.batch_at(step)
+            while not self._stop.is_set():
+                try:
+                    self.q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __next__(self):
+        step, batch = self.q.get()
+        return step, batch
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2)

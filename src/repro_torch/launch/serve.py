@@ -18,6 +18,8 @@ the fused decode step per iteration.
         -m repro_torch.launch.serve --device cpu --reduced --mesh 2x2
     python -m repro_torch.launch.serve --device cpu --reduced --page-size 4 \
         --host-pages 64 --prefix-store --prefill-chunk 8
+    python -m repro_torch.launch.serve --device cpu --reduced \
+        --arch internvl2-2b
 
 It prints the same summary lines as ``repro.launch.serve``, and, as it
 does, the alerts that fired: the engine runs the serve light checks and the
@@ -29,7 +31,10 @@ recover from them; a request out of retries is dead-lettered, and the
 summary lists every request that did not simply complete.  ``--reduced``
 (the default) serves the reduced config in fp32; ``--no-reduced`` serves the
 full-width config in its own dtype, with random weights from seed 0.  The
-requests are the JAX launcher's (``draw_requests``); ``serve`` takes a
+requests are the JAX launcher's (``draw_requests``), which give a vlm
+config (``--arch internvl2-2b``) no image, so its image rows are zeros, as
+in JAX (``--max-seq`` must then exceed its 256 image rows at full width);
+``serve`` takes a
 parameter tree, so the same run can serve other weights
 (``repro_torch.models.params.from_jax``).
 
@@ -134,7 +139,8 @@ def join_pool_group(dp: int, m: int, device: str):
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b", choices=archs("dense"))
+    ap.add_argument("--arch", default="qwen3-4b",
+                    choices=archs("dense", "vlm"))
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="reduced fp32 config (default) or, with "

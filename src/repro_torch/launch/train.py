@@ -3,31 +3,40 @@ checkpoints -> metrics, on the card unless ``--device cpu``.
 
     python -m repro_torch.launch.train --arch qwen3-4b --reduced --steps 200
     python -m repro_torch.launch.train --device cpu --reduced --steps 3
+    python -m repro_torch.launch.train --device cpu --reduced \
+        --arch zamba2-1.2b --remat selective --ckpt-dir /tmp/zamba2_ckpt
     python -m repro_torch.launch.train --preset quickstart-100m --steps 300
 
 It takes the flags of ``repro.launch.train`` and prints the same summary
-lines.  The loss reaches K4 and the optimizer K5 (their plain versions on
-the CPU); the forward uses blockwise attention and plain RMSNorm, as the
-JAX trainer does.
+lines; ``--arch`` takes every registered config, as JAX's does.  The loss
+reaches K4 and the optimizer K5 (their plain versions on the CPU); the
+forward uses blockwise attention, plain RMSNorm and the recurrent
+families' plain chunked mixers, as the JAX trainer does, with
+``remat="none"`` as JAX's launcher passes it (``--remat`` picks another).
+A vlm config (internvl2-2b) needs image embeddings that the token loader
+does not make: as JAX's launcher fails on the missing ``img_embeds``, the
+first step raises a ``ValueError`` that names them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 import time
 from pathlib import Path
 
 import torch
 
-from repro_torch.configs import TrainConfig, archs, get_config
+from repro_torch.configs import CONFIGS, TrainConfig, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import CheckpointManager, FTTrainLoop, job_mtbf_seconds
 from repro_torch.data import (DeterministicLoader, LoaderConfig, TokenDataset,
                               synthetic_corpus, write_token_shards)
-from repro_torch.models import LM, ForwardOpts
+from repro_torch.models import LM
 from repro_torch.models.common import resolve_device
+from repro_torch.models.transformer import REMAT_POLICIES
 from repro_torch.core.telemetry import MetricsRegistry
-from repro_torch.train import init_train_state, make_train_step
+from repro_torch.train import TRAIN_OPTS, init_train_state, make_train_step
 
 QUICKSTART_100M = ModelConfig(
     name="quickstart-100m", family="dense", num_layers=12, d_model=768,
@@ -45,7 +54,7 @@ def main(argv=None):
     tmp = Path(tempfile.gettempdir())
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b",
-                    choices=archs("dense") + ["quickstart-100m"])
+                    choices=sorted(CONFIGS) + ["quickstart-100m"])
     ap.add_argument("--preset", default=None)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=False, help="the reduced config of --arch")
@@ -57,6 +66,9 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--remat", default="none", choices=REMAT_POLICIES,
+                    help="layer-body remat; 'none' is what JAX's launcher "
+                         "passes")
     ap.add_argument("--data-dir", default=str(tmp / "repro_torch_data"))
     ap.add_argument("--ckpt-dir", default=str(tmp / "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=0,
@@ -82,8 +94,8 @@ def main(argv=None):
     lm = LM(cfg)
     tcfg = TrainConfig(learning_rate=args.lr, warmup_steps=20,
                        total_steps=args.steps)
-    opts = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
-                       q_chunk=min(args.seq, 512), kv_chunk=min(args.seq, 512))
+    opts = dataclasses.replace(TRAIN_OPTS, q_chunk=min(args.seq, 512),
+                               kv_chunk=min(args.seq, 512), remat=args.remat)
     state = init_train_state(lm, 0, tcfg, device=device)
     step = make_train_step(lm, tcfg, opts, microbatches=args.microbatches)
 

@@ -1,5 +1,5 @@
 """Top-level model facade of the port (counterpart of the JAX
-``repro.models.lm.LM``) for the dense, hybrid and ssm families; the
+``repro.models.lm.LM``) for the dense, vlm, hybrid and ssm families; the
 recurrent ones prefill and decode over their raw state cache only."""
 from __future__ import annotations
 
@@ -32,29 +32,40 @@ class LM:
                            dtype or DTYPES[self.cfg.dtype])
 
     def forward(self, params, tokens, opts: ForwardOpts = ForwardOpts(),
-                collect_cache: bool = False):
+                collect_cache: bool = False, img_embeds=None):
+        """``img_embeds`` (B, num_image_tokens, d): a vlm config's image,
+        in front of the text (``transformer.embed_inputs``)."""
         return transformer.forward(params, self.cfg, tokens, opts,
-                                   collect_cache)
+                                   collect_cache, img_embeds=img_embeds)
 
     def loss(self, params, batch, opts: ForwardOpts = ForwardOpts(),
              moe_aux_weight: float = 1e-2, z_loss: float = 1e-4):
         """Next-token loss of ``batch`` = {"tokens", "labels"}, both (B, S)
-        int tensors.  Returns (loss, {"loss", "nll", "z_loss", "moe_aux"}),
-        the JAX ``LM.loss`` for the dense, hybrid and ssm families, whose
-        ``moe_aux`` is 0, so ``moe_aux_weight`` adds nothing."""
-        logits, _ = self.forward(params, batch["tokens"], opts)
+        int tensors, and for a vlm config "img_embeds" (B, n, d), whose n
+        image positions' logits are dropped before the loss.  Returns
+        (loss, {"loss", "nll", "z_loss", "moe_aux"}), the JAX ``LM.loss``
+        for the dense, vlm, hybrid and ssm families, whose ``moe_aux`` is
+        0, so ``moe_aux_weight`` adds nothing."""
+        logits, _ = self.forward(params, batch["tokens"], opts,
+                                 img_embeds=batch.get("img_embeds"))
+        if transformer.has_image(self.cfg):
+            logits = logits[:, self.cfg.num_image_tokens:]
         loss, ce = cross_entropy(logits, batch["labels"], self.cfg.vocab_size,
                                  z_loss=z_loss, impl=opts.xent_impl)
         return loss, {"loss": loss, "nll": ce["nll"], "z_loss": ce["z_loss"],
                       "moe_aux": torch.zeros((), device=loss.device)}
 
-    def prefill(self, params, tokens, opts: ForwardOpts = ForwardOpts()):
+    def prefill(self, params, tokens, opts: ForwardOpts = ForwardOpts(),
+                img_embeds=None):
         """The JAX ``LM.prefill``: (the last row's logits (B, 1, Vp), the
-        cache of ``forward(collect_cache=True)``).  For the recurrent
-        families the cache holds the final states (and zamba2's shared K/V
-        over the S prompt rows), which ``decode_step`` continues from once
-        the K/V rows are copied into a cache of the decode length."""
-        logits, cache = self.forward(params, tokens, opts, collect_cache=True)
+        cache of ``forward(collect_cache=True)``).  A vlm prefill takes the
+        image (``img_embeds``), whose rows lead the cache.  For the
+        recurrent families the cache holds the final states (and zamba2's
+        shared K/V over the S prompt rows), which ``decode_step`` continues
+        from once the K/V rows are copied into a cache of the decode
+        length."""
+        logits, cache = self.forward(params, tokens, opts, collect_cache=True,
+                                     img_embeds=img_embeds)
         return logits[:, -1:], cache
 
     def decode_step(self, params, tokens, cache, positions,
@@ -102,7 +113,7 @@ class LM:
         The recurrent families take ``backend=None`` only: their states
         (and zamba2's shared K/V rows) have no pages, and the serve engine
         does not serve them, as in JAX."""
-        if self.cfg.family != "dense" and (
+        if self.cfg.family not in ("dense", "vlm") and (
                 backend is not None or pool_group is not None
                 or dp_group is not None):
             raise ValueError(
@@ -147,3 +158,11 @@ class LM:
         from repro_torch.serve.kvcache import ContiguousCache
         return ContiguousCache(self.cfg, batch_size, max_seq, device=dev,
                                dtype=dtype)
+
+
+def text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Text positions of a ``seq_len`` sequence: a vlm config's image takes
+    its first ``num_image_tokens`` (the JAX ``text_len``)."""
+    if transformer.has_image(cfg):
+        return seq_len - cfg.num_image_tokens
+    return seq_len

@@ -67,12 +67,18 @@ def _causal_conv(x, kernel, state=None):
 def _segsum_decay(dac):
     """dac (B, NC, Q, H) fp32 -> (pairwise decay exp(cs_i - cs_j) for
     j <= i, else 0, as (B, NC, Q_i, Q_j, H); cs).  Every kept exponent is
-    <= 0."""
+    <= 0.  The mask is applied before the exponential (-inf above the
+    diagonal, whose exp is 0): JAX exponentiates the whole square and masks
+    after, which gives the same values, but above the diagonal cs_i - cs_j
+    > 0 overflows fp32 at full width (|dA| summed over a 256-step chunk
+    passes 88), and exp's backward then multiplies the mask's zero gradient
+    by inf: NaN gradients."""
     cs = dac.cumsum(dim=2)
     diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]
     q = dac.shape[2]
     mask = torch.ones(q, q, dtype=torch.bool, device=dac.device).tril()
-    return torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0), cs
+    return torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                 -torch.inf)), cs
 
 
 def ssd_chunked(X, dA, Bm, Cm, chunk: int, initial_state=None,

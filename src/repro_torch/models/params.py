@@ -2,14 +2,16 @@
 into the port's parameters.
 
 ``from_jax`` takes what ``jax.tree.map(np.asarray, params)`` gives for a
-dense, hybrid (zamba2) or ssm (rwkv6) ``LM`` and returns torch tensors in
+dense, vlm (internvl2), hybrid (zamba2) or ssm (rwkv6) ``LM`` and returns
+torch tensors in
 the same layouts.  For serving and eval, matrix weights are cast once, to
 the compute dtype: the JAX model casts its fp32 masters at every use, which
 is numerically the same.  For training, ``dtype=torch.float32`` keeps them
 fp32.  The leaves marked ``fp32`` in the port's spec stay fp32 whatever the
 compute dtype:
 - norm scales and LayerNorm biases, because the norms multiply in fp32;
-- the leaves JAX pins to fp32 (``pin_dtype``): mamba2's ``A_log``, ``D``,
+- the leaves JAX pins to fp32 (``pin_dtype``): the vlm ``img_pos``;
+  mamba2's ``A_log``, ``D``,
   ``dt_bias`` and gated-norm scale; rwkv6's ``mu_x``, ``mu``, ``w0``, ``u``,
   ``ln_x`` and the channel mix's ``mu_k``, ``mu_r``;
 - matrices JAX multiplies in fp32: rwkv6's ``tmix.wB``, the decay LoRA's

@@ -1,14 +1,17 @@
-"""Decoder-only stack of the port: the dense, hybrid (zamba2) and ssm
-(rwkv6) families of the JAX ``repro.models.transformer``.
+"""Decoder-only stack of the port: the dense, vlm (internvl2), hybrid
+(zamba2) and ssm (rwkv6) families of the JAX ``repro.models.transformer``.
 
 Layers are stacked along a leading dim of every parameter and applied in a
-Python loop.  Three entry points share the weights:
+Python loop, each layer body under the remat policy of ``ForwardOpts``
+(``_remat``) while autograd records.  Three entry points share the
+weights:
 
 * ``forward``     — full sequence (training and eval; prefill when
-  ``collect_cache``: K/V for the dense family, the final recurrent states
-  and zamba2's shared-block K/V for the others)
+  ``collect_cache``: K/V for the attention families, the final recurrent
+  states and zamba2's shared-block K/V for the others); a vlm forward
+  takes the image embeddings in front of the text (``embed_inputs``)
 * ``decode_step`` — one token per slot at (B,) positions over a paged cache,
-  whose pools it updates in place (dense family only), over this rank's
+  whose pools it updates in place (attention families only), over this rank's
   shards of pools split over a ``PoolGroup``, or over the cache of
   ``init_cache`` (the dense contiguous layout; the recurrent states, which
   it also updates in place)
@@ -23,6 +26,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, rwkv6
@@ -36,20 +41,73 @@ class ForwardOpts:
     norm_impl: str = "kernel"     # kernel (K3) | plain (reference)
     q_chunk: int = 1024           # blockwise attention chunks
     kv_chunk: int = 1024
-    remat: str = "none"           # the JAX trainer's "none"; nothing else
+    remat: str = "selective"      # none | selective | full (``_remat``)
     xent_impl: str = "kernel"     # loss: kernel (K4) | plain (reference)
     mixer_impl: str = "kernel"    # mamba2 SSD / rwkv6 WKV: kernel (K6/K7) |
     #                               plain (the JAX models' chunked forms)
 
     def __post_init__(self):
-        if self.remat != "none":
-            raise ValueError(f"remat={self.remat!r}: the port keeps every "
-                             "activation (remat 'none' only)")
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat={self.remat!r} not in "
+                             f"{REMAT_POLICIES}")
+
+
+REMAT_POLICIES = ("none", "selective", "full")
+
+# JAX's "selective" saves ``dots_with_no_batch_dims_saveable``: the outputs
+# of every matmul without batch dims.  A ``x @ W`` of the layer bodies,
+# (B, S, d) by a (d, e) weight, dispatches ``aten.mm`` on the folded rows
+# (``addmm`` with a bias); batched products (attention scores and PV, the
+# SSD and WKV einsums) dispatch ``bmm`` and are recomputed, as is every
+# elementwise op.  JAX's policy also saves ``TP_SAVE_NAME``, the outputs of
+# ``parallel/tpmm.py``'s tensor-parallel contractions, which the port does
+# not have until ROADMAP item 18: no op of the port carries that name.
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _selective_contexts():
+    return create_selective_checkpoint_contexts(_selective_policy)
+
+
+def _remat(fn, policy: str):
+    """The JAX ``_remat``: ``fn`` as it is (``"none"``), or checkpointed, so
+    its backward recomputes what it did not keep: everything but its inputs
+    (``"full"``), or all but the outputs of the matmuls with no batch dims
+    (``"selective"``).  Recomputation runs the same ops on the same inputs,
+    so values and gradients are those of ``"none"``."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if policy == "selective":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=_selective_contexts)
+    raise ValueError(policy)
+
+
+def _records_grad(params, h) -> bool:
+    """Whether autograd records this forward: grad mode on and the input or
+    a parameter requires grad.  Eval, prefill, decode and the serve paths
+    record nothing, so their layer bodies run unwrapped."""
+    if not torch.is_grad_enabled():
+        return False
+
+    def any_grad(t):
+        if isinstance(t, torch.Tensor):
+            return t.requires_grad
+        return any(any_grad(v) for v in t.values())
+    return h.requires_grad or any_grad(params)
 
 
 def layer_spec(cfg):
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         return {"ln1": norm_spec(cfg), "attn": attn.attention_spec(cfg),
                 "ln2": norm_spec(cfg), "mlp": mlp_mod.mlp_spec(cfg)}
     if fam == "ssm":
@@ -57,8 +115,8 @@ def layer_spec(cfg):
                 "ln2": norm_spec(cfg), "cmix": rwkv6.cmix_spec(cfg)}
     if fam == "hybrid":
         return {"ln1": norm_spec(cfg), "mamba": mamba2.mamba_spec(cfg)}
-    raise ValueError(f"the port runs the dense, hybrid and ssm families "
-                     f"(got {fam})")
+    raise ValueError(f"the port runs the dense, vlm, hybrid and ssm "
+                     f"families (got {fam})")
 
 
 def shared_block_spec(cfg):
@@ -67,6 +125,11 @@ def shared_block_spec(cfg):
     return {"in_proj": {"kernel": P((2 * d, d))},
             "ln1": norm_spec(cfg), "attn": attn.attention_spec(cfg),
             "ln2": norm_spec(cfg), "mlp": mlp_mod.mlp_spec(cfg)}
+
+
+def has_image(cfg) -> bool:
+    """Whether ``cfg``'s sequences lead with stub-ViT image positions."""
+    return cfg.family == "vlm" and bool(cfg.num_image_tokens)
 
 
 def build_spec(cfg):
@@ -78,6 +141,11 @@ def build_spec(cfg):
         spec["lm_head"] = {"kernel": P((d, v))}
     if cfg.family == "hybrid" and cfg.hybrid_attn_every:
         spec["shared"] = shared_block_spec(cfg)
+    if has_image(cfg):
+        # the stub ViT's learned image positions, zeros at init and fp32
+        # (JAX pins their dtype)
+        spec["img_pos"] = P((cfg.num_image_tokens, d), init="zeros",
+                            fp32=True)
     return spec
 
 
@@ -92,6 +160,22 @@ def layer_params(params, i: int):
 def embed(params, cfg, tokens):
     """Token embedding in the compute dtype (``cfg.dtype``)."""
     return params["embed"]["table"][tokens].to(DTYPES[cfg.dtype])
+
+
+def embed_inputs(params, cfg, tokens, img_embeds=None):
+    """The JAX ``embed_inputs``: the token embedding (B, S, d) and, for a
+    vlm config, the stub ViT's (B, num_image_tokens, d) patch embeddings
+    plus ``img_pos`` in front of it, in the compute dtype: (B, n + S, d)."""
+    h = embed(params, cfg, tokens)
+    if not has_image(cfg):
+        return h
+    if img_embeds is None:
+        raise ValueError(
+            f"{cfg.name} is a vlm config: its forward takes img_embeds "
+            f"(B, {cfg.num_image_tokens}, {cfg.d_model}), the image patch "
+            "embeddings in front of the text, and none were given")
+    img = img_embeds.to(h.dtype) + params["img_pos"].to(h.dtype)[None]
+    return torch.cat([img, h], dim=1)
 
 
 def unembed(params, cfg, h, norm_impl: str = "kernel"):
@@ -172,25 +256,40 @@ def _stack(caches):
 
 
 def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
-            collect_cache: bool = False):
-    """tokens (B, S).  Returns (logits (B, S, Vp), cache | None).  The
+            collect_cache: bool = False, img_embeds=None):
+    """tokens (B, S); ``img_embeds`` (B, n, d) for a vlm config, whose
+    logits and cache then cover its n image positions first (S becomes
+    n + S below).  Returns (logits (B, S, Vp), cache | None).  While
+    autograd records, each layer body (with zamba2's shared block where it
+    fires after that layer, as in JAX's scan body) runs under
+    ``_remat(opts.remat)``.  The
     collected cache is ``{"layers": ...}`` of per-layer leaves stacked along
-    a leading L dim: ``{"k", "v"}`` (L, B, S, KV, D) for the dense family,
+    a leading L dim: ``{"k", "v"}`` (L, B, S, KV, D) for the attention
+    families,
     ``{"shift1", "wkv", "shift2"}`` (L, B, 1, d), (L, B, H, K, V) fp32 and
     (L, B, 1, d) for ssm, ``{"conv", "ssm"}`` (L, B, w-1, d_inner + 2N) and
     (L, B, H, P, N) fp32 for hybrid, whose cache also holds ``"shared"``:
     the shared block's ``{"k", "v"}`` (n_shared, B, S, KV, D), use j at
     index j.  A hybrid stack runs its shared block after layer i whenever
     i % every == every - 1."""
-    layer = {"dense": _attn_layer, "ssm": _ssm_layer,
+    layer = {"dense": _attn_layer, "vlm": _attn_layer, "ssm": _ssm_layer,
              "hybrid": _hybrid_layer}[cfg.family]
-    h = embed(params, cfg, tokens)
+    h = embed_inputs(params, cfg, tokens, img_embeds)
     emb0 = h
-    caches, shared = [], []
-    for i in range(cfg.num_layers):
+
+    def body(h, i):
         h, cache = layer(layer_params(params, i), cfg, h, opts, collect_cache)
+        kv = None
         if _fires(cfg, i):
             h, kv = _shared_block(params["shared"], cfg, h, emb0, opts)
+        return h, cache, kv
+
+    if _records_grad(params, h):
+        body = _remat(body, opts.remat)
+    caches, shared = [], []
+    for i in range(cfg.num_layers):
+        h, cache, kv = body(h, i)
+        if kv is not None:
             shared.append(kv)
         if collect_cache:
             caches.append(cache)
@@ -206,7 +305,8 @@ def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
 def init_cache(cfg, batch_size: int, max_seq: int, device, dtype):
     """The raw decode cache (the JAX ``transformer.init_cache``), zeros:
     ``{"layers": {"k", "v"}}`` (L, B, S, KV, D) for the dense family (the
-    contiguous layout that ``decode_step`` takes directly); for ssm the
+    contiguous layout that ``decode_step`` takes directly), and for vlm,
+    whose image rows are cache positions too; for ssm the
     shift states (L, B, 1, d) in ``dtype`` and the WKV state (L, B, H, K, K)
     fp32; for hybrid the conv state (L, B, w-1, d_inner + 2N) in ``dtype``,
     the SSM state (L, B, H, P, N) fp32 and the shared block's ``{"k", "v"}``
@@ -217,7 +317,7 @@ def init_cache(cfg, batch_size: int, max_seq: int, device, dtype):
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return {"layers": {"k": zeros((L, *kv_shape)),
                            "v": zeros((L, *kv_shape))}}
     if cfg.family == "ssm":
@@ -255,10 +355,11 @@ def decode_step(params, cfg, tokens, cache, positions,
     ``init_cache``, written in place, each slot at its own position
     (``decode_impl`` ignored).  The recurrent families take the cache of
     ``init_cache`` (or of ``forward(collect_cache=True)``) only, whose
-    states they update in place (``_recurrent_decode``).  Returns (logits
-    (B, 1, Vp), cache)."""
+    states they update in place (``_recurrent_decode``).  A vlm step takes
+    no image: its image rows are in the cache from the prefill, as in JAX.
+    Returns (logits (B, 1, Vp), cache)."""
     page_table = cache.get("page_table")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         if page_table is not None or pool_group is not None \
                 or dp_group is not None:
             raise ValueError(
@@ -338,8 +439,9 @@ def prefill_chunk(params, cfg, tokens, cache, start_pos, dest, last_pos,
     slots' REAL table rows; ``last_pos`` (B,) is each chunk's last valid
     position.  Only the hidden row at ``last_pos`` is unembedded, so a
     chunk pays one vocab projection.  Returns (logits (B, 1, Vp), cache).
-    Dense family only: recurrent state has no position-indexed cache."""
-    if cfg.family != "dense":
+    Attention families only (dense, vlm): recurrent state has no
+    position-indexed cache."""
+    if cfg.family not in ("dense", "vlm"):
         raise ValueError("chunked prefill is dense-FFN attention-cache "
                          f"families only (family={cfg.family})")
     page_table = cache["page_table"]

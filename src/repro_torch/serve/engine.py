@@ -88,6 +88,13 @@ prefill, chunked prefill, the fused step, and the metrics of
   (``core/health.py``) and its rules every ``health_every`` iterations.  All
   of it is host code over counters and slot state.
 
+**Image prefix** (a vlm config, internvl2-2b): each request carries its
+stub ViT's patch embeddings (``Request.img_embeds``, zeros when absent),
+prefilled in front of the prompt, so a slot's positions start after its
+``img_len`` image rows, also on a resume.  Image positions are embeddings,
+not tokens: such requests skip prefix sharing and the prefix store, and
+prefill whole-prompt (chunked prefill is refused), as in JAX.
+
 On CUDA the main path runs the port's kernels: K2 flash prefill, K1 paged
 flash-decode (its int8 mode with ``kv_dtype="int8"``) and K3 RMSNorm at
 every norm.  ``kv_dtype="int8"`` stores the pages as int8 rows with per-row
@@ -150,6 +157,7 @@ class Request:
     max_new_tokens: int = 32
     eos_id: int = -1                 # -1: never stops early
     sampling: SamplingParams = field(default_factory=SamplingParams)
+    img_embeds: Optional[np.ndarray] = None   # (num_image_tokens, d) for vlm
     out_tokens: List[int] = field(default_factory=list)
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
@@ -205,7 +213,12 @@ class ServeEngine:
                  health_every: int = 16,
                  locality_chips: Optional[int] = None, dp_group=None,
                  host_pages: int = 0, prefix_store=None):
-        assert lm.cfg.family == "dense", lm.cfg.family
+        if lm.cfg.family not in ("dense", "vlm"):
+            raise ValueError(
+                f"ServeEngine serves attention-cache families (dense, vlm); "
+                f"{lm.cfg.name} is {lm.cfg.family}: its recurrent state "
+                "decodes through LM.decode_step over LM.init_cache("
+                "backend=None)")
         if cache_backend not in ("paged", "contiguous"):
             raise ValueError(f"cache_backend {cache_backend!r} not in "
                              "('paged', 'contiguous')")
@@ -219,6 +232,9 @@ class ServeEngine:
                              f"runs on {self.device}")
         self.lm, self.params = lm, params
         self.B, self.S = max_batch, max_seq
+        # the image rows in front of every vlm prompt (0 for dense)
+        self.img_len = (lm.cfg.num_image_tokens
+                        if lm.cfg.family == "vlm" else 0)
         self.decode_impl = decode_impl
         self.pool_group = pool_group
         self.dp_group = dp_group
@@ -277,6 +293,10 @@ class ServeEngine:
                     "chunked prefill is page-aware: chunks claim pages "
                     "incrementally and mid-prefill slots shield their table "
                     "rows from decode (use cache_backend='paged')")
+            if self.img_len:
+                raise ValueError(
+                    "chunked prefill covers token prompts; VLM image-embed "
+                    "prefixes prefill whole-prompt")
             if self.chunk < 1 or self.budget < self.chunk:
                 raise ValueError(
                     f"prefill budget {self.budget} below one chunk "
@@ -442,17 +462,20 @@ class ServeEngine:
 
     # ------------------------------------------------------------- intake ----
     def _footprint(self, req: Request) -> int:
-        """Cache positions a request can ever occupy: what ``submit``
-        checks against the pool and ``_admit`` reserves."""
-        return min(len(req.prompt) + req.max_new_tokens, self.S)
+        """Cache positions a request can ever occupy, its image rows
+        included: what ``submit`` checks against the pool and ``_admit``
+        reserves."""
+        return min(self.img_len + len(req.prompt) + req.max_new_tokens,
+                   self.S)
 
     def submit(self, req: Request):
         if len(req.prompt) == 0:
             raise ValueError(f"request {req.id}: empty prompt")
-        if len(req.prompt) >= self.S:
+        if len(req.prompt) + self.img_len >= self.S:
             raise ValueError(
-                f"request {req.id}: prompt length {len(req.prompt)} leaves "
-                f"no room to decode in a max_seq={self.S} cache")
+                f"request {req.id}: prompt length {len(req.prompt)} "
+                f"(+{self.img_len} image tokens) leaves no room to decode "
+                f"in a max_seq={self.S} cache")
         if not self.kv.can_ever_fit(self._footprint(req)):
             raise ValueError(
                 f"request {req.id}: footprint of {self._footprint(req)} "
@@ -701,14 +724,18 @@ class ServeEngine:
         admitted = []                     # (slot, req, bucket, shared, toks)
         for req in self._admission_order():
             toks = self._prefill_tokens(req)
+            # image positions are embeddings, not tokens: no hash identity,
+            # so vlm requests skip prefix sharing (and the prefix store)
+            prefix = toks if self.img_len == 0 else None
             slot, shared = self._claim(free, req, lambda s: self.kv.alloc(
-                s, self._footprint(req), prefix=toks,
+                s, self._footprint(req), prefix=prefix,
                 tenant=self._tenant(req)))
             if slot is None:
                 break
             if shared is None:
                 continue
-            bucket = min(1 << (len(toks) - 1).bit_length(), self.S)
+            bucket = min(1 << (len(toks) - 1).bit_length(),
+                         self.S - self.img_len)
             admitted.append((slot, req, bucket, shared, toks))
         for bucket in sorted({a[2] for a in admitted}):
             self._prefill_group(bucket, [a for a in admitted
@@ -745,34 +772,43 @@ class ServeEngine:
 
     def _prefill_group(self, bucket: int, group):
         """One forward for every admitted request of a bucket: stacked
-        (n, bucket) tokens in; the K/V block scattered into each slot's
-        pages and each request's first token sampled, at stream step
-        ``len(out_tokens)`` (a resumed request lands prompt + its emitted
-        tokens and re-samples its pending token).  A non-finite row sends
-        its slot to recovery before it decodes."""
+        (n, bucket) tokens in, behind each request's image for a vlm
+        config (a block of img_len + bucket positions); the K/V block
+        scattered into each slot's pages and each request's first token
+        sampled, at stream step ``len(out_tokens)`` (a resumed request
+        lands its image, prompt + its emitted tokens and re-samples its
+        pending token).  A non-finite row sends its slot to recovery before
+        it decodes."""
         n = len(group)
+        img = self.img_len
+        block_len = img + bucket
         tokens = np.zeros((n, bucket), np.int32)
         last_idx = np.zeros(n, np.int64)
+        imgs = (np.zeros((n, img, self.lm.cfg.d_model), np.float32)
+                if img else None)
         # the write spec: flat pool rows per position (paged) or one slot
         # id per request (contiguous), the JAX engine's ``write_spec``
         paged = self.kv.backend == "paged"
-        dest = np.zeros((n, bucket) if paged else n, np.int32)
+        dest = np.zeros((n, block_len) if paged else n, np.int32)
         for j, (slot, req, _, shared, ptoks) in enumerate(group):
             tokens[j, :len(ptoks)] = ptoks
-            last_idx[j] = len(ptoks) - 1
-            dest[j] = (self.kv.prefill_dest(slot, bucket, len(ptoks), shared)
+            last_idx[j] = img + len(ptoks) - 1
+            if img and req.img_embeds is not None:
+                imgs[j] = req.img_embeds
+            dest[j] = (self.kv.prefill_dest(slot, block_len,
+                                            img + len(ptoks), shared)
                        if paged else slot)
         reqs = [r for _, r, _, _, _ in group]
-        logits, cache = self.lm.forward(self.params,
-                                        self._tensor(tokens, torch.long),
-                                        collect_cache=True)
+        logits, cache = self.lm.forward(
+            self.params, self._tensor(tokens, torch.long), collect_cache=True,
+            img_embeds=None if imgs is None else self._tensor(imgs))
         self.kv.staged_write_prefill(self.kv.quantize_block(cache["layers"]),
                                      self._tensor(dest))
         rows = logits[torch.arange(n, device=self.device),
                       self._tensor(last_idx), :self.lm.cfg.vocab_size].float()
         toks = self._sample_for(rows, reqs).cpu().numpy()
         for j, (slot, req, _, _, ptoks) in enumerate(group):
-            self._start_decoding(slot, req, toks[j], len(ptoks))
+            self._start_decoding(slot, req, toks[j], img + len(ptoks))
             self.reg.counter("serve_prefill_tokens_total").inc(len(ptoks))
         self.reg.counter("serve_prefill_dispatches_total").inc()
         self.reg.histogram("serve_prefill_batch_size").observe(n)

@@ -19,10 +19,30 @@ from repro_torch.models.common import DTYPES
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import tree_leaves
 
-# the JAX trainer's forward: blockwise jnp attention, jnp rms_norm and the
-# models' chunked (xla) mixers
+# the JAX trainer's forward: blockwise jnp attention, jnp rms_norm, the
+# models' chunked (xla) mixers and JAX's default remat ("selective")
 TRAIN_OPTS = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
                          mixer_impl="plain")
+
+
+def kernels_without_backward(cfg, opts: ForwardOpts) -> list:
+    """The kernels ``opts`` routes a forward of ``cfg`` through that have
+    no backward: K2 (``attn_impl="flash"``, every family with attention),
+    K3 (``norm_impl="kernel"``, every RMSNorm and mamba2's gated norm) and
+    K6/K7 (``mixer_impl="kernel"``, hybrid and ssm).  On the card each
+    refuses autograd; on the CPU their plain versions would differentiate,
+    so a train step refuses them on every device."""
+    found = []
+    if opts.attn_impl == "flash" and cfg.family != "ssm":
+        found.append('K2 flash attention (attn_impl="flash")')
+    if opts.norm_impl == "kernel" and (cfg.norm == "rmsnorm"
+                                       or cfg.family == "hybrid"):
+        found.append('K3 RMSNorm (norm_impl="kernel")')
+    if opts.mixer_impl == "kernel" and cfg.family in ("hybrid", "ssm"):
+        found.append({"hybrid": 'K6 SSD scan (mixer_impl="kernel")',
+                      "ssm": 'K7 WKV scan (mixer_impl="kernel")'}[
+                          cfg.family])
+    return found
 
 
 def init_train_state(lm: LM, seed: int, tcfg: TrainConfig,
@@ -43,19 +63,24 @@ def make_train_step(lm: LM, tcfg: TrainConfig,
                     opts: ForwardOpts = TRAIN_OPTS, microbatches: int = 1,
                     adamw_impl: str = "kernel"):
     """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
-    holds (B, S) "tokens" and "labels" (numpy arrays or tensors).  With
+    holds (B, S) "tokens" and "labels" (numpy arrays or tensors), and for a
+    vlm config "img_embeds" (B, num_image_tokens, d).  With
     ``microbatches`` > 1 the batch is split along B and fp32 gradients are
     accumulated, each divided by ``microbatches``, as JAX's scan does.
     ``metrics`` are the last microbatch's loss metrics (as in JAX, its
     "loss" is that microbatch's) plus "grad_norm" and "lr"; values are 0-d
     tensors or floats.  ``adamw_impl`` picks K5 or its plain version.
-    The recurrent families are refused: their training is a later slice."""
-    if lm.cfg.family != "dense":
-        raise NotImplementedError(
-            f"make_train_step for the {lm.cfg.family} family "
-            f"({lm.cfg.name}): the port runs its forward, eval, prefill and "
-            "decode; its training is the next slice (ROADMAP Queue 1 item "
-            "17)")
+    Every family the port runs trains; the recurrent ones through the plain
+    chunked mixers, as JAX trains through ``mixer_impl="xla"``.  Opts that
+    route the forward through a kernel with no backward raise
+    ``ValueError`` (``kernels_without_backward``)."""
+    refused = kernels_without_backward(lm.cfg, opts)
+    if refused:
+        raise ValueError(
+            f"make_train_step({lm.cfg.name}): the forward would run "
+            f"{', '.join(refused)}, which has no backward; train with the "
+            "plain forms (TRAIN_OPTS: attn_impl='blockwise', "
+            "norm_impl='plain', mixer_impl='plain')")
 
     def loss_grads(params, leaves, batch):
         loss, metrics = lm.loss(params, batch, opts,

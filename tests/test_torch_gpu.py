@@ -16,6 +16,11 @@ PyTorch:
 fp32 is held to 1e-4 (the kernels sum in another order) and bf16 to 2e-2
 (outputs round to bf16)."""
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -686,24 +691,50 @@ def test_ssd_scan_fp32_takes_unaligned_layouts():
     assert _err(got, ref) <= TOL["float32"]
 
 
+_PROFILED_CALL = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+import test_torch_gpu as t
+from repro_torch.kernels import ops
+dev = t._card()
+{setup}
+call()                       # build and warm up
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    call()
+    torch.cuda.synchronize()
+print(json.dumps(sorted({{ev.key for ev in prof.key_averages()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA
+                         and ev.self_device_time_total > 0}})))
+"""
+
+
+def _profiled_kernels(setup: str) -> set:
+    """The device kernels of one profiled ``call()`` (defined by ``setup``,
+    with this module as ``t``), each with device time, profiled in a fresh
+    Python process: in a process that has run many card tests before, the
+    profiler has recorded no device event at all (an empty set)."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), str(root / "tests")]))
+    res = subprocess.run(
+        [sys.executable, "-c", _PROFILED_CALL.format(setup=setup)],
+        capture_output=True, text=True, cwd=root, env=env, timeout=900)
+    assert res.returncode == 0, res.stderr
+    return set(json.loads(res.stdout.strip().splitlines()[-1]))
+
+
 @pytest.mark.gpu
 def test_ssd_scan_model_layout_launches_only_k6():
     """One profiled ``ops.mamba2_ssd`` on the model layout runs K6's device
     kernel and nothing else: no permute, copy or contiguous kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import ops
-    dev = _card()
-    x, da, bm, cm = _ssd_model_inputs(4, 2048, 64, 64, 64, torch.bfloat16,
-                                      dev)
-    ops.mamba2_ssd(x, da, bm, cm)       # build and warm up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ops.mamba2_ssd(x, da, bm, cm)
-        torch.cuda.synchronize()
-    names = {ev.key for ev in prof.key_averages()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and ev.self_device_time_total > 0}
+    _card()
+    names = _profiled_kernels(
+        "x, da, bm, cm = t._ssd_model_inputs(4, 2048, 64, 64, 64, "
+        "torch.bfloat16, dev)\n"
+        "def call():\n"
+        "    ops.mamba2_ssd(x, da, bm, cm)")
     assert names and all("ssd_scan_mma_kernel" in k for k in names), names
 
 
@@ -868,19 +899,12 @@ def test_wkv6_fp32_takes_unaligned_layouts():
 def test_wkv6_model_layout_launches_only_k7():
     """One profiled ``ops.rwkv6_wkv`` on the model layout runs K7's device
     kernel and nothing else: no permute, copy or contiguous kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import ops
-    dev = _card()
-    args = _wkv_model_inputs(4, 2048, 32, 64, 64, torch.bfloat16, dev)
-    ops.rwkv6_wkv(*args)       # build and warm up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ops.rwkv6_wkv(*args)
-        torch.cuda.synchronize()
-    names = {ev.key for ev in prof.key_averages()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and ev.self_device_time_total > 0}
+    _card()
+    names = _profiled_kernels(
+        "args = t._wkv_model_inputs(4, 2048, 32, 64, 64, torch.bfloat16, "
+        "dev)\n"
+        "def call():\n"
+        "    ops.rwkv6_wkv(*args)")
     assert names and all("wkv6_mma_kernel" in k for k in names), names
 
 

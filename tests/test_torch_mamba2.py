@@ -25,14 +25,13 @@ from repro.models import LM as JLM
 from repro.models import mamba2 as jmamba
 from repro.train.trainer import make_eval_step as jmake_eval_step
 from repro_torch.configs import CONFIGS as TCONFIGS
-from repro_torch.configs import TrainConfig
 from repro_torch.kernels import mamba2_ssd as tssd
 from repro_torch.kernels import ops as tops
 from repro_torch.models import LM, ForwardOpts
 from repro_torch.models import mamba2 as tmamba
 from repro_torch.models.params import from_jax
 from repro_torch.models.transformer import layer_params
-from repro_torch.train import make_eval_step, make_train_step
+from repro_torch.train import make_eval_step
 from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 NAME = "zamba2-1.2b"
@@ -137,6 +136,45 @@ def test_ssd_chunked_bf16_rounds_where_jax_does():
     err_ours = np.abs(ours - jform).max()
     err_scan = np.abs(fp32_scan - jform).max()
     assert err_ours <= 0.25 * err_scan, (err_ours, err_scan)
+
+
+def test_ssd_chunked_gradient_finite_where_the_decay_overflows():
+    """dA = -2 a step over 64-step chunks: above the diagonal of a chunk's
+    pairwise decays cs_i - cs_j reaches 126, past fp32's exp range (88).
+    JAX's ``ssd_chunked`` masks after the exponential, so its backward
+    multiplies the mask's zero by inf: NaN gradients.  The port masks
+    before it: its values are JAX's, and its gradients are finite and the
+    float64 form's (where nothing overflows)."""
+    b, s, h, p, n, chunk = 1, 128, 2, 8, 4, 64
+    rng = np.random.default_rng(3)
+    x = rng.normal(0, 1, (b, s, h, p)).astype(np.float32)
+    da = np.full((b, s, h), -2.0, np.float32)
+    bm, cm = rng.normal(0, 1, (2, b, s, n)).astype(np.float32)
+    w = rng.normal(0, 1, (b, s, h, p)).astype(np.float32)
+
+    def jloss(x, da):
+        y = jmamba.ssd_chunked(x, da, jnp.asarray(bm), jnp.asarray(cm), chunk)
+        return jnp.sum(y * w), y
+
+    (_, jy), jg = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(da))
+    assert not np.isfinite(np.asarray(jg[1])).all()
+
+    def grads(dtype):
+        tx, tda = (torch.tensor(a, dtype=dtype, requires_grad=True)
+                   for a in (x, da))
+        y = tmamba.ssd_chunked(tx, tda, torch.tensor(bm, dtype=dtype),
+                               torch.tensor(cm, dtype=dtype), chunk)
+        return (y,) + torch.autograd.grad(
+            (y * torch.tensor(w, dtype=dtype)).sum(), (tx, tda))
+
+    y32, gx32, gda32 = grads(torch.float32)
+    _, gx64, gda64 = grads(torch.float64)
+    np.testing.assert_allclose(_np(y32), _np(jy), **TOL["float32"])
+    for g32, g64 in ((gx32, gx64), (gda32, gda64)):
+        assert torch.isfinite(g32).all()
+        np.testing.assert_allclose(g32.numpy(), g64.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(g64.abs().max()))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -245,13 +283,12 @@ def test_config_copy_equals_jax():
     assert j.param_count() == t.param_count()
 
 
-def test_recurrent_training_and_paged_backend_stay_refused():
-    """Prefill and decode run over the raw state cache (item 16); training
-    (item 17) and the managed cache backends stay refused, as JAX's paged
-    decode and engine refuse recurrent state."""
+def test_paged_and_contiguous_backends_stay_refused():
+    """Prefill and decode run over the raw state cache (item 16); the
+    managed cache backends, a pool group and a paged decode view stay
+    refused, as JAX's paged decode and engine refuse recurrent state.
+    (Training runs: ``tests/test_torch_train.py``.)"""
     _, _, _, tcfg, tlm, tparams = setup()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_train_step(tlm, TrainConfig())
     for backend in ("paged", "contiguous"):
         with pytest.raises(ValueError, match="page structure"):
             tlm.init_cache(1, 16, backend=backend, device="cpu")

@@ -25,14 +25,13 @@ from repro.models import LM as JLM
 from repro.models import rwkv6 as jrwkv
 from repro.train.trainer import make_eval_step as jmake_eval_step
 from repro_torch.configs import CONFIGS as TCONFIGS
-from repro_torch.configs import TrainConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rwkv6_wkv as twkv
 from repro_torch.models import LM, ForwardOpts
 from repro_torch.models import rwkv6 as trwkv
 from repro_torch.models.params import from_jax
 from repro_torch.models.transformer import layer_params
-from repro_torch.train import make_eval_step, make_train_step
+from repro_torch.train import make_eval_step
 from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 NAME = "rwkv6-1.6b"
@@ -267,13 +266,12 @@ def test_config_copy_equals_jax():
     assert j.param_count() == t.param_count()
 
 
-def test_recurrent_training_and_paged_backend_stay_refused():
-    """Prefill and decode run over the raw state cache (item 16); training
-    (item 17) and the managed cache backends stay refused, as JAX's paged
-    decode and engine refuse recurrent state."""
+def test_paged_and_contiguous_backends_stay_refused():
+    """Prefill and decode run over the raw state cache (item 16); the
+    managed cache backends, a pool group and a paged decode view stay
+    refused, as JAX's paged decode and engine refuse recurrent state.
+    (Training runs: ``tests/test_torch_train.py``.)"""
     _, _, _, tcfg, tlm, tparams = setup()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_train_step(tlm, TrainConfig())
     for backend in ("paged", "contiguous"):
         with pytest.raises(ValueError, match="page structure"):
             tlm.init_cache(1, 16, backend=backend, device="cpu")

@@ -4,10 +4,13 @@ and every gradient leaf, the AdamW update, three train steps (microbatches
 1 and 2), a JAX state carried across mid-run, the data loader, checkpoints
 in both directions, the fault-tolerant loop and the launcher.
 
-Reduced qwen3-4b and llama3.2-3b in fp32.  Tolerances: 2e-5 for a forward
-(the repo's fp32 kernel tolerance); 1e-4 relative / 1e-6 absolute for
-gradients and for parameters after AdamW steps, whose fp32 sums run in
-another order in each framework and whose update divides by sqrt(v)."""
+Reduced qwen3-4b, llama3.2-3b, zamba2-1.2b (hybrid), rwkv6-1.6b (ssm) and
+internvl2-2b (vlm, with seeded image embeddings) in fp32; the recurrent
+families train through the plain chunked mixers, as JAX trains through
+its "xla" ones.  Tolerances: 2e-5 for a forward (the repo's fp32 kernel
+tolerance); 1e-4 relative / 1e-6 absolute for gradients and for
+parameters after AdamW steps, whose fp32 sums run in another order in
+each framework and whose update divides by sqrt(v)."""
 import dataclasses
 import functools
 import subprocess
@@ -42,6 +45,7 @@ from repro_torch.data import pipeline as tdata
 from repro_torch.models import LM, ForwardOpts
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
+from repro_torch.models.lm import text_len
 from repro_torch.models.params import from_jax, train_state_from_jax
 from repro_torch.train import (adamw_update, init_opt_state, lr_schedule,
                                make_eval_step, make_train_step)
@@ -49,15 +53,16 @@ from repro_torch.train.optimizer import tree_leaves
 from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["qwen3-4b", "llama3.2-3b"]
+ARCHS = ["qwen3-4b", "llama3.2-3b", "zamba2-1.2b", "rwkv6-1.6b",
+         "internvl2-2b"]
 FWD = dict(rtol=2e-5, atol=2e-5)
 GRAD = dict(rtol=1e-4, atol=1e-6)
 RNG = np.random.default_rng(23)
 TCFG = dict(learning_rate=5e-3, warmup_steps=2, total_steps=40)
 # several chunks, so the causal chunk skip and the diagonal bias both run
 JOPTS = JOpts(attn_impl="blockwise", q_chunk=16, kv_chunk=8, remat="none")
-TOPTS = ForwardOpts(attn_impl="blockwise", norm_impl="plain", q_chunk=16,
-                    kv_chunk=8)
+TOPTS = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
+                    mixer_impl="plain", q_chunk=16, kv_chunk=8)
 B, S = 4, 32
 
 
@@ -80,9 +85,19 @@ def _tree_np(tree):
 
 
 def _batch(cfg, seed, b=B, s=S):
+    """Tokens and labels, and for a vlm config seeded image embeddings in
+    front of them: s positions in all, as JAX's ``make_batch`` lays out a
+    sequence (``text_len``)."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
-            "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    s = text_len(cfg, s)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+                 np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+                 np.int32)}
+    if cfg.family == "vlm":
+        batch["img_embeds"] = rng.normal(
+            0, 1, (b, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _tbatch(batch):
@@ -233,11 +248,42 @@ def jax_trajectory(name, microbatches):
     return states, metrics
 
 
-def _assert_state_close(ours, theirs):
+# The recurrent families' gradients agree with JAX's to ~2e-5 of each
+# leaf's largest value, not elementwise: their chunked scans sum fp32 decay
+# products in another order.  AdamW divides by sqrt(v), so where an
+# element's gradient is small its step m/sqrt(v) carries that noise
+# magnified, up to a full step of either sign where the gradient is at the
+# noise level.  Their parameters after AdamW are held to GRAD but for at
+# most ADAM_OUTLIERS of a leaf's elements (seen: 10 of 65,536, 1 of 1,280),
+# each within two full steps (2 x the summed learning rates); the moments
+# themselves, and every dense and vlm parameter, are held to GRAD.
+RECURRENT = ("zamba2-1.2b", "rwkv6-1.6b")
+ADAM_OUTLIERS = 1e-3
+
+
+def _assert_adam_close(ours, theirs, lr_sum):
+    flat = jax.tree_util.tree_flatten_with_path(theirs)[0]
+    ours = tree_leaves(ours)
+    assert len(flat) == len(ours)
+    for (path, j), t in zip(flat, ours):
+        t, j = _np(t), _np(j)
+        off = ~np.isclose(t, j, **GRAD)
+        assert off.mean() <= ADAM_OUTLIERS, (path, int(off.sum()))
+        assert (np.abs(t - j)[off] <= 2 * lr_sum).all(), path
+
+
+def _assert_state_close(ours, theirs, name=None, lr_sum=0.0):
     assert ours["step"] == int(theirs["step"])
-    _assert_tree_close(ours["params"], theirs["params"], GRAD)
+    if name in RECURRENT:
+        _assert_adam_close(ours["params"], theirs["params"], lr_sum)
+    else:
+        _assert_tree_close(ours["params"], theirs["params"], GRAD)
     for key in ("m", "v"):
         _assert_tree_close(ours["opt"][key], theirs["opt"][key], GRAD)
+
+
+def _lr_sum(first, last):
+    return sum(lr_schedule(TrainConfig(**TCFG), i) for i in range(first, last))
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
@@ -253,7 +299,7 @@ def test_three_train_steps_match_jax(name, microbatches):
         for key in ("loss", "nll", "z_loss", "grad_norm", "lr"):
             np.testing.assert_allclose(float(m[key]), jmetrics[i][key],
                                        rtol=1e-5, err_msg=f"{i} {key}")
-    _assert_state_close(state, states[3])
+    _assert_state_close(state, states[3], name, _lr_sum(0, 3))
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -266,7 +312,7 @@ def test_jax_state_carried_across_continues_to_the_jax_result(name):
     assert state["step"] == 2
     step = make_train_step(tlm, TrainConfig(**TCFG), TOPTS)
     state, _ = step(state, _batch(jcfg, 12))
-    _assert_state_close(state, states[3])
+    _assert_state_close(state, states[3], name, _lr_sum(2, 3))
 
 
 # -------------------------------------------------------------------- data ---
