@@ -276,14 +276,46 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    shared; tok/s, TTFT p50, one replay's device ms, pool bytes; (c) 4 train
    steps at full size (remat "selective"), batch 4 x (256 + 256): losses
    finite and falling, K4/K5 launches exact, step ms, MFU, peak memory.
+15. MoE (moonshot-v1-16b-a3b: 64 experts top-6; arctic-480b: 128 experts
+   top-2 beside a dense residual FFN): K1 at KV=16 G=1 and KV=8 G=7 (seven
+   query rows on the tensor cores' eight), native and int8, against its
+   plain version and split schedule, the plan's shared memory, timed; K2
+   at both (256-token buckets), K3 at d=2048 and d=7168, timed; (a)
+   moonshot at full width cut to 4 layers in fp32, the kernel path against
+   the plain path (4 prompts of 150-256 tokens in one bucket of 256, 16
+   decode steps) with every layer's expert ids recorded on both paths: a
+   row whose ids differ must be a router tie (gap below 1e-4) and takes
+   its sequence (prefill) or the decode group (from that step) out of the
+   logits gate, counted; (b) moonshot at full width in bf16 cut to 24 of
+   its 48 layers (``LM.init`` draws each stacked leaf in fp32 first: 84.6
+   GiB at 48 layers, 42.6 at 24, reckoned and measured) on phase 5's
+   workload through the graph and eagerly, native and int8: graph streams
+   equal the eager ones, one replay a decode step, K1/K2/K3 launches exact;
+   replay ms, tok/s, TTFT p50, pool and graph pool bytes, peak memory; (c)
+   arctic-480b at 1 of its 35 layers (42.2 GiB reckoned at init, 84.0 at
+   2), the same; (d) moonshot at 2 layers trained 4 steps at 4 x 256 under
+   each remat policy: step 0's loss and grad_norm bitwise equal across
+   them, ``moe_aux`` finite and non-zero, K4 and K5 timed at its shapes.
+16. enc-dec (seamless-m4t-large-v2 at full size, 24 + 24 layers, every
+   bias and LayerNorm leaf redrawn): K2 at D=64, KV=16 G=1, the encoder's
+   non-causal launch (4 x 64 frames) and the decoder's causal one (4 x
+   256), fp32 and bf16, timed; (a) fp32 kernel path against the plain path
+   (4 x 256 tokens, 64 frames) to 1e-3, K2 launches exact, then
+   ``LM.prefill`` and 32 decode steps over the dense cache against the
+   forward to 1e-3; (b) bf16 ``LM.prefill`` of 4 x 256 and 32 greedy decode
+   steps: prefill and step ms, greedy tokens equal to a bf16 forward's
+   wherever decided; (c) 4 train steps at 4 x 512 with 128 frames, remat
+   none, K4 and K5 timed at its shapes.
 
 It then prints a ``kernels`` JSON line (K1's entries at the serve shape,
 with the long shape's numbers under ``long``; phases 11 and 14's head
 layouts as entries of their own, ``name[KV=..,G=..]`` and for K1, whose q
 dtypes take different paths, ``name[KV=..,G=..,fp32|bf16]``, each timed in
 the mode that the phase's runs launch at that layout and holding those
-launches; phase 13's K4 and K5 as ``name[<arch> train]``, timed at that
-phase's shapes and holding its launches; none with 0 launches), the
+launches, phase 15's likewise and K3's ``rmsnorm_rows[d=..]``, phase 16's
+K2 as ``name[KV=16,G=1,D=64]`` and ``name[KV=16,G=1,D=64,non-causal]``;
+phases 13, 15 and 16's K4 and K5 as ``name[<arch> train]``, timed at
+that phase's shapes and holding its launches; none with 0 launches), the
 card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -719,27 +751,32 @@ def model_ref(fa, q, k, v, causal=True):
     return o.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)
 
 
-def time_k2(fa, what, b, s, kv, g, d, dtype, gen):
+def time_k2(fa, what, b, s, kv, g, d, dtype, gen, causal=True):
     """K2 on the model layout (as ops.flash_attention launches it), its
     plain version, SDPA on contiguous (B, H, S, D) copies, and the bound
-    from shapes, causal; returns the report entry."""
+    from shapes, causal or not; returns the report entry."""
     from repro_torch.kernels import ops
     q, k, v = model_layout(b, s, kv, g, d, dtype, gen)
-    err = max_err(ops.flash_attention(q, k, v), model_ref(fa, q, k, v))
-    ms = time_ms(lambda: ops.flash_attention(q, k, v))
-    host_ms = eager_ms(lambda: ops.flash_attention(q, k, v))
-    plain_ms = time_ms(lambda: model_ref(fa, q, k, v))
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=causal)
+
+    err = max_err(kernel(), model_ref(fa, q, k, v, causal))
+    ms = time_ms(kernel)
+    host_ms = eager_ms(kernel)
+    plain_ms = time_ms(lambda: model_ref(fa, q, k, v, causal))
     qh = q.permute(0, 2, 3, 1, 4).reshape(b, kv * g, s, d).contiguous()
     kh = k.permute(0, 2, 1, 3).contiguous()
     vh = v.permute(0, 2, 1, 3).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
+    lib_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=causal,
                                   enable_gqa=g > 1))
     size = q.element_size()
     nbytes = size * (2 * q.numel() + 2 * k.numel())
-    flops = 4 * b * kv * g * d * (s * (s + 1) // 2)
+    flops = 4 * b * kv * g * d * (s * (s + 1) // 2 if causal else s * s)
     bms, by = bound(nbytes, flops, dtype)
-    log(f"K2 timing {what}: {str(dtype)[6:]} causal B={b} H={kv * g} "
+    log(f"K2 timing {what}: {str(dtype)[6:]} "
+        f"{'causal' if causal else 'non-causal'} B={b} H={kv * g} "
         f"KV={kv} S={s} D={d}: kernel {ms:.4f} ms (eager back-to-back "
         f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
         f"bound {bms:.5f} ms ({by}; {nbytes} B, {flops} flop), "
@@ -859,12 +896,20 @@ def check_k3(report):
             log(f"K3 rmsnorm {str(dtype)[6:]:8s} N={n:5d} d={d:4d}: "
                 f"max_abs_err {err:.3e}")
             assert err <= TOL[dtype], "K3 disagrees with its plain version"
-    n, d = 2048, 2560
+    report["rmsnorm_rows"] = k3_timed(2048, 2560, gen)
+
+
+def k3_timed(n, d, gen, what=""):
+    """K3 over n x d bf16 rows, ``K3_BUFFERS`` inputs and outputs in turn:
+    checked against its plain version, then timed beside it,
+    ``F.rms_norm`` and the bound.  Returns the report entry."""
+    from repro_torch.kernels import rmsnorm as rn
     xs = [(2 * torch.randn(n, d, generator=gen)).to(DEV, torch.bfloat16)
           for _ in range(K3_BUFFERS)]
     x = xs[0]
     sc = (1 + 0.2 * torch.randn(d, generator=gen)).to(DEV)
     err = max_err(rn.rmsnorm_rows(x, sc), rn.rmsnorm_ref(x, sc))
+    assert err <= TOL[torch.bfloat16], "K3 disagrees with its plain version"
     sc16 = sc.to(torch.bfloat16)
     ms = time_ms(rotating(xs, lambda x: rn.rmsnorm_rows(x, sc)))
     host_ms = eager_ms(rotating(xs, lambda x: rn.rmsnorm_rows(x, sc)))
@@ -872,15 +917,15 @@ def check_k3(report):
     lib_ms = time_ms(rotating(xs, lambda x: torch.nn.functional.rms_norm(
         x, (d,), sc16, 1e-5)))
     bms, by = bound(2 * x.numel() * 2 + 4 * d, 4 * n * d, torch.float32)
-    log(f"K3 timing bf16 N=2048 d=2560, {K3_BUFFERS} input and output "
+    log(f"K3 timing bf16 N={n} d={d}{what}, {K3_BUFFERS} input and output "
         f"buffers in turn ({K3_BUFFERS * 2 * x.numel() * 2 / 1e6:.0f} MB, "
         f"beyond the 50 MB L2): kernel {ms:.4f} ms (eager "
         f"back-to-back {host_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {bms:.5f} ms "
-        f"({by})")
-    report["rmsnorm_rows"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms)
+        f"({by}) [{nvidia_smi_line()}]")
+    del xs, x
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
 
 
 K4_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}   # elementwise rel
@@ -1940,6 +1985,7 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True,
             f"admission, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"[{nvidia_smi_line()}]")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         pool_tensor_bytes = sum(t.numel() * t.element_size()
                                 for t in eng.kv.state["layers"].values())
         log(f"{tag} KV cache [{st.backend}]: memory_stats {st.bytes_total} B "
@@ -2031,7 +2077,7 @@ def serve_runs(lm, params, runs, log_name, pool_group=None, profile=True,
             replays=len(replays), stats=dataclasses.asdict(st),
             page_bytes=page_kv_bytes(cfg, 16, eng.kv.dtype, st.kv_dtype),
             capture_ms=gs.get("capture_ms"),
-            graph_pool_bytes=gs.get("pool_bytes"),
+            graph_pool_bytes=gs.get("pool_bytes"), peak_gib=peak_gib,
             store=(eng.kv.store.stats()
                    if getattr(eng.kv, "store", None) else None), **prof)
         del eng, done, reqs
@@ -4168,57 +4214,64 @@ def redraw_biases(params, seed: int) -> None:
     walk(params)
 
 
+def k1_layout(report, name, kv, g, entry_dtypes) -> None:
+    """K1 at a head layout (D=128, page 16, phase 3's ragged positions and
+    NaN dead pages), native and int8, fp32 and bf16 q, against its plain
+    version and its plain split schedule, one launch a call, two calls
+    bitwise equal; the plan's shared memory equal to the kernel's; then
+    timed at phase 3's serve positions, each mode an entry of its own for
+    every q dtype of ``entry_dtypes`` (the dtypes the phase's runs launch
+    there)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.quant import quantize_kv
+    gen = torch.Generator().manual_seed(kv * 100 + g)
+    smem = _build.entry("paged_decode_smem_bytes")
+    tag = f"KV={kv} G={g} D=128 page=16 M=32 ({name})"
+    pos = torch.tensor(K1_SERVE_POS, dtype=torch.int32, device=DEV)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        q, k, v, table, p0 = k1_inputs(dtype, gen, kv=kv, g=g)
+        k1_agree(pd, f"K1 paged_flash_decode {dt:8s} {tag}", q, (k, v),
+                 table, p0, TOL[dtype])
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        k1_agree(pd, f"K1 int8 paged_flash_decode_int8 q {dt:8s} {tag}", q,
+                 (kq, vq, ks, vs), table, p0, TOL[dtype])
+        for quant in (False, True):
+            pl = pd.plan(8, kv, g, 128, 16, 32, dtype, quant, False,
+                         pd._n_sms(0))
+            mine = smem(0 if dtype == torch.float32 else 1, int(quant), g,
+                        128, 32)
+            log(f"K1 plan {tag} {'int8' if quant else 'native'} {dt}: "
+                f"splits {pl.splits} (grid {pl.grid}, {pl.g_blocks} query "
+                f"blocks of {pl.group}, tensor cores {pl.tensor_cores}), "
+                f"smem {pl.smem} B, kernel's {mine} B")
+            assert pl.smem == mine, "K1 plan's shared memory differs"
+        if dtype not in entry_dtypes:
+            continue
+        q, k, v, table, _ = k1_inputs(dtype, gen, nan_dead=False, kv=kv, g=g)
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        for mode, pools in (("paged_flash_decode", (k, v)),
+                            ("paged_flash_decode_int8", (kq, vq, ks, vs))):
+            r = k1_timed(pd, f"K1 {mode} timing {dt} q serve {tag}", q,
+                         pools, table, pos)
+            report[layout_entry(mode, kv, g, dtype)] = dict(r, launches=0)
+    free()
+
+
 def check_bias_layouts(report) -> None:
     """(a) K1 at the biased configs' head layouts (KV=1 G=48, KV=40 G=1,
     KV=2 G=12; D=128, page 16, phase 3's ragged positions and NaN dead
     pages), native and int8, fp32 and bf16 q, against its plain version
     and its plain split schedule, one launch a call, two calls bitwise
-    equal; the plan's shared memory equal to the kernel's; its times at
-    phase 3's serve positions.  K2 at KV=1 G=48 and KV=40 G=1 (8 prompts
+    equal; the plan's shared memory equal to the kernel's (``k1_layout``),
+    timed in the q dtypes phase 11 launches there.  K2 at KV=1 G=48 and
+    KV=40 G=1 (8 prompts
     of 256, causal), bf16 and fp32, against its plain version, timed
     beside SDPA (``enable_gqa``) and its bound."""
-    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_decode as pd
-    from repro_torch.kernels.quant import quantize_kv
-    gen = torch.Generator().manual_seed(25)
-    smem = _build.entry("paged_decode_smem_bytes")
     for name, kv, g in BIAS_LAYOUTS:
-        tag = f"KV={kv} G={g} D=128 page=16 M=32 ({name})"
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, table, pos = k1_inputs(dtype, gen, kv=kv, g=g)
-            k1_agree(pd, f"K1 paged_flash_decode {str(dtype)[6:]:8s} {tag}",
-                     q, (k, v), table, pos, TOL[dtype])
-            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-            k1_agree(pd, f"K1 int8 paged_flash_decode_int8 q "
-                     f"{str(dtype)[6:]:8s} {tag}", q, (kq, vq, ks, vs),
-                     table, pos, TOL[dtype])
-            for quant in (False, True):
-                pl = pd.plan(8, kv, g, 128, 16, 32, dtype, quant, False,
-                             pd._n_sms(0))
-                mine = smem(0 if dtype == torch.float32 else 1, int(quant),
-                            g, 128, 32)
-                log(f"K1 plan {tag} {'int8' if quant else 'native'} "
-                    f"{str(dtype)[6:]}: splits {pl.splits} (grid {pl.grid}, "
-                    f"{pl.g_blocks} query blocks of {pl.group}, tensor cores "
-                    f"{pl.tensor_cores}), smem {pl.smem} B, kernel's {mine} B")
-                assert pl.smem == mine, "K1 plan's shared memory differs"
-        pos = torch.tensor(K1_SERVE_POS, dtype=torch.int32, device=DEV)
-        for dtype in (torch.float32, torch.bfloat16):
-            # an entry for each dtype a phase-11 run launches at the
-            # layout; the other dtype's times are logged only
-            q, k, v, table, _ = k1_inputs(dtype, gen, nan_dead=False,
-                                          kv=kv, g=g)
-            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-            dt = str(dtype)[6:]
-            for mode, pools in (("paged_flash_decode", (k, v)),
-                                ("paged_flash_decode_int8",
-                                 (kq, vq, ks, vs))):
-                r = k1_timed(pd, f"K1 {mode} timing {dt} q serve {tag}", q,
-                             pools, table, pos)
-                if dtype in K1_LAYOUT_DTYPES[g]:
-                    report[layout_entry(mode, kv, g, dtype)] = dict(
-                        r, launches=0)
+        k1_layout(report, name, kv, g, K1_LAYOUT_DTYPES[g])
     # K2: bf16 where granite-20b-code is served (c), fp32 where (b) runs
     # both; the bf16 time at granite-13b's layout is logged only
     gen = torch.Generator(device=DEV).manual_seed(26)
@@ -4235,11 +4288,13 @@ def check_bias_layouts(report) -> None:
 
 def count_layout(report, launches, cfg) -> None:
     """Add a run's K1 and K2 launches to the entries of its head layout and
-    compute dtype (K1's q dtype)."""
+    compute dtype (K1's q dtype), and its K3 launches to the entry of its
+    row width, where those entries exist."""
     for kernel, n in launches.items():
-        key = layout_entry(kernel, cfg.num_kv_heads,
-                           cfg.num_heads // cfg.num_kv_heads,
-                           getattr(torch, cfg.dtype))
+        key = (f"rmsnorm_rows[d={cfg.d_model}]" if kernel == "rmsnorm_rows"
+               else layout_entry(kernel, cfg.num_kv_heads,
+                                 cfg.num_heads // cfg.num_kv_heads,
+                                 getattr(torch, cfg.dtype)))
         if n and key in report:
             report[key]["launches"] += n
 
@@ -4271,17 +4326,85 @@ def bias_kernel_vs_plain(report) -> None:
         free()
 
 
-def kernel_vs_plain(report, name, lm, params, images=None) -> None:
+class RouteLog:
+    """Every MoE layer's expert ids, router probabilities and gaps (each
+    row's k-th minus its (k+1)-th probability) under the key that ``at``
+    sets, while ``moe.route`` is wrapped by ``wrapped``: what two paths
+    routed, row for row."""
+
+    def __init__(self):
+        self.calls, self.key = {}, None
+
+    @contextlib.contextmanager
+    def at(self, key):
+        self.key = key
+        try:
+            yield
+        finally:
+            self.key = None
+
+    @contextlib.contextmanager
+    def wrapped(self):
+        from repro_torch.models import moe
+        real = moe.route
+
+        def route(router_p, cfg, xg):
+            out = real(router_p, cfg, xg)
+            if self.key is not None:
+                probs = torch.softmax(xg.float() @ router_p["kernel"].float(),
+                                      dim=-1)
+                top = probs.sort(dim=-1, descending=True).values
+                k = cfg.experts_per_token
+                # with cap >= S no expert can overflow: the group's rows
+                # route independently
+                indep = moe._capacity(xg.shape[1], cfg) >= xg.shape[1]
+                self.calls.setdefault(self.key, []).append(
+                    (out[1].clone(), top[..., k - 1] - top[..., k], indep,
+                     probs))
+            return out
+
+        with _patched(moe, "route", route):
+            yield self
+
+    def flips(self, a, b):
+        """Layer by layer, the (groups, rows) mask of rows whose ids differ
+        between keys a and b, b's router gaps, whether the group's rows
+        route independently (no expert can overflow), and each row's
+        largest router-probability difference between a and b."""
+        assert len(self.calls[a]) == len(self.calls[b])
+        return [((ia != ib).any(-1), gap, indep, (pa - pb).abs().amax(-1))
+                for (ia, _, _, pa), (ib, gap, indep, pb)
+                in zip(self.calls[a], self.calls[b])]
+
+
+#: the router gap below which a row that routes otherwise on the kernel and
+#: plain paths is a tie, both choices right: PR 21's 1e-4 over native
+#: pages; over int8 pages the two paths' K/V round to levels one apart
+#: here and there (PR 21's finding), which moves the routers' inputs ten
+#: times more (the largest router-probability difference on rows that
+#: route alike: 1.1e-6 native, 2.6e-5 int8, at moonshot's 4 layers)
+ROUTE_GAP = {"native": 1e-4, "int8": 1e-3}
+
+
+def kernel_vs_plain(report, name, lm, params, images=None, lens=None,
+                    bucket=128) -> None:
     """fp32, TF32 off: the kernel path (K2 prefill, K1 decode, K3 at every
     RMSNorm) against the plain path (dense prefill, gathered decode, plain
     norms) over native and int8 pages: one batched prefill of 4 prompts
-    (70-128 tokens, one bucket of 128; behind each prompt its image of
-    ``images`` (4, n, d) for a vlm config, a block of n + 128) and 16
-    decode steps fed the plain path's greedy token.  Logits to 1e-3
-    relative max error; greedy tokens equal wherever the plain top-2 gap
-    exceeds the error; launches exact (K2 fp32 L times a prefill, K1 L
-    times a decode step, K3 once a norm of a prefill or a decode step (a
-    LayerNorm has no kernel), nothing on the plain path)."""
+    (``lens``, default 70-128 tokens, in one ``bucket`` of 128; behind each
+    prompt its image of ``images`` (4, n, d) for a vlm config, a block of n
+    + 128) and 16 decode steps fed the plain path's greedy token.  Logits
+    to 1e-3 relative max error; greedy tokens equal wherever the plain
+    top-2 gap exceeds the error; launches exact (K2 fp32 L times a
+    prefill, K1 L times a decode step, K3 once a norm of a prefill or a
+    decode step (a LayerNorm has no kernel), nothing on the plain path).
+    A moe config's expert ids are recorded on both paths (``RouteLog``):
+    the first row of a routing group whose ids differ must be a router tie
+    (gap below ``ROUTE_GAP`` of the page format); from there the group is tainted (its
+    capacity positions, then its hidden states, differ) and leaves the
+    logits gate, counted: a prefill sequence, or a decode slot for the
+    rest of the run, or, where an expert of the decode group can overflow
+    (cap below the group), every slot once one is tainted."""
     from repro_torch.kernels import ops
     from repro_torch.models import ForwardOpts
     from repro_torch.serve.kvcache import PagedCache
@@ -4293,89 +4416,143 @@ def kernel_vs_plain(report, name, lm, params, images=None) -> None:
              "kernel-int8": ("kernel", "kernel", "int8"),
              "plain-int8": ("plain", "gather", "int8")}
     rng = np.random.default_rng(25)
-    lens = [70, 97, 115, 128]
-    n, bucket, steps = len(lens), 128, 16
+    lens = lens or [70, 97, 115, 128]
+    n, steps = len(lens), 16
     cfg = lm.cfg
-    L = cfg.num_layers
-    img = 0 if images is None else images.shape[1]
-    norms = (L * (2 + 2 * cfg.qk_norm) + 1 if cfg.norm == "rmsnorm"
-             else 0)
-    tokens = np.zeros((n, bucket), np.int64)
-    for j, plen in enumerate(lens):
-        tokens[j, :plen] = rng.integers(0, cfg.vocab_size, plen)
-    tok_dev = torch.as_tensor(tokens, device=DEV)
-    last = torch.as_tensor(img + np.array(lens) - 1, device=DEV)
-    caches, logits = {}, {}
-    for oname, o in opts.items():
-        ops.reset_launch_counts()
-        with torch.no_grad():
-            lg, cache = lm.forward(params, tok_dev, o, collect_cache=True,
-                                   img_embeds=images)
-        torch.cuda.synchronize()
-        launches = {k: v for k, v in ops.launch_counts().items() if v}
-        want = ({"flash_attention_bhsd_fp32": L, "rmsnorm_rows": norms}
-                if oname == "kernel" else {})
-        want = {k: v for k, v in want.items() if v}
-        assert launches == want, \
-            f"[{name}] {oname}-path prefill launched {launches}, not {want}"
-        count_layout(report, launches, cfg)
-        for pname, (pre, _, kv_dtype) in paths.items():
-            if pre != oname:
-                continue
-            kv = PagedCache(cfg, n, 512 if img else 256, page_size=16,
-                            device=DEV, dtype=torch.float32,
-                            kv_dtype=kv_dtype)
-            dest = np.zeros((n, img + bucket), np.int32)
-            for j, plen in enumerate(lens):
-                assert kv.alloc(j, img + plen + steps) == 0
-                dest[j] = kv.prefill_dest(j, img + bucket, img + plen)
-            kv.staged_write_prefill(kv.quantize_block(cache["layers"]),
-                                    torch.as_tensor(dest, device=DEV))
-            caches[pname] = kv
-            logits[pname] = [lg[torch.arange(n, device=DEV), last]]
-        del lg, cache
-    pos = torch.as_tensor(img + np.array(lens, np.int32), device=DEV)
-    nxt = logits["plain"][0].argmax(-1)
-    for t in range(steps):
-        for pname, (pre, impl, kv_dtype) in paths.items():
+    with RouteLog().wrapped() as routes:
+        L = cfg.num_layers
+        img = 0 if images is None else images.shape[1]
+        norms = (L * (2 + 2 * cfg.qk_norm) + 1 if cfg.norm == "rmsnorm"
+                 else 0)
+        tokens = np.zeros((n, bucket), np.int64)
+        for j, plen in enumerate(lens):
+            tokens[j, :plen] = rng.integers(0, cfg.vocab_size, plen)
+        tok_dev = torch.as_tensor(tokens, device=DEV)
+        last = torch.as_tensor(img + np.array(lens) - 1, device=DEV)
+        caches, logits = {}, {}
+        for oname, o in opts.items():
             ops.reset_launch_counts()
-            with torch.no_grad():
-                lg, _ = lm.decode_step(params, nxt[:, None],
-                                       caches[pname].decode_view(),
-                                       pos + t, decode_impl=impl,
-                                       norm_impl=opts[pre].norm_impl)
+            with torch.no_grad(), routes.at(("prefill", oname)):
+                lg, cache = lm.forward(params, tok_dev, o,
+                                       collect_cache=True, img_embeds=images)
+            torch.cuda.synchronize()
             launches = {k: v for k, v in ops.launch_counts().items() if v}
-            k1 = "paged_flash_decode" + ("_int8" if kv_dtype == "int8"
-                                         else "")
-            want = ({k1: L, "rmsnorm_rows": norms} if impl == "kernel"
-                    else {})
+            want = ({"flash_attention_bhsd_fp32": L, "rmsnorm_rows": norms}
+                    if oname == "kernel" else {})
             want = {k: v for k, v in want.items() if v}
             assert launches == want, \
-                f"[{name}] {pname} decode launched {launches}"
+                (f"[{name}] {oname}-path prefill launched {launches}, not "
+                 f"{want}")
             count_layout(report, launches, cfg)
-            logits[pname].append(lg[:, -1])
-        nxt = logits["plain"][-1].argmax(-1)
-    for kernel, plain in (("kernel", "plain"), ("kernel-int8", "plain-int8")):
-        worst, agree, decided = 0.0, 0, 0
-        for a, b in zip(logits[kernel], logits[plain]):
-            a = a[:, :cfg.vocab_size].float()
-            b = b[:, :cfg.vocab_size].float()
-            assert bool(torch.isfinite(a).all())
-            diff = (a - b).abs()
-            worst = max(worst, float(diff.max() / b.abs().max()))
-            top2 = b.topk(2, dim=-1).values
-            gap = top2[:, 0] - top2[:, 1] > diff.max(-1).values
-            same = a.argmax(-1) == b.argmax(-1)
-            assert bool((same | ~gap).all()), \
-                f"[{name}] {kernel}: greedy tokens disagree"
-            agree += int(same.sum())
-            decided += int(gap.sum())
-        log(f"[{name} fp32] {kernel} vs {plain} path: prefill + {steps} "
-            f"decode steps, logits rel max err {worst:.3e} (limit 1e-3), "
-            f"greedy agree {agree}/{n * (steps + 1)} ({decided} decided "
-            f"by a gap above the error) [{nvidia_smi_line()}]")
-        assert worst <= 1e-3, f"[{name}] {kernel} path leaves {plain}"
-    del caches, logits
+            for pname, (pre, _, kv_dtype) in paths.items():
+                if pre != oname:
+                    continue
+                kv = PagedCache(cfg, n, 512 if img or bucket + steps > 256
+                                else 256, page_size=16, device=DEV,
+                                dtype=torch.float32, kv_dtype=kv_dtype)
+                dest = np.zeros((n, img + bucket), np.int32)
+                for j, plen in enumerate(lens):
+                    assert kv.alloc(j, img + plen + steps) == 0
+                    dest[j] = kv.prefill_dest(j, img + bucket, img + plen)
+                kv.staged_write_prefill(kv.quantize_block(cache["layers"]),
+                                        torch.as_tensor(dest, device=DEV))
+                caches[pname] = kv
+                logits[pname] = [lg[torch.arange(n, device=DEV), last]]
+            del lg, cache
+        pos = torch.as_tensor(img + np.array(lens, np.int32), device=DEV)
+        nxt = logits["plain"][0].argmax(-1)
+        for t in range(steps):
+            for pname, (pre, impl, kv_dtype) in paths.items():
+                ops.reset_launch_counts()
+                with torch.no_grad(), routes.at(("decode", pname, t)):
+                    lg, _ = lm.decode_step(params, nxt[:, None],
+                                           caches[pname].decode_view(),
+                                           pos + t, decode_impl=impl,
+                                           norm_impl=opts[pre].norm_impl)
+                launches = {k: v for k, v in ops.launch_counts().items() if v}
+                k1 = "paged_flash_decode" + ("_int8" if kv_dtype == "int8"
+                                             else "")
+                want = ({k1: L, "rmsnorm_rows": norms} if impl == "kernel"
+                        else {})
+                want = {k: v for k, v in want.items() if v}
+                assert launches == want, \
+                    f"[{name}] {pname} decode launched {launches}"
+                count_layout(report, launches, cfg)
+                logits[pname].append(lg[:, -1])
+            nxt = logits["plain"][-1].argmax(-1)
+        for kernel, plain in (("kernel", "plain"),
+                              ("kernel-int8", "plain-int8")):
+            # the sequences each step's logits gate holds: all, but those a
+            # router tie sent other ways on the two paths
+            held = [torch.ones(n, dtype=torch.bool, device=DEV)]
+            first = later = ties = 0
+            if routes.calls:
+                # the router gap of each row first to route otherwise
+                gaps, deltas = [], []
+                limit = ROUTE_GAP["int8" if "int8" in kernel else "native"]
+
+                def check(new, gap, delta, alike):
+                    nonlocal first
+                    deltas.append(float(delta[alike].max())
+                                  if bool(alike.any()) else 0.0)
+                    gaps.extend(gap[new].tolist())
+                    first += int(new.sum())
+
+                for diff, gap, _, delta in routes.flips(
+                        ("prefill", "kernel"), ("prefill", "plain")):
+                    live = held[0][:, None].expand_as(diff)
+                    check(diff & live, gap, delta, ~diff & live)
+                    later += int((diff & ~live).sum())
+                    held[0] &= ~diff.any(-1)
+                for t in range(steps):
+                    ok = held[-1].clone()
+                    for diff, gap, indep, delta in routes.flips(
+                            ("decode", kernel, t), ("decode", plain, t)):
+                        rows, gap, delta = diff[0], gap[0], delta[0]
+                        if not indep and not bool(ok.all()):
+                            ok[:] = False    # a tainted slot takes capacity
+                        new = rows & ok
+                        check(new, gap, delta, ~rows & ok)
+                        later += int((rows & ~ok).sum())
+                        if bool(new.any()):
+                            ok = ok & ~rows if indep else \
+                                torch.zeros_like(ok)
+                    held.append(ok)
+                ties = sum(int((~h).sum()) for h in held)
+                log(f"[{name} fp32] {kernel} vs {plain} routing: "
+                    f"{len(routes.calls[('prefill', 'plain')])} moe layers, "
+                    f"largest router-probability difference on rows that "
+                    f"route alike {max(deltas):.3e}; {first} rows first to "
+                    f"route otherwise in their group, router gaps "
+                    f"{[f'{g:.2e}' for g in gaps]} (limit {limit}), "
+                    f"{later} rows downstream of them; {ties} of "
+                    f"{n * (steps + 1)} sequence-steps left out of the "
+                    "logits gate")
+                assert all(g < limit for g in gaps), \
+                    f"[{name}] expert ids differ off a router tie"
+            worst, agree, decided = 0.0, 0, 0
+            for a, b, h in zip(logits[kernel], logits[plain], held):
+                a = a[h, :cfg.vocab_size].float()
+                b = b[h, :cfg.vocab_size].float()
+                if not len(b):
+                    continue
+                assert bool(torch.isfinite(a).all())
+                diff = (a - b).abs()
+                worst = max(worst, float(diff.max() / b.abs().max()))
+                top2 = b.topk(2, dim=-1).values
+                gap = top2[:, 0] - top2[:, 1] > diff.max(-1).values
+                same = a.argmax(-1) == b.argmax(-1)
+                assert bool((same | ~gap).all()), \
+                    f"[{name}] {kernel}: greedy tokens disagree"
+                agree += int(same.sum())
+                decided += int(gap.sum())
+            log(f"[{name} fp32] {kernel} vs {plain} path: prefill + {steps} "
+                f"decode steps, logits rel max err {worst:.3e} (limit 1e-3), "
+                f"greedy agree {agree}/{n * (steps + 1) - ties} ({decided} "
+                f"decided by a gap above the error) [{nvidia_smi_line()}]")
+            assert worst <= 1e-3, f"[{name}] {kernel} path leaves {plain}"
+        del caches, logits
+
 
 
 def granite_serve(report) -> None:
@@ -4784,27 +4961,8 @@ def vlm_layouts(report) -> None:
     fp32 (a) 4 x (256 + 128) and bf16 (b) 8 x (256 + 256), causal, timed
     beside SDPA and the bound."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_decode as pd
-    from repro_torch.kernels.quant import quantize_kv
-    gen = torch.Generator().manual_seed(14)
     kv, g = 8, 2
-    tag = f"KV={kv} G={g} D=128 page=16 M=32 (internvl2-2b)"
-    pos = torch.tensor(K1_SERVE_POS, dtype=torch.int32, device=DEV)
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, table, p0 = k1_inputs(dtype, gen, kv=kv, g=g)
-        k1_agree(pd, f"K1 paged_flash_decode {str(dtype)[6:]:8s} {tag}", q,
-                 (k, v), table, p0, TOL[dtype])
-        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-        k1_agree(pd, f"K1 int8 paged_flash_decode_int8 q "
-                 f"{str(dtype)[6:]:8s} {tag}", q, (kq, vq, ks, vs), table,
-                 p0, TOL[dtype])
-        q, k, v, table, _ = k1_inputs(dtype, gen, nan_dead=False, kv=kv, g=g)
-        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-        for mode, pools in (("paged_flash_decode", (k, v)),
-                            ("paged_flash_decode_int8", (kq, vq, ks, vs))):
-            r = k1_timed(pd, f"K1 {mode} timing {str(dtype)[6:]} q serve "
-                         f"{tag}", q, pools, table, pos)
-            report[layout_entry(mode, kv, g, dtype)] = dict(r, launches=0)
+    k1_layout(report, "internvl2-2b", kv, g, (torch.float32, torch.bfloat16))
     gen = torch.Generator(device=DEV).manual_seed(15)
     for dtype, mode, n, s in ((torch.float32, "flash_attention_bhsd_fp32", 4,
                                256 + 128),
@@ -4892,6 +5050,462 @@ def vlm_train(steps: int = 4) -> None:
     free()
 
 
+# ------------------------------------------------------------ phase 15 ----
+
+MOONSHOT, ARCTIC = "moonshot-v1-16b-a3b", "arctic-480b"
+
+
+def moe_layouts(report) -> None:
+    """K1 at moonshot-v1-16b-a3b's head layout (KV=16 G=1), entries fp32
+    (run by (a)) and bf16 (served in (b)), and at arctic-480b's (KV=8
+    G=7: seven query rows on the tensor cores' eight), entries bf16
+    (served in (c)); K2 on the model layout at 256-token buckets, fp32 4
+    prompts (a) and bf16 8 prompts (b, c), causal, beside SDPA; K3 at
+    their row widths (d=2048, 7168; 2,048 rows), timed."""
+    from repro_torch.kernels import flash_attention as fa
+    k1_layout(report, MOONSHOT, 16, 1, (torch.float32, torch.bfloat16))
+    k1_layout(report, ARCTIC, 8, 7, (torch.bfloat16,))
+    gen = torch.Generator(device=DEV).manual_seed(150)
+    for name, kv, g, dtype, n in ((MOONSHOT, 16, 1, torch.float32, 4),
+                                  (MOONSHOT, 16, 1, torch.bfloat16, 8),
+                                  (ARCTIC, 8, 7, torch.bfloat16, 8)):
+        mode = ("flash_attention_bhsd_fp32" if dtype == torch.float32
+                else "flash_attention_bhsd")
+        r = time_k2(fa, f"{name} prefill ({n} prompts of bucket 256)", n,
+                    256, kv, g, 128, dtype, gen)
+        report[layout_entry(mode, kv, g, dtype)] = dict(r, launches=0)
+    gen = torch.Generator().manual_seed(151)
+    for d, name in ((2048, MOONSHOT), (7168, ARCTIC)):
+        report[f"rmsnorm_rows[d={d}]"] = dict(
+            k3_timed(2048, d, gen, f" ({name})"), launches=0)
+    free()
+
+
+def moe_kernel_vs_plain(report) -> None:
+    """(a) moonshot-v1-16b-a3b at full width cut to 4 layers, fp32, random
+    weights: ``kernel_vs_plain`` with 4 prompts of 150-256 tokens in one
+    bucket of 256 (each its own routing group) and 16 decode steps (one
+    group of 4), every layer's expert ids recorded on both paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_config(MOONSHOT), dtype="float32",
+                              num_layers=4)
+    lm = LM(cfg)
+    params = lm.init(150, device=DEV)
+    kernel_vs_plain(report, MOONSHOT, lm, params, lens=[150, 201, 233, 256],
+                    bucket=256)
+    del params
+    free()
+
+
+def init_peak_reckoned(spec, dtype) -> int:
+    """The bytes ``LM.init`` holds at its peak: it draws each leaf in fp32
+    and casts it to ``dtype`` (fp32 leaves stay), so while a leaf is cast
+    the leaves before it, its fp32 draw and its cast are all held."""
+    held = peak = 0
+
+    def walk(s):
+        nonlocal held, peak
+        if hasattr(s, "shape"):
+            n = math.prod(s.shape)
+            keep = 4 if s.fp32 else torch.finfo(dtype).bits // 8
+            peak = max(peak, held + 4 * n + (0 if s.fp32 else keep * n))
+            held += keep * n
+            return
+        for v in s.values():
+            walk(v)
+
+    walk(spec)
+    return peak
+
+
+def moe_serve(report, name, layers, runs, seed) -> None:
+    """``name`` at full width in bf16 cut to ``layers`` layers, random
+    weights from ``seed``: ``LM.init``'s reckoned and measured peaks, then
+    phase 5's workload through ``serve_runs`` for each of ``runs`` (graph
+    and eager pairs): graph streams equal the eager ones token for token,
+    one replay a decode step, K1/K2/K3 launches exact (``serve_runs``'
+    gates); replay ms (CUDA events), tok/s, TTFT p50, pool bytes, the
+    graph's private pool, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_config(name), num_layers=layers)
+    lm = LM(cfg)
+    reckoned = init_peak_reckoned(lm.spec(), torch.bfloat16)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(seed, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    log(f"[{name} bf16, {layers} of {get_config(name).num_layers} layers] "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B parameters, "
+        f"{held / 2**30:.2f} GiB held; LM.init {init_s:.1f}s, peak allocated "
+        f"during LM.init {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(reckoned {reckoned / 2**30:.2f} GiB) of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+        f"[{nvidia_smi_line()}]")
+    out = serve_runs(lm, params, runs, name)
+    for label, _ in runs:
+        if label.endswith("-eager"):
+            continue
+        run, eager = out[label], out[label + "-eager"]
+        count_layout(report, run["launches"], cfg)
+        count_layout(report, eager["launches"], cfg)
+        same = run["streams"] == eager["streams"]
+        log(f"[{name} {label}] graph streams equal the eager streams token "
+            f"for token: {same}; {run['tok_s']:.1f} tok/s, decode "
+            f"step {run['decode_ms']:.2f} ms (graph; one replay on the "
+            f"device {run.get('replay_ms', float('nan')):.3f} ms) vs "
+            f"{eager['decode_ms']:.2f} ms eager, TTFT p50 "
+            f"{run['ttft_ms']:.1f} ms, mean prefill dispatch "
+            f"{run['prefill_ms']:.2f} ms, pool {run['pool_tensor_bytes']} B, "
+            f"graph private pool {run['graph_pool_bytes']} B, peak memory "
+            f"{run['peak_gib']:.2f} GiB [{nvidia_smi_line()}]")
+        assert same, f"[{name} {label}] graph streams differ"
+    del params, out
+    free()
+
+
+def moe_train(report, steps: int = 4) -> None:
+    """(d) moonshot-v1-16b-a3b at full width cut to 2 layers (fp32 masters,
+    bf16 compute), ``steps`` steps of ``make_train_step`` through
+    ``FTTrainLoop`` on one fixed 4 x 256 batch under each remat policy
+    (``_train_gates``): step 0's loss and grad_norm bitwise equal across
+    the policies, ``moe_aux`` finite and non-zero at every step; step ms,
+    tok/s and peak memory; K4 at its logits (1,024 x 163,840) and K5 at
+    its largest leaf (the stacked expert matrices), timed."""
+    import tempfile
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import LM
+    from repro_torch.train import TRAIN_OPTS
+    cfg = dataclasses.replace(get_config(MOONSHOT), num_layers=2)
+    lm = LM(cfg)
+    b, s = 4, 256
+    rng = np.random.default_rng(152)
+    batch = {k: rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=steps)
+    step0 = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    for remat in ("none", "selective", "full"):
+        tag = f"[{MOONSHOT} train 2 layers remat={remat} {b}x{s}]"
+        opts = dataclasses.replace(TRAIN_OPTS, remat=remat, q_chunk=s,
+                                   kv_chunk=s)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            log_, step_s, peak, launches, n_leaves = _train_loop_run(
+                lm, tcfg, opts, batch, steps, tmp)
+        _train_gates(tag, log_, launches, steps, n_leaves)
+        aux = [m["moe_aux"] for m in log_]
+        assert all(np.isfinite(aux)) and all(a != 0 for a in aux), \
+            f"{tag} moe_aux {aux}"
+        step0[remat] = (log_[0]["loss"], log_[0]["grad_norm"])
+        steady = float(np.mean(step_s[1:]))
+        log(f"{tag} moe_aux {[round(a, 5) for a in aux]}; first step "
+            f"{step_s[0] * 1e3:.1f} ms, mean step {steady * 1e3:.2f} ms over "
+            f"steps 1..{steps - 1} ({b * s / steady:.1f} tok/s), peak memory "
+            f"{peak:.2f} GiB [{nvidia_smi_line()}]")
+        for kernel in ("softmax_xent_fwd", "softmax_xent_bwd",
+                       "adamw_fused"):
+            key = f"{kernel}[{MOONSHOT} train]"
+            report.setdefault(key, {"launches": 0})
+            report[key]["launches"] += launches[kernel]
+    for remat in ("selective", "full"):
+        log(f"[{MOONSHOT} train] step 0 none vs {remat}: loss "
+            f"{step0['none'][0]!r} vs {step0[remat][0]!r}, grad_norm "
+            f"{step0['none'][1]!r} vs {step0[remat][1]!r}")
+        assert step0[remat] == step0["none"], \
+            f"[{MOONSHOT}] step 0 differs under remat={remat}"
+    gen = torch.Generator().manual_seed(153)
+    fwd, bwd = k4_timed(b * s, cfg.padded_vocab, gen,
+                        f" ({MOONSHOT} train logits)")
+    report[f"softmax_xent_fwd[{MOONSHOT} train]"].update(fwd)
+    report[f"softmax_xent_bwd[{MOONSHOT} train]"].update(bwd)
+    n = cfg.num_layers * cfg.num_experts * cfg.d_model * cfg.moe_d_ff
+    report[f"adamw_fused[{MOONSHOT} train]"].update(
+        k5_timed(n, gen, f" ({MOONSHOT}'s stacked expert leaf)"))
+    free()
+
+
+# ------------------------------------------------------------ phase 16 ----
+
+SEAMLESS = "seamless-m4t-large-v2"
+
+
+def k2_entry(dtype, causal: bool) -> str:
+    """seamless-m4t's K2 entries: head dim 64, the encoder's non-causal
+    launches apart from the decoder's causal ones."""
+    mode = ("flash_attention_bhsd_fp32" if dtype == torch.float32
+            else "flash_attention_bhsd")
+    return f"{mode}[KV=16,G=1,D=64{'' if causal else ',non-causal'}]"
+
+
+def count_encdec(report, launches, cfg, dtype) -> None:
+    """A forward's K2 launches into seamless-m4t's entries: the first
+    ``encoder_layers`` of each forward are the encoder's (non-causal), the
+    rest the decoder's; ``launches`` must be a whole number of forwards."""
+    mode = ("flash_attention_bhsd_fp32" if dtype == torch.float32
+            else "flash_attention_bhsd")
+    n = launches.get(mode, 0)
+    per = cfg.encoder_layers + cfg.num_layers
+    assert n % per == 0, f"{n} K2 launches, not whole forwards of {per}"
+    report[k2_entry(dtype, False)]["launches"] += n // per * \
+        cfg.encoder_layers
+    report[k2_entry(dtype, True)]["launches"] += n // per * cfg.num_layers
+
+
+def encdec_layouts(report) -> None:
+    """K2 at seamless-m4t's layout (KV=16 G=1 D=64) on the model layout:
+    the encoder's non-causal attention over 64 frames and the decoder's
+    causal attention over 256 tokens, 4 sequences, fp32 (a) and bf16 (b),
+    beside SDPA and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=DEV).manual_seed(160)
+    for dtype in (torch.float32, torch.bfloat16):
+        for s, causal in ((64, False), (256, True)):
+            r = time_k2(fa, f"{SEAMLESS} {'decoder' if causal else 'encoder'}"
+                        f" (4 x {s})", 4, s, 16, 1, 64, dtype, gen, causal)
+            report[k2_entry(dtype, causal)] = dict(r, launches=0)
+    free()
+
+
+def _encdec_inputs(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                           device=DEV)
+    frames = torch.as_tensor(rng.standard_normal(
+        (b, s // cfg.enc_ratio, cfg.d_model), dtype=np.float32), device=DEV)
+    return toks, frames
+
+
+def encdec_parity(report) -> None:
+    """(a) seamless-m4t-large-v2 at full size in fp32 (TF32 off), random
+    weights with every bias and LayerNorm leaf redrawn: the kernel path
+    (K2 in the encoder, non-causal, and in the decoder, causal) against
+    the plain path (dense attention) on 4 x 256 tokens and 64 frames,
+    logits to 1e-3 relative, greedy tokens equal where decided, K2
+    launches exact; then ``LM.prefill`` of 223 tokens and 32
+    ``decode_step``s fed the next tokens over the dense cache, the
+    prefill's last row and each step's logits against the forward's row at
+    its position to 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM, ForwardOpts
+    cfg = dataclasses.replace(get_config(SEAMLESS), dtype="float32")
+    lm = LM(cfg)
+    params = lm.init(160, device=DEV)
+    redraw_biases(params, 160)
+    b, s, steps = 4, 256, 32
+    toks, frames = _encdec_inputs(cfg, b, s, 160)
+    out = {}
+    for path, opts in (("kernel", ForwardOpts("flash", "kernel")),
+                       ("plain", ForwardOpts("dense", "plain"))):
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            out[path] = lm.forward(params, toks, opts,
+                                   enc_embeds=frames)[0][..., :cfg.vocab_size]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        want = ({"flash_attention_bhsd_fp32": cfg.encoder_layers
+                 + cfg.num_layers} if path == "kernel" else {})
+        assert launches == want, f"[{SEAMLESS}] {path} launched {launches}"
+        count_encdec(report, launches, cfg, torch.float32)
+    a, ref = out["kernel"].float(), out["plain"].float()
+    diff = (a - ref).abs()
+    rel = float(diff.max() / ref.abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    decided = top2[..., 0] - top2[..., 1] > diff.max(-1).values
+    same = a.argmax(-1) == ref.argmax(-1)
+    log(f"[{SEAMLESS} fp32] kernel vs plain forward, 4 x 256 tokens, 64 "
+        f"frames: logits rel max err {rel:.3e} (limit 1e-3), greedy agree "
+        f"{int(same.sum())}/{same.numel()} ({int(decided.sum())} decided) "
+        f"[{nvidia_smi_line()}]")
+    assert rel <= 1e-3 and bool((same | ~decided).all()), \
+        f"[{SEAMLESS}] kernel path leaves the plain path"
+    full = out["kernel"]
+    p = s - steps - 1
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        last, pre = lm.prefill(params, toks[:, :p], enc_embeds=frames)
+        cache = lm.init_cache(b, s, backend=None, device=DEV,
+                              enc_len=frames.shape[1])
+        for k, t in pre["layers"].items():
+            cache["layers"][k][:, :, :t.shape[2]] = t
+        rows = [last[:, 0, :cfg.vocab_size]]
+        for t in range(steps):
+            lg, _ = lm.decode_step(params, toks[:, p + t:p + t + 1], cache,
+                                   torch.full((b,), p + t, dtype=torch.int32,
+                                              device=DEV))
+            rows.append(lg[:, 0, :cfg.vocab_size])
+    torch.cuda.synchronize()
+    count_encdec(report, ops.launch_counts(), cfg, torch.float32)
+    got = torch.stack(rows, 1).float()
+    want = full[:, p - 1:p + steps].float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"[{SEAMLESS} fp32] LM.prefill of {p} tokens + {steps} "
+        f"decode_steps over the dense cache (enc_len {frames.shape[1]}) vs "
+        f"the forward's rows: rel max err {rel:.3e} (limit 1e-3)")
+    assert rel <= 1e-3, f"[{SEAMLESS}] decode leaves the forward"
+    del params, out, cache, pre
+    free()
+
+
+def encdec_decode(report) -> None:
+    """(b) seamless-m4t-large-v2 at full size in bf16 (biases and
+    LayerNorm leaves redrawn): ``LM.prefill`` of 4 x 256 tokens with 64
+    frames, then 32 greedy ``decode_step``s over the dense cache; the
+    decode logits against a bf16 forward over prompt + generated tokens
+    (greedy tokens equal wherever that forward's top-2 gap exceeds the
+    difference); prefill ms, decode step ms (host clock, synchronised, and
+    one step's device ms by CUDA events), peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    cfg = get_config(SEAMLESS)
+    lm = LM(cfg)
+    params = lm.init(161, device=DEV)
+    redraw_biases(params, 161)
+    b, s, steps = 4, 256, 32
+    toks, frames = _encdec_inputs(cfg, b, s, 161)
+    v = cfg.vocab_size
+    with torch.no_grad():
+        lm.prefill(params, toks, enc_embeds=frames)      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        last, pre = lm.prefill(params, toks, enc_embeds=frames)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        count_encdec(report, ops.launch_counts(), cfg, torch.bfloat16)
+        cache = lm.init_cache(b, s + steps, backend=None, device=DEV,
+                              enc_len=frames.shape[1])
+        for k, t in pre["layers"].items():
+            cache["layers"][k][:, :, :t.shape[2]] = t
+        nxt = last[:, -1, :v].argmax(-1)
+        gen, rows, step_ms = [nxt], [], []
+        for t in range(steps):
+            t0 = time.perf_counter()
+            lg, _ = lm.decode_step(params, nxt[:, None], cache,
+                                   torch.full((b,), s + t, dtype=torch.int32,
+                                              device=DEV))
+            nxt = lg[:, 0, :v].argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(lg[:, 0, :v])
+            gen.append(nxt)
+        pos = torch.full((b,), s, dtype=torch.int32, device=DEV)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lm.decode_step(params, nxt[:, None], cache, pos)
+        end.record()
+        end.synchronize()
+        step_dev = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        seq = torch.cat([toks, torch.stack(gen[:-1], 1)], 1)
+        ops.reset_launch_counts()
+        full, _ = lm.forward(params, seq, enc_embeds=frames)
+        count_encdec(report, ops.launch_counts(), cfg, torch.bfloat16)
+    want = full[:, s:s + steps, :v].float()
+    got = torch.stack(rows, 1).float()
+    diff = (got - want).abs()
+    top2 = want.topk(2, dim=-1).values
+    decided = top2[..., 0] - top2[..., 1] > diff.max(-1).values
+    same = got.argmax(-1) == want.argmax(-1)
+    log(f"[{SEAMLESS} bf16] LM.prefill 4 x {s} tokens + 64 frames "
+        f"{prefill_ms:.1f} ms; {steps} greedy decode_steps over the dense "
+        f"cache: mean {np.mean(step_ms[1:]):.2f} ms a step (host clock, "
+        f"synchronised), one step {step_dev:.2f} ms by CUDA events (eager, "
+        f"host-bound where it exceeds the kernels' time); decode vs a bf16 "
+        f"forward of prompt + generated tokens: rel max err "
+        f"{float(diff.max() / want.abs().max()):.3e}, greedy agree "
+        f"{int(same.sum())}/{same.numel()} ({int(decided.sum())} decided); "
+        f"peak memory {peak:.2f} GiB [{nvidia_smi_line()}]")
+    assert bool(torch.isfinite(got).all())
+    assert bool((same | ~decided).all()), f"[{SEAMLESS}] decode leaves " \
+        "the forward"
+    del params, cache, pre, full
+    free()
+
+
+def encdec_train(report, steps: int = 4) -> None:
+    """(c) seamless-m4t-large-v2 at full size (fp32 masters, bf16 compute,
+    remat none), ``steps`` steps of ``make_train_step`` through
+    ``FTTrainLoop`` on one fixed batch of 4 x 512 tokens with 128 frames
+    (``_train_gates``); step ms, tok/s, MFU and peak memory; K4 at its
+    logits (2,048 x 256,256, the padded vocab) and K5 at its largest leaf
+    (the embedding, 256,256 x 1,024), timed."""
+    import tempfile
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import LM
+    from repro_torch.train import TRAIN_OPTS
+    cfg = get_config(SEAMLESS)
+    lm = LM(cfg)
+    b, s = 4, 512
+    rng = np.random.default_rng(162)
+    batch = {k: rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    batch["enc_embeds"] = rng.standard_normal(
+        (b, s // cfg.enc_ratio, cfg.d_model), dtype=np.float32)
+    # with no warm-up (warmup_steps=1, as phases 13 and 14 run) the loss
+    # rose at the third step on the card: Adam's first steps move every
+    # weight by about the learning rate at once; a warm-up of 6 steps, as
+    # a real run has one, takes the loss down
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=6, total_steps=100)
+    opts = dataclasses.replace(TRAIN_OPTS, remat="none", q_chunk=s,
+                               kv_chunk=s)
+    tag = f"[{SEAMLESS} train remat=none {b}x{s} + {s // cfg.enc_ratio} " \
+        "frames]"
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        log_, step_s, peak, launches, n_leaves = _train_loop_run(
+            lm, tcfg, opts, batch, steps, tmp)
+    _train_gates(tag, log_, launches, steps, n_leaves)
+    steady = float(np.mean(step_s[1:]))
+    flops = cfg.flops_per_token(s, "train") * b * s
+    log(f"{tag} {steps} steps: first {step_s[0] * 1e3:.1f} ms, mean step "
+        f"{steady * 1e3:.2f} ms over steps 1..{steps - 1} "
+        f"({b * s / steady:.1f} tok/s), MFU "
+        f"{flops / steady / 989e12 * 100:.2f}% of 989 TFLOP/s, peak memory "
+        f"{peak:.2f} GiB [{nvidia_smi_line()}]")
+    gen = torch.Generator().manual_seed(163)
+    fwd, bwd = k4_timed(b * s, cfg.padded_vocab, gen,
+                        f" ({SEAMLESS} train logits)")
+    n = cfg.padded_vocab * cfg.d_model
+    for kernel, r in (("softmax_xent_fwd", fwd), ("softmax_xent_bwd", bwd),
+                      ("adamw_fused", k5_timed(
+                          n, gen, f" ({SEAMLESS}'s embedding)"))):
+        report[f"{kernel}[{SEAMLESS} train]"] = dict(
+            r, launches=launches[kernel])
+    free()
+
+
+def moe_phase(report) -> None:
+    """Phase 15: the head layouts, (a) the fp32 kernel path against the
+    plain path, (b) moonshot-v1-16b-a3b served at 24 of its 48 layers
+    (native and int8 pages, graph and eager), (c) arctic-480b served at 1
+    of its 35 layers (the same), (d) moonshot trained at 2 layers."""
+    moe_layouts(report)
+    moe_kernel_vs_plain(report)
+    pairs = (("native", {}), ("int8", {"kv_dtype": "int8"}),
+             ("native-eager", {"cuda_graph": False}),
+             ("int8-eager", {"kv_dtype": "int8", "cuda_graph": False}))
+    moe_serve(report, MOONSHOT, 24, pairs, 153)
+    moe_serve(report, ARCTIC, 1, pairs, 154)
+    moe_train(report)
+
+
+def encdec_phase(report) -> None:
+    """Phase 16: the K2 layouts, then (a) the fp32 parity checks, (b) the
+    bf16 prefill and decode, (c) training."""
+    encdec_layouts(report)
+    encdec_parity(report)
+    encdec_decode(report)
+    encdec_train(report)
+
+
 def free() -> None:
     """Drop what a finished phase left, so the next one has the card."""
     gc.collect()
@@ -4946,7 +5560,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (2560, 128, 2048, 4096):
+        for d in (2560, 128, 2048, 4096, 7168):
             x = torch.ones(4, d, device=DEV, dtype=dtype)
             rmsnorm.rmsnorm_rows(x, torch.ones(d, device=DEV))
     torch.cuda.synchronize()
@@ -5050,6 +5664,19 @@ def main() -> int:
     vlm_serve(report)
     vlm_train()
     log(f"phase 14 took {time.perf_counter() - t0:.1f}s")
+
+    phase("15 moe: moonshot-v1-16b-a3b fp32 kernel path vs plain path, "
+          "moonshot (24 layers) and arctic-480b (1 layer) served in bf16, "
+          "moonshot trained")
+    t0 = time.perf_counter()
+    moe_phase(report)
+    log(f"phase 15 took {time.perf_counter() - t0:.1f}s")
+
+    phase("16 enc-dec: seamless-m4t-large-v2 fp32 kernel path vs plain "
+          "path and decode vs forward, bf16 prefill and decode, trained")
+    t0 = time.perf_counter()
+    encdec_phase(report)
+    log(f"phase 16 took {time.perf_counter() - t0:.1f}s")
 
     csrc = "src/repro_torch/csrc/"
     meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",

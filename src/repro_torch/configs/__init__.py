@@ -3,24 +3,31 @@
 The dense decoder configs the port serves and trains (qwen3-4b,
 llama3.2-3b, llama3-405b, starcoder2-3b and the paper's Granite family,
 the last two with LayerNorm, GELU and biases), the vlm config it serves
-and trains with a stub image prefix (internvl2-2b), and the recurrent
-configs it trains and whose forward, eval, prefill and decode it runs
-(zamba2-1.2b, hybrid; rwkv6-1.6b, ssm).  Their files are copies of the JAX
+and trains with a stub image prefix (internvl2-2b), the MoE configs it
+serves and trains (moonshot-v1-16b-a3b; arctic-480b, with its dense
+residual FFN), the recurrent configs it trains and whose forward, eval,
+prefill and decode it runs (zamba2-1.2b, hybrid; rwkv6-1.6b, ssm), and
+the encoder-decoder config it trains and prefills and decodes over its
+dense cache behind a stub audio frontend (seamless-m4t-large-v2).  Their files are copies of the JAX
 package's, values unchanged (the port is held to the JAX package, not to
 the hub configs the files cite)."""
+from repro_torch.configs.arctic_480b import CONFIG as _arctic
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.configs.granite import GRANITE_8B, GRANITE_13B, GRANITE_20B
 from repro_torch.configs.internvl2_2b import CONFIG as _internvl2
 from repro_torch.configs.llama3_2_3b import CONFIG as _llama32
 from repro_torch.configs.llama3_405b import CONFIG as _llama405
+from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as _moonshot
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
 from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
+from repro_torch.configs.seamless_m4t_large_v2 import CONFIG as _seamless
 from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2
 from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
 
 CONFIGS = {c.name: c for c in (_qwen3, _llama32, _llama405, _starcoder2,
                                GRANITE_8B, GRANITE_13B, GRANITE_20B,
-                               _internvl2, _zamba2, _rwkv6)}
+                               _internvl2, _moonshot, _arctic, _zamba2,
+                               _rwkv6, _seamless)}
 
 
 def get_config(name: str) -> ModelConfig:

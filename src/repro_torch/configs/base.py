@@ -5,8 +5,8 @@ model and its optimizer with the same numbers.  The port imports
 nothing of the JAX package, so it carries its own copy.
 
 One ``ModelConfig`` dataclass covers every architecture family
-(dense / moe / hybrid / ssm / encdec / vlm); the port runs the dense,
-vlm, hybrid and ssm configs registered in ``repro_torch.configs``.
+(dense / moe / hybrid / ssm / encdec / vlm); the port runs every
+family, with the configs registered in ``repro_torch.configs``.
 Configs are frozen; derived
 quantities are properties.  ``reduced()`` produces a small same-family config
 for CPU tests.

@@ -20,6 +20,8 @@ the fused decode step per iteration.
         --host-pages 64 --prefix-store --prefill-chunk 8
     python -m repro_torch.launch.serve --device cpu --reduced \
         --arch internvl2-2b
+    python -m repro_torch.launch.serve --device cpu --reduced \
+        --arch moonshot-v1-16b-a3b
 
 It prints the same summary lines as ``repro.launch.serve``, and, as it
 does, the alerts that fired: the engine runs the serve light checks and the
@@ -34,6 +36,8 @@ full-width config in its own dtype, with random weights from seed 0.  The
 requests are the JAX launcher's (``draw_requests``), which give a vlm
 config (``--arch internvl2-2b``) no image, so its image rows are zeros, as
 in JAX (``--max-seq`` must then exceed its 256 image rows at full width);
+``--arch`` takes the dense, vlm and moe configs (the engine's
+families; a moe config refuses ``--prefill-chunk``, as JAX's does).
 ``serve`` takes a
 parameter tree, so the same run can serve other weights
 (``repro_torch.models.params.from_jax``).
@@ -140,7 +144,7 @@ def join_pool_group(dp: int, m: int, device: str):
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b",
-                    choices=archs("dense", "vlm"))
+                    choices=archs("dense", "vlm", "moe"))
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="reduced fp32 config (default) or, with "

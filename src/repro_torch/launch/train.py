@@ -13,9 +13,10 @@ reaches K4 and the optimizer K5 (their plain versions on the CPU); the
 forward uses blockwise attention, plain RMSNorm and the recurrent
 families' plain chunked mixers, as the JAX trainer does, with
 ``remat="none"`` as JAX's launcher passes it (``--remat`` picks another).
-A vlm config (internvl2-2b) needs image embeddings that the token loader
-does not make: as JAX's launcher fails on the missing ``img_embeds``, the
-first step raises a ``ValueError`` that names them.
+A vlm config (internvl2-2b) needs image embeddings, and an encdec config
+(seamless-m4t-large-v2) frame embeddings, that the token loader does not
+make: as JAX's launcher fails on the missing ``img_embeds`` or
+``enc_embeds``, the first step raises a ``ValueError`` that names them.
 """
 from __future__ import annotations
 

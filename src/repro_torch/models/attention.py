@@ -42,10 +42,10 @@ from repro_torch.models.common import (P, add_bias, apply_rope, dense_spec,
 NEG_INF = -1e30
 
 
-def attention_spec(cfg):
+def attention_spec(cfg, cross: bool = False):
     """The JAX layouts: ``wq`` (d, H, D), ``wk``/``wv`` (d, KV, D), ``wo``
     (H, D, d); with ``cfg.use_bias`` their biases are (H, D), (KV, D) and
-    (d,)."""
+    (d,).  A ``cross``-attention block has no q/k norms."""
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     bias = cfg.use_bias
@@ -55,7 +55,7 @@ def attention_spec(cfg):
             "wo": {"kernel": P((h, hd, d), scale=depth_scale(cfg))}}
     if bias:
         spec["wo"]["bias"] = P((d,), init="zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         spec["q_norm"] = norm_spec(cfg, hd)
         spec["k_norm"] = norm_spec(cfg, hd)
     return spec
@@ -170,6 +170,28 @@ def attention_block(p, cfg, x, *, impl: str = "flash", causal: bool = True,
     else:
         raise ValueError(impl)
     return output_proj(p, cfg, y), (k, v)
+
+
+def cross_attention_block(p, cfg, x, enc_kv):
+    """Cross-attention (the JAX ``cross_attention_block``): q from x with
+    no RoPE, against the precomputed encoder ``enc_kv`` = (k, v)
+    (B, E, KV, D), non-causal, through the plain ``blockwise_attention``
+    with its default chunks, as JAX's (no TPU kernel runs here).  x
+    (B, S, d) -> (B, S, d)."""
+    b, s, _ = x.shape
+    kv = cfg.num_kv_heads
+    q = _proj(p["wq"], x)
+    q = q.reshape(b, s, kv, cfg.num_heads // kv, cfg.resolved_head_dim)
+    k, v = enc_kv
+    return output_proj(p, cfg, blockwise_attention(q, k, v, causal=False))
+
+
+def encode_kv(p, cfg, enc_out):
+    """The cross-attention K/V of the encoder output (B, E, d): the
+    projections and their biases, no RoPE.  Returns (k, v) (B, E, KV,
+    D)."""
+    del cfg
+    return _proj(p["wk"], enc_out), _proj(p["wv"], enc_out)
 
 
 # ----------------------------------------------------------------- decode ----

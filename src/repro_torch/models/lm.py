@@ -1,6 +1,8 @@
 """Top-level model facade of the port (counterpart of the JAX
-``repro.models.lm.LM``) for the dense, vlm, hybrid and ssm families; the
-recurrent ones prefill and decode over their raw state cache only."""
+``repro.models.lm.LM``) for every family: the decoder-only stack
+(``transformer``: dense, vlm, moe, hybrid, ssm) and the encoder-decoder
+(``encdec``).  The recurrent families and encdec prefill and decode over
+their raw dense cache only."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -9,7 +11,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.common import (DTYPES, cross_entropy, init_params,
                                        resolve_device)
 from repro_torch.models.transformer import ForwardOpts
@@ -19,8 +21,13 @@ from repro_torch.models.transformer import ForwardOpts
 class LM:
     cfg: ModelConfig
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.cfg.family == "encdec"
+
     def spec(self):
-        return transformer.build_spec(self.cfg)
+        return (encdec.build_spec(self.cfg) if self.is_encdec
+                else transformer.build_spec(self.cfg))
 
     def init(self, seed: int = 0, device="cuda", dtype=None):
         """Random parameters from an explicit generator seeded with
@@ -31,46 +38,82 @@ class LM:
         return init_params(self.spec(), gen, dev,
                            dtype or DTYPES[self.cfg.dtype])
 
+    def _enc(self, enc_embeds):
+        if enc_embeds is None:
+            raise ValueError(
+                f"{self.cfg.name} is an encdec config: its forward takes "
+                f"enc_embeds (B, S // {self.cfg.enc_ratio}, "
+                f"{self.cfg.d_model}), the stub audio frontend's frame "
+                "embeddings, and none were given")
+        return enc_embeds
+
     def forward(self, params, tokens, opts: ForwardOpts = ForwardOpts(),
-                collect_cache: bool = False, img_embeds=None):
+                collect_cache: bool = False, img_embeds=None,
+                enc_embeds=None, return_aux: bool = False):
         """``img_embeds`` (B, num_image_tokens, d): a vlm config's image,
-        in front of the text (``transformer.embed_inputs``)."""
+        in front of the text (``transformer.embed_inputs``);
+        ``enc_embeds`` (B, S // enc_ratio, d): an encdec config's frames,
+        which its encoder reads.  Returns (logits, cache | None), and with
+        ``return_aux`` the ``moe_aux`` (0 but for the moe family)."""
+        if self.is_encdec:
+            logits, cache = encdec.forward(params, self.cfg, tokens,
+                                           self._enc(enc_embeds), opts,
+                                           collect_cache)
+            if not return_aux:
+                return logits, cache
+            return logits, cache, torch.zeros((), device=logits.device)
         return transformer.forward(params, self.cfg, tokens, opts,
-                                   collect_cache, img_embeds=img_embeds)
+                                   collect_cache, img_embeds=img_embeds,
+                                   return_aux=return_aux)
 
     def loss(self, params, batch, opts: ForwardOpts = ForwardOpts(),
              moe_aux_weight: float = 1e-2, z_loss: float = 1e-4):
         """Next-token loss of ``batch`` = {"tokens", "labels"}, both (B, S)
-        int tensors, and for a vlm config "img_embeds" (B, n, d), whose n
-        image positions' logits are dropped before the loss.  Returns
-        (loss, {"loss", "nll", "z_loss", "moe_aux"}), the JAX ``LM.loss``
-        for the dense, vlm, hybrid and ssm families, whose ``moe_aux`` is
-        0, so ``moe_aux_weight`` adds nothing."""
-        logits, _ = self.forward(params, batch["tokens"], opts,
-                                 img_embeds=batch.get("img_embeds"))
+        int tensors; for a vlm config "img_embeds" (B, n, d), whose n
+        image positions' logits are dropped before the loss; for an encdec
+        config "enc_embeds" (B, S // enc_ratio, d).  Returns (loss,
+        {"loss", "nll", "z_loss", "moe_aux"}), the JAX ``LM.loss``: the
+        loss adds ``moe_aux_weight`` times the layers' summed MoE
+        load-balance loss (0 but for the moe family)."""
+        logits, _, aux = self.forward(params, batch["tokens"], opts,
+                                      img_embeds=batch.get("img_embeds"),
+                                      enc_embeds=batch.get("enc_embeds"),
+                                      return_aux=True)
         if transformer.has_image(self.cfg):
             logits = logits[:, self.cfg.num_image_tokens:]
         loss, ce = cross_entropy(logits, batch["labels"], self.cfg.vocab_size,
                                  z_loss=z_loss, impl=opts.xent_impl)
+        loss = loss + moe_aux_weight * aux
         return loss, {"loss": loss, "nll": ce["nll"], "z_loss": ce["z_loss"],
-                      "moe_aux": torch.zeros((), device=loss.device)}
+                      "moe_aux": aux}
 
     def prefill(self, params, tokens, opts: ForwardOpts = ForwardOpts(),
-                img_embeds=None):
+                img_embeds=None, enc_embeds=None):
         """The JAX ``LM.prefill``: (the last row's logits (B, 1, Vp), the
         cache of ``forward(collect_cache=True)``).  A vlm prefill takes the
-        image (``img_embeds``), whose rows lead the cache.  For the
+        image (``img_embeds``), whose rows lead the cache; an encdec
+        prefill the frames (``enc_embeds``), whose cross-attention K/V the
+        cache holds beside the decoder's.  For the
         recurrent families the cache holds the final states (and zamba2's
         shared K/V over the S prompt rows), which ``decode_step`` continues
         from once the K/V rows are copied into a cache of the decode
-        length."""
+        length (for encdec: its self-attention K/V)."""
         logits, cache = self.forward(params, tokens, opts, collect_cache=True,
-                                     img_embeds=img_embeds)
+                                     img_embeds=img_embeds,
+                                     enc_embeds=enc_embeds)
         return logits[:, -1:], cache
 
     def decode_step(self, params, tokens, cache, positions,
                     decode_impl: str = "kernel", norm_impl: str = "kernel",
                     pool_group=None, dp_group=None):
+        """One token per slot at (B,) positions (``transformer.decode_step``;
+        an encdec config: ``encdec.decode_step`` over its dense cache,
+        ``decode_impl`` ignored)."""
+        if self.is_encdec:
+            if pool_group is not None or dp_group is not None:
+                raise ValueError("sharded paged decode is decoder-only")
+            return encdec.decode_step(params, self.cfg, tokens, cache,
+                                      positions, norm_impl=norm_impl)
         return transformer.decode_step(params, self.cfg, tokens, cache,
                                        positions, decode_impl=decode_impl,
                                        norm_impl=norm_impl,
@@ -84,6 +127,10 @@ class LM:
         ``"page_table"`` holds the slots' real rows; pools written in
         place.  Returns (logits (B, 1, Vp) at each chunk's last valid row,
         cache).  See ``transformer.prefill_chunk``."""
+        if self.is_encdec:
+            raise ValueError(
+                "chunked prefill is decoder-only (encdec prefill is "
+                "per-request dense state)")
         return transformer.prefill_chunk(params, self.cfg, tokens, cache,
                                          start_pos, dest, last_pos,
                                          norm_impl=norm_impl,
@@ -96,7 +143,8 @@ class LM:
                    prefix_sharing: bool = True, device="cuda", dtype=None,
                    kv_dtype: str = "native", pool_group=None,
                    locality_chips: Optional[int] = None, dp_group=None,
-                   host_pages: int = 0, prefix_store=None):
+                   host_pages: int = 0, prefix_store=None,
+                   enc_len: int = 0):
         """Decode cache construction (the JAX ``LM.init_cache``).
         ``backend=None`` returns the raw dense cache, ``{"layers": {"k":
         (L, B, S, KV, D), "v": ...}}``, which ``decode_step`` takes
@@ -112,8 +160,16 @@ class LM:
         host-RAM page tier behind the pool (``repro_torch.serve.offload``).
         The recurrent families take ``backend=None`` only: their states
         (and zamba2's shared K/V rows) have no pages, and the serve engine
-        does not serve them, as in JAX."""
-        if self.cfg.family not in ("dense", "vlm") and (
+        does not serve them, as in JAX.  So does encdec, whose raw cache
+        adds the cross-attention K/V ``"xk"``/``"xv"`` (L, B, enc_len, KV,
+        D), ``enc_len`` defaulting to ``max_seq // enc_ratio``."""
+        if self.is_encdec and (backend is not None or pool_group is not None
+                               or dp_group is not None):
+            raise ValueError(
+                "paged KV covers decoder self-attention caches; encdec "
+                "cross-attention K/V is per-request dense state (use "
+                "backend=None)")
+        if self.cfg.family not in ("dense", "vlm", "moe") and (
                 backend is not None or pool_group is not None
                 or dp_group is not None):
             raise ValueError(
@@ -152,6 +208,10 @@ class LM:
                 "layout has neither (use backend='paged' for host_pages/"
                 "prefix_store)")
         dev = resolve_device(device)
+        if backend is None and self.is_encdec:
+            return encdec.init_cache(
+                self.cfg, batch_size, max_seq,
+                enc_len or max_seq // self.cfg.enc_ratio, dev, dtype)
         if backend is None:
             return transformer.init_cache(self.cfg, batch_size, max_seq, dev,
                                           dtype)

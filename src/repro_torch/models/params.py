@@ -1,12 +1,13 @@
 """Weight bridge: the JAX parameter tree, as nested dicts of numpy arrays,
 into the port's parameters.
 
-``from_jax`` takes what ``jax.tree.map(np.asarray, params)`` gives for a
-dense, vlm (internvl2), hybrid (zamba2) or ssm (rwkv6) ``LM`` and returns
-torch tensors in
-the same layouts.  For serving and eval, matrix weights are cast once, to
-the compute dtype: the JAX model casts its fp32 masters at every use, which
-is numerically the same.  For training, ``dtype=torch.float32`` keeps them
+``from_jax`` takes what ``jax.tree.map(np.asarray, params)`` gives for an
+``LM`` of any family (dense; vlm, internvl2; moe, moonshot and arctic with
+its ``dense`` residual subtree; hybrid, zamba2; ssm, rwkv6; encdec,
+seamless) and returns torch tensors in the same layouts.  For serving
+and eval, matrix weights are cast once, to the compute dtype: the JAX
+model casts its fp32 masters at every use, which is numerically the
+same.  For training, ``dtype=torch.float32`` keeps them
 fp32.  The leaves marked ``fp32`` in the port's spec stay fp32 whatever the
 compute dtype:
 - norm scales and LayerNorm biases, because the norms multiply in fp32;
@@ -16,7 +17,8 @@ compute dtype:
   ``ln_x`` and the channel mix's ``mu_k``, ``mu_r``;
 - matrices JAX multiplies in fp32: rwkv6's ``tmix.wB``, the decay LoRA's
   second matrix (``x @ wA`` is cast to fp32 and multiplied by the fp32
-  master), whose bf16 rounding would move every channel's decay.
+  master), whose bf16 rounding would move every channel's decay; the MoE
+  ``router``, whose bf16 rounding would pick other experts.
 ``train_state_from_jax`` carries a whole JAX train state across.  No JAX is
 imported here.
 """
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import DTYPES, P, resolve_device
-from repro_torch.models.transformer import build_spec
+from repro_torch.models.lm import LM
 
 
 def from_jax(tree, cfg, device="cuda", dtype=None):
@@ -48,7 +50,7 @@ def from_jax(tree, cfg, device="cuda", dtype=None):
         return {k: convert(v, node[k], f"{path}/{k}")
                 for k, v in spec.items()}
 
-    return convert(build_spec(cfg), tree, "params")
+    return convert(LM(cfg).spec(), tree, "params")
 
 
 def train_state_from_jax(state, cfg, device="cuda"):

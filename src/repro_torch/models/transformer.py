@@ -1,5 +1,6 @@
-"""Decoder-only stack of the port: the dense, vlm (internvl2), hybrid
-(zamba2) and ssm (rwkv6) families of the JAX ``repro.models.transformer``.
+"""Decoder-only stack of the port: the dense, vlm (internvl2), moe
+(moonshot, arctic), hybrid (zamba2) and ssm (rwkv6) families of the JAX
+``repro.models.transformer``.
 
 Layers are stacked along a leading dim of every parameter and applied in a
 Python loop, each layer body under the remat policy of ``ForwardOpts``
@@ -14,7 +15,8 @@ weights:
   whose pools it updates in place (attention families only), over this rank's
   shards of pools split over a ``PoolGroup``, or over the cache of
   ``init_cache`` (the dense contiguous layout; the recurrent states, which
-  it also updates in place)
+  it also updates in place); a moe layer routes the whole batch as one
+  group
 * ``prefill_chunk`` — a (B, C) chunk of prompt tokens at per-request
   offsets over a paged cache (dense family only), the chunked prefill
 
@@ -30,7 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba2, rwkv6
+from repro_torch.models import mamba2, moe as moe_mod, rwkv6
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (DTYPES, P, apply_norm, norm_spec,
                                        stack_spec)
@@ -110,13 +112,17 @@ def layer_spec(cfg):
     if fam in ("dense", "vlm"):
         return {"ln1": norm_spec(cfg), "attn": attn.attention_spec(cfg),
                 "ln2": norm_spec(cfg), "mlp": mlp_mod.mlp_spec(cfg)}
+    if fam == "moe":
+        return {"ln1": norm_spec(cfg), "attn": attn.attention_spec(cfg),
+                "ln2": norm_spec(cfg), "moe": moe_mod.moe_spec(cfg)}
     if fam == "ssm":
         return {"ln1": norm_spec(cfg), "tmix": rwkv6.tmix_spec(cfg),
                 "ln2": norm_spec(cfg), "cmix": rwkv6.cmix_spec(cfg)}
     if fam == "hybrid":
         return {"ln1": norm_spec(cfg), "mamba": mamba2.mamba_spec(cfg)}
-    raise ValueError(f"the port runs the dense, vlm, hybrid and ssm "
-                     f"families (got {fam})")
+    raise ValueError(f"the decoder stack runs the dense, vlm, moe, hybrid "
+                     f"and ssm families (got {fam}; encdec: "
+                     "repro_torch.models.encdec)")
 
 
 def shared_block_spec(cfg):
@@ -149,12 +155,13 @@ def build_spec(cfg):
     return spec
 
 
-def layer_params(params, i: int):
-    """Layer ``i``'s parameters: views into the stacked tensors."""
+def layer_params(params, i: int, stack: str = "layers"):
+    """Layer ``i``'s parameters of the stacked subtree ``params[stack]``:
+    views into the stacked tensors."""
     def pick(t):
         return t[i] if isinstance(t, torch.Tensor) else \
             {k: pick(v) for k, v in t.items()}
-    return pick(params["layers"])
+    return pick(params[stack])
 
 
 def embed(params, cfg, tokens):
@@ -185,6 +192,17 @@ def unembed(params, cfg, h, norm_impl: str = "kernel"):
     return h @ params["lm_head"]["kernel"].to(h.dtype)
 
 
+# each layer body returns (h, aux, cache): aux is the MoE load-balance
+# loss of a moe layer, None for the others
+
+def _ffn(lp, cfg, f_in):
+    """The dense FFN, or a moe layer's experts (each sequence routes on its
+    own).  Returns (y, aux | None)."""
+    if "moe" in lp:
+        return moe_mod.moe_ffn(lp["moe"], cfg, f_in)
+    return mlp_mod.mlp(lp["mlp"], cfg, f_in), None
+
+
 def _attn_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
     del collect                  # the K/V come with the attention output
     a_in = apply_norm(lp["ln1"], h, cfg, opts.norm_impl)
@@ -194,8 +212,8 @@ def _attn_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
                                      q_chunk=opts.q_chunk,
                                      kv_chunk=opts.kv_chunk)
     h = h + a
-    f_in = apply_norm(lp["ln2"], h, cfg, opts.norm_impl)
-    return h + mlp_mod.mlp(lp["mlp"], cfg, f_in), {"k": k, "v": v}
+    f, aux = _ffn(lp, cfg, apply_norm(lp["ln2"], h, cfg, opts.norm_impl))
+    return h + f, aux, {"k": k, "v": v}
 
 
 # K6 and K7 have no final-state output (neither have the TPU kernels), so a
@@ -208,7 +226,7 @@ def _ssm_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
     h = h + y
     x2 = apply_norm(lp["ln2"], h, cfg, opts.norm_impl)
     y2, shift2 = rwkv6.cmix_block(lp["cmix"], cfg, x2)
-    return h + y2, {"shift1": shift1, "wkv": wkv, "shift2": shift2}
+    return h + y2, None, {"shift1": shift1, "wkv": wkv, "shift2": shift2}
 
 
 def _hybrid_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
@@ -217,8 +235,8 @@ def _hybrid_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
         lp["mamba"], cfg, x, impl="plain" if collect else opts.mixer_impl,
         norm_impl=opts.norm_impl)
     if not collect:
-        return h + y, None
-    return h + y, {"conv": torch.cat(conv, dim=-1), "ssm": ssm}
+        return h + y, None, None
+    return h + y, None, {"conv": torch.cat(conv, dim=-1), "ssm": ssm}
 
 
 def _shared_in(sp, h, emb0):
@@ -256,10 +274,14 @@ def _stack(caches):
 
 
 def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
-            collect_cache: bool = False, img_embeds=None):
+            collect_cache: bool = False, img_embeds=None,
+            return_aux: bool = False):
     """tokens (B, S); ``img_embeds`` (B, n, d) for a vlm config, whose
     logits and cache then cover its n image positions first (S becomes
-    n + S below).  Returns (logits (B, S, Vp), cache | None).  While
+    n + S below).  Returns (logits (B, S, Vp), cache | None), and with
+    ``return_aux`` a third item, the JAX forward's ``moe_aux``: the sum of
+    the layers' MoE load-balance losses, a 0-d fp32 tensor (0 for the
+    families without experts).  While
     autograd records, each layer body (with zamba2's shared block where it
     fires after that layer, as in JAX's scan body) runs under
     ``_remat(opts.remat)``.  The
@@ -272,34 +294,41 @@ def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
     the shared block's ``{"k", "v"}`` (n_shared, B, S, KV, D), use j at
     index j.  A hybrid stack runs its shared block after layer i whenever
     i % every == every - 1."""
-    layer = {"dense": _attn_layer, "vlm": _attn_layer, "ssm": _ssm_layer,
-             "hybrid": _hybrid_layer}[cfg.family]
+    layer = {"dense": _attn_layer, "vlm": _attn_layer, "moe": _attn_layer,
+             "ssm": _ssm_layer, "hybrid": _hybrid_layer}[cfg.family]
     h = embed_inputs(params, cfg, tokens, img_embeds)
     emb0 = h
 
     def body(h, i):
-        h, cache = layer(layer_params(params, i), cfg, h, opts, collect_cache)
+        h, aux, cache = layer(layer_params(params, i), cfg, h, opts,
+                              collect_cache)
         kv = None
         if _fires(cfg, i):
             h, kv = _shared_block(params["shared"], cfg, h, emb0, opts)
-        return h, cache, kv
+        return h, aux, cache, kv
 
     if _records_grad(params, h):
         body = _remat(body, opts.remat)
-    caches, shared = [], []
+    caches, shared, auxs = [], [], []
     for i in range(cfg.num_layers):
-        h, cache, kv = body(h, i)
+        h, aux, cache, kv = body(h, i)
+        if aux is not None:
+            auxs.append(aux)
         if kv is not None:
             shared.append(kv)
         if collect_cache:
             caches.append(cache)
     logits = unembed(params, cfg, h, opts.norm_impl)
-    if not collect_cache:
-        return logits, None
-    cache = {"layers": _stack(caches)}
-    if shared:
-        cache["shared"] = _stack(shared)
-    return logits, cache
+    cache = None
+    if collect_cache:
+        cache = {"layers": _stack(caches)}
+        if shared:
+            cache["shared"] = _stack(shared)
+    if not return_aux:
+        return logits, cache
+    aux = (torch.stack(auxs).sum() if auxs
+           else torch.zeros((), device=logits.device))
+    return logits, cache, aux
 
 
 def init_cache(cfg, batch_size: int, max_seq: int, device, dtype):
@@ -317,7 +346,7 @@ def init_cache(cfg, batch_size: int, max_seq: int, device, dtype):
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "moe"):
         return {"layers": {"k": zeros((L, *kv_shape)),
                            "v": zeros((L, *kv_shape))}}
     if cfg.family == "ssm":
@@ -359,7 +388,7 @@ def decode_step(params, cfg, tokens, cache, positions,
     no image: its image rows are in the cache from the prefill, as in JAX.
     Returns (logits (B, 1, Vp), cache)."""
     page_table = cache.get("page_table")
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         if page_table is not None or pool_group is not None \
                 or dp_group is not None:
             raise ValueError(
@@ -380,7 +409,10 @@ def decode_step(params, cfg, tokens, cache, positions,
             page_table, decode_impl=decode_impl, norm_impl=norm_impl,
             pool_group=pool_group, dp_group=dp_group, **scales)
         f_in = apply_norm(lp["ln2"], h, cfg, norm_impl)
-        h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
+        if "moe" in lp:
+            h = h + moe_mod.moe_ffn_decode(lp["moe"], cfg, f_in)[0]
+        else:
+            h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
     return unembed(params, cfg, h, norm_impl), cache
 
 
@@ -439,8 +471,10 @@ def prefill_chunk(params, cfg, tokens, cache, start_pos, dest, last_pos,
     slots' REAL table rows; ``last_pos`` (B,) is each chunk's last valid
     position.  Only the hidden row at ``last_pos`` is unembedded, so a
     chunk pays one vocab projection.  Returns (logits (B, 1, Vp), cache).
-    Attention families only (dense, vlm): recurrent state has no
-    position-indexed cache."""
+    Dense-FFN attention families only (dense, vlm): recurrent state has no
+    position-indexed cache, and a moe layer's capacity routing depends on
+    the forwarded group, so a chunk would route otherwise than the whole
+    prompt (JAX refuses both)."""
     if cfg.family not in ("dense", "vlm"):
         raise ValueError("chunked prefill is dense-FFN attention-cache "
                          f"families only (family={cfg.family})")

@@ -213,12 +213,14 @@ class ServeEngine:
                  health_every: int = 16,
                  locality_chips: Optional[int] = None, dp_group=None,
                  host_pages: int = 0, prefix_store=None):
-        if lm.cfg.family not in ("dense", "vlm"):
+        # per-slot positions rely on masked-then-overwritten cache writes,
+        # which holds for attention KV caches but not recurrent state; an
+        # encdec config's cross-attention K/V is per-request dense state
+        if lm.cfg.family not in ("dense", "moe", "vlm"):
             raise ValueError(
-                f"ServeEngine serves attention-cache families (dense, vlm); "
-                f"{lm.cfg.name} is {lm.cfg.family}: its recurrent state "
-                "decodes through LM.decode_step over LM.init_cache("
-                "backend=None)")
+                "ServeEngine supports attention-cache families (dense, moe, "
+                f"vlm); {lm.cfg.name} is {lm.cfg.family}: it decodes through "
+                "LM.decode_step over LM.init_cache(backend=None)")
         if cache_backend not in ("paged", "contiguous"):
             raise ValueError(f"cache_backend {cache_backend!r} not in "
                              "('paged', 'contiguous')")
@@ -297,6 +299,14 @@ class ServeEngine:
                 raise ValueError(
                     "chunked prefill covers token prompts; VLM image-embed "
                     "prefixes prefill whole-prompt")
+            if lm.cfg.family == "moe":
+                raise ValueError(
+                    "chunked prefill would change MoE expert-capacity "
+                    "routing: moe_ffn computes capacity and token dropping "
+                    "per forwarded sequence, so a (1, C) chunk routes "
+                    "differently than the whole bucketed prompt and the "
+                    "bitwise stream-parity contract breaks; MoE prompts "
+                    "prefill whole-prompt")
             if self.chunk < 1 or self.budget < self.chunk:
                 raise ValueError(
                     f"prefill budget {self.budget} below one chunk "

@@ -213,7 +213,9 @@ class PagedCache:
                  kv_dtype: str = "native", pool_group=None,
                  locality_chips: Optional[int] = None, dp_group=None,
                  host_pages: int = 0, prefix_store=None):
-        assert cfg.family in ("dense", "vlm"), cfg.family
+        assert cfg.family in ("dense", "vlm", "moe"), (
+            "paged KV is attention-cache families only "
+            f"(family={cfg.family})")
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
         self.cfg, self.B, self.S = cfg, batch, max_seq

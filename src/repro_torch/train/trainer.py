@@ -63,8 +63,10 @@ def make_train_step(lm: LM, tcfg: TrainConfig,
                     opts: ForwardOpts = TRAIN_OPTS, microbatches: int = 1,
                     adamw_impl: str = "kernel"):
     """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
-    holds (B, S) "tokens" and "labels" (numpy arrays or tensors), and for a
-    vlm config "img_embeds" (B, num_image_tokens, d).  With
+    holds (B, S) "tokens" and "labels" (numpy arrays or tensors), for a
+    vlm config "img_embeds" (B, num_image_tokens, d), and for an encdec
+    config "enc_embeds" (B, S // enc_ratio, d).  The loss adds
+    ``tcfg.moe_aux_loss`` times a moe config's load-balance loss.  With
     ``microbatches`` > 1 the batch is split along B and fp32 gradients are
     accumulated, each divided by ``microbatches``, as JAX's scan does.
     ``metrics`` are the last microbatch's loss metrics (as in JAX, its

@@ -7,7 +7,10 @@ to its victim only (``chip_smoke.py`` phase 5c's cases), and the poison
 mask and fault plans through the graph step, and the host-RAM page tier's
 two hazards (a freed page's offload must be a snapshot, a prefetch must
 be fenced against the host's next write of its slab slot) and its round
-trip through the graph step.  Without a card every test
+trip through the graph step; K1 at arctic-480b's G=7 and K2 non-causal at
+seamless-m4t's D=64 on the model layout against their plain versions, and
+a MoE engine's graph replays against its eager steps, bitwise.  Without a
+card every test
 here skips; the file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -1279,3 +1282,120 @@ def test_host_tier_warm_engine_equals_cold_through_the_graph(kv_dtype):
         skipped = eng.reg.counter("serve_prefill_chunks_skipped_total").get()
         assert (hits, skipped) == ((0, 0) if phase == "cold" else (18, 18))
     assert streams[1] == streams[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_g7_native_and_int8_match_plain(dtype):
+    """K1 at arctic-480b's head layout (KV=8, G=7, D=128, page 16): an odd
+    query group, so the tensor-core path pads 7 rows to 8; native and int8
+    pools against the plain version and the plain split schedule, with
+    boundary positions, a freed slot and NaN dead pages."""
+    from repro_torch.kernels.quant import quantize_kv
+    dev = _card()
+    gen = torch.Generator().manual_seed(28)
+    b, kv, g, d, page, m = 6, 8, 7, 128, 16, 8
+    n_pages = b * m + 1
+    pos = torch.tensor([0, page - 1, page, 3 * page + 5, m * page - 1, 0],
+                       dtype=torch.int32)
+    table = (torch.randperm(n_pages - 1, generator=gen)[: b * m] + 1)
+    table = table.reshape(b, m).to(torch.int32)
+    table[5] = 0
+    k = torch.randn(n_pages, page, kv, d, generator=gen)
+    v = torch.randn(n_pages, page, kv, d, generator=gen)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    for s in range(b - 1):
+        dead = table[s, pos[s] // page + 1:].long()
+        for t in (k, v, ks, vs):
+            t[dead] = float("nan")
+    q = torch.randn(b, kv, g, d, generator=gen).to(dev, DTYPES[dtype])
+    k, v, kq, vq, ks, vs, table, pos = (
+        x.to(dev) for x in (k, v, kq, vq, ks, vs, table, pos))
+    k, v = k.to(DTYPES[dtype]), v.to(DTYPES[dtype])
+    for fn, pools, quant in ((tpd.paged_flash_decode, (k, v), False),
+                             (tpd.paged_flash_decode_int8, (kq, vq, ks, vs),
+                              True)):
+        mode = "int8" if quant else "native"
+        before = fn.launches
+        got = fn(q, *pools, table, pos)
+        assert fn.launches == before + 1
+        assert bool(torch.isfinite(got.float()).all())
+        scales = pools[2:]
+        ref = tpd.paged_decode_ref(q, pools[0], pools[1], table, pos, *scales)
+        assert _err(got, ref) <= TOL[dtype], mode
+        split = tpd.paged_decode_split_ref(
+            q, pools[0], pools[1], table, pos, *scales,
+            splits=_splits(q, pools[0], table, quant))
+        assert _err(got, split) <= TOL[dtype], mode
+        assert torch.equal(got, fn(q, *pools, table, pos))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [64, 128])
+def test_flash_attention_noncausal_d64_model_layout(dtype, s):
+    """K2 as seamless-m4t's encoder runs it: non-causal, KV=16, G=1,
+    D=64, on q, k, v sliced out of one fused (B, S, 3·16·64) projection
+    (strided views), one launch, against the plain version."""
+    dev = _card()
+    b, kv, g, d = 4, 16, 1, 64
+    gen = torch.Generator(device=dev).manual_seed(16)
+    qkv = torch.randn(b, s, 3 * kv * d, device=dev, generator=gen).to(
+        DTYPES[dtype])
+    q = qkv[..., :kv * d].unflatten(-1, (kv, g, d))
+    k = qkv[..., kv * d:2 * kv * d].unflatten(-1, (kv, d))
+    v = qkv[..., 2 * kv * d:].unflatten(-1, (kv, d))
+    before = sum(_k2_launches())
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert sum(_k2_launches()) == before + 1
+    ref = tfa.flash_attention_ref(
+        q.permute(0, 2, 3, 1, 4).reshape(b * kv * g, s, d),
+        k.permute(0, 2, 1, 3).reshape(b * kv, s, d),
+        v.permute(0, 2, 1, 3).reshape(b * kv, s, d), causal=False)
+    assert _err(got, ref.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)) \
+        <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_moe_graph_replay_equals_eager_step(kv_dtype):
+    """moonshot-v1-16b-a3b reduced in bf16 (8 experts, top-2): one
+    engine through its CUDA-graph step, one eagerly, the same ragged
+    requests arriving over several iterations (parked slots route in the
+    decode group): every decode step's live logit rows bitwise equal, and
+    equal streams."""
+    _card()
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b").reduced(),
+                              dtype="bfloat16")
+    lm = LM(cfg)
+    params = lm.init(6, device="cuda")
+    rng = np.random.default_rng(6)
+    reqs = [(i, rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32),
+             int(new)) for i, (n, new) in enumerate(
+                 zip(rng.integers(3, 30, 8), rng.integers(4, 12, 8)))]
+    runs = []
+    for graph in (True, False):
+        eng = ServeEngine(lm, params, max_batch=4, max_seq=64, page_size=8,
+                          device="cuda", cuda_graph=graph, kv_dtype=kv_dtype)
+        assert (eng._graph is not None) == graph
+        rows, name = [], "_replay" if graph else "_decode"
+
+        def record(view, run=getattr(eng, name)):
+            out = run(view)
+            rows.append(out[0][torch.from_numpy(eng.active).cuda()].clone())
+            return out
+        setattr(eng, name, record)
+        for it in range(200):
+            for i, p, new in reqs:
+                if i // 3 == it:
+                    eng.submit(Request(i, p.copy(), max_new_tokens=new))
+            if not eng.step() and it > len(reqs) // 3 and not eng.queue:
+                break
+        assert len(eng.finished) == len(reqs)
+        runs.append((rows, sorted((r.id, r.out_tokens)
+                                  for r in eng.finished)))
+    (g_rows, g_out), (e_rows, e_out) = runs
+    assert len(g_rows) == len(e_rows) > 0
+    for k, (a, b) in enumerate(zip(g_rows, e_rows)):
+        assert torch.equal(a, b), f"decode step {k} differs"
+    assert g_out == e_out

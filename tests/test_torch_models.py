@@ -44,7 +44,9 @@ def _np(x):
         else np.asarray(x, np.float32)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + ["moonshot-v1-16b-a3b",
+                                          "arctic-480b",
+                                          "seamless-m4t-large-v2"])
 def test_config_copies_equal_jax(name):
     """The port's config files are copies: every field, and the reduced
     config, must equal the JAX package's."""

@@ -232,6 +232,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    __import__(m.name)\n"
+        "import repro_torch.models.moe, repro_torch.models.encdec\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
@@ -240,7 +241,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout) >= 45         # 35, and the ten of repro_torch.core
+    # 35, the ten of repro_torch.core, models.moe and models.encdec
+    assert int(res.stdout) >= 47
 
 
 def test_default_device_entry_points_raise_without_a_card():
