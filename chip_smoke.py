@@ -200,16 +200,16 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    split in two (30 pages, one slot's pages on both ranks), rank 0's
    logits against its own single-card cache (1e-4 relative max error);
    (c) the two ranks serve phase 5's workload (257 pages padded to 258)
-   over native, then int8 pages, then native pages over 129 pages (padded
-   to 130), where the live slots outgrow one rank's shard, then with
-   phase 5's chunked prefill over native pages (each chunk's attention
-   merged across the ranks too), stepping eagerly (the merge goes through
-   the host): each rank
-   launches ``paged_flash_decode_partials[_int8]`` exactly 36 times per
+   at full width cut to 12 layers over native, then int8 pages, then
+   native pages over 129 pages (padded to 130), where the live slots
+   outgrow one rank's shard, then with phase 5's chunked prefill over
+   native pages (each chunk's attention merged across the ranks too),
+   stepping eagerly (the merge goes through the host): each rank
+   launches ``paged_flash_decode_partials[_int8]`` exactly 12 times per
    decode step and the normalized K1 never, pins half the padded pool plus
    one sink page, and both ranks emit the same streams (how many equal
-   phase 5's, the chunked run's against phase 5's chunked run, the pages
-   each rank handed out, and the decode step time are reported); then the
+   this process's single-card runs at 12 layers, the pages each rank
+   handed out, and the decode step time are reported); then the
    gloo merge's time per layer; (d) a 2x2 batch x pages mesh: full-width
    qwen3-4b cut to 4 layers, fp32, phase 5's prompts (16 new tokens)
    whole-prompt, chunked, int8 and with a 128-page tier (whole and
@@ -306,6 +306,32 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    steps: prefill and step ms, greedy tokens equal to a bf16 forward's
    wherever decided; (c) 4 train steps at 4 x 512 with 128 frames, remat
    none, K4 and K5 timed at its shapes.
+17. parallel training, every part on rank processes of this script over
+   gloo on this card (``--train-mesh-rank R`` / ``--train-mesh-pair R``
+   with ``--port P``; collectives staged through the host, the compute on
+   the card): (a) full-width qwen3-4b cut to 4 layers, fp32 parameters and
+   bf16 compute, 4 x 256 tokens, on a 2x2 ``data x model`` mesh (FSDP over
+   data, tensor parallelism over model), selective remat, with the default
+   opts and then ``tp_shardmap=True``: step-0 loss and gradient shards,
+   then three steps (warmup 1, so steps 1 and 2 move the weights) held to a
+   single-rank run on the same weights and batch, which the parent writes
+   for the ranks to read (losses to 2e-2, each gradient leaf to 2e-2
+   relative L2 error, each parameter leaf to 2e-2 of its largest value
+   but for at most 1e-2 of its elements, those within 1.01 x two full
+   AdamW steps); K4 and K5 launches exact per rank (one K4 forward and backward
+   a step, one K5 a local leaf a step); step ms, the collectives' calls,
+   bytes and share of the steps' host time, each rank's train-state bytes
+   against the single rank's, the leaves left whole or that a dropped rule
+   replicates, peak memory; (b) moonshot-v1-16b-a3b at full width cut to 2
+   layers in fp32 on a 1x2 mesh with ``moe_ep=True`` (32 experts a rank),
+   4 x 256: step-0 loss and gradients against the port's MoE with one
+   capacity group a rank, to 1e-3, two steps, the all_to_all bytes a layer
+   against ``epmoe``'s formula; (c) ``build_pp_forward`` over 2 stages on
+   qwen3-4b cut to 4 layers in fp32 against ``LM.forward`` to 1e-3; (d)
+   ``make_compressed_grad_sync`` over the four ranks on (a)'s gradients:
+   the error against the fp32 mean within one quantization bucket, the
+   bytes gathered against ``wire_bytes_int8_sync`` and
+   ``wire_bytes_f32_allreduce``; the phase's time.
 
 It then prints a ``kernels`` JSON line (K1's entries at the serve shape,
 with the long shape's numbers under ``long``; phases 11 and 14's head
@@ -315,7 +341,9 @@ the mode that the phase's runs launch at that layout and holding those
 launches, phase 15's likewise and K3's ``rmsnorm_rows[d=..]``, phase 16's
 K2 as ``name[KV=16,G=1,D=64]`` and ``name[KV=16,G=1,D=64,non-causal]``;
 phases 13, 15 and 16's K4 and K5 as ``name[<arch> train]``, timed at
-that phase's shapes and holding its launches; none with 0 launches), the
+that phase's shapes and holding its launches, phase 17's as
+``name[qwen3-4b 2x2 train]``, timed at a rank's shapes and holding rank
+0's launches; none with 0 launches), the
 card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -337,6 +365,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -348,7 +377,7 @@ def log(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    log(f"\n=== {name} ===")
+    log(f"\n=== {name} === [{time.perf_counter() - T0:.1f} s since start]")
 
 
 def nvidia_smi_line() -> str:
@@ -3806,13 +3835,37 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def sharded_ranks(report, phase5_streams, n: int = 2,
-                  timeout_s: float = 600.0) -> None:
+#: phase 10 (c): phase 5's workloads over a pool split over two ranks, at
+#: full width cut to 12 of qwen3-4b's 36 layers (eager over gloo, each
+#: layer's merge staged through the host, this is the smoke's longest
+#: serving part)
+SHARDED_RUNS = (("native", {}), ("int8", {"kv_dtype": "int8"}),
+                ("native-129", {"num_pages": 129}),
+                ("chunked", {"prefill_chunk": 64, "prefill_budget": 128}))
+SHARDED_LAYERS = 12
+
+
+def _sharded_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    lm = LM(dataclasses.replace(get_config("qwen3-4b"),
+                                num_layers=SHARDED_LAYERS))
+    return lm, lm.init(7, device=DEV)
+
+
+def sharded_ranks(report, n: int = 2, timeout_s: float = 600.0) -> None:
     """Phase 10 (b) and (c) in n rank processes on this one card over gloo
     (``python3 chip_smoke.py --sharded-rank R --ranks N --port P``), after
-    this process has built every kernel and freed its memory.  Each rank
-    prints its log and, last, a RESULT line; a rank that fails or outlives
-    ``timeout_s`` fails the phase, and every rank is stopped."""
+    this process has served (c)'s workloads on one card for the reference
+    and freed its memory.  Each rank prints its log and, last, a RESULT
+    line; a rank that fails or outlives ``timeout_s`` fails the phase, and
+    every rank is stopped."""
+    lm, params = _sharded_model()
+    single = {label: run["streams"] for label, run in serve_runs(
+        lm, params, SHARDED_RUNS, "sharded single-card", profile=False)
+        .items()}
+    del lm, params
+    free()
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
@@ -3846,12 +3899,13 @@ def sharded_ranks(report, phase5_streams, n: int = 2,
         assert all(run["streams"] == runs[0]["streams"] for run in runs), \
             f"[{label}] the ranks' streams differ"
         streams = {int(i): t for i, t in runs[0]["streams"].items()}
-        ref = phase5_streams[label.split("-")[0]]
+        ref = single[label]
         same = sum(streams[i] == ref[i] for i in ref)
         tokens = sum(a == b for i in ref for a, b in zip(streams[i], ref[i]))
         log(f"[sharded {label}] streams equal on all {n} ranks; "
-            f"{same}/16 streams ({tokens}/512 tokens) equal phase 5's "
-            f"single-card streams (reported, not a gate); fresh pages per "
+            f"{same}/16 streams ({tokens}/512 tokens) equal the single "
+            f"card's at {SHARDED_LAYERS} layers (reported, not a gate); "
+            f"fresh pages per "
             f"rank {runs[0]['per_chip']}; mean decode step "
             f"{runs[0]['decode_ms']:.2f} ms on rank 0")
         name = runs[0]["k1"]
@@ -3864,9 +3918,9 @@ def rank_main(rank: int, n: int, port: int) -> int:
     one decode step over the sharded pool, rank 0 holding the logits
     against its own single-card cache (relative max error 1e-4: the two
     differ only in the order of the attention sums); (c) phase 5's bf16
-    workload over sharded native, then int8, pages, then native pages over
-    a smaller pool, then with phase 5's chunked prefill; then the gloo
-    merge's cost per layer."""
+    workload at ``SHARDED_LAYERS`` over sharded native, then int8, pages,
+    then native pages over a smaller pool, then with phase 5's chunked
+    prefill; then the gloo merge's cost per layer."""
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3939,19 +3993,13 @@ def rank_main(rank: int, n: int, port: int) -> int:
     del params, caches, logits, step
     free()
 
-    # (c) phase 5's bf16 workload over sharded pools
-    lm = LM(get_config("qwen3-4b"))
-    params = lm.init(7, device=DEV)
+    # (c) phase 5's bf16 workload over sharded pools, at SHARDED_LAYERS:
     # phase 5's pool (257 pages) over native and int8 pages; then native
     # over 129 pages, where the live slots outgrow one rank's shard; then
     # phase 5's chunked prefill over native pages
-    runs = serve_runs(lm, params, (("native", {}),
-                                   ("int8", {"kv_dtype": "int8"}),
-                                   ("native-129", {"num_pages": 129}),
-                                   ("chunked", {"prefill_chunk": 64,
-                                                "prefill_budget": 128})),
-                      f"sharded r{rank}", pool_group=group,
-                      profile=rank == 0)
+    lm, params = _sharded_model()
+    runs = serve_runs(lm, params, SHARDED_RUNS, f"sharded r{rank}",
+                      pool_group=group, profile=rank == 0)
     for label, run in runs.items():
         st = run["stats"]
         want = st["bytes_total"] // n + run["page_bytes"]
@@ -5506,6 +5554,600 @@ def encdec_phase(report) -> None:
     encdec_train(report)
 
 
+# ------------------------------------------------------------ phase 17 ----
+
+TRAIN_MESH_SEED, EP_SEED, PP_SEED = 171, 172, 173
+TRAIN_MESH_VARIANTS = (("default", {}), ("tp_shardmap", {"tp_shardmap": True}))
+TRAIN_MESH_STEPS = 3
+#: bf16 gates of phase 17 against the single-rank port: a loss to phase
+#: 7's 2e-2 (the kernel path's trajectory against the plain path's), each
+#: gradient leaf to phase 6's 2e-2 as a relative L2 error, or to twice the
+#: single rank's own bf16 error where that is larger: the relative L2
+#: distance between its gradient and the same rank's gradient in fp32
+#: compute.  K's gradient through a near-uniform softmax is a small
+#: remainder of cancelling terms, so k_norm's scale carries bf16 error of
+#: ~2e-2 whichever way the activations round (on an H100 the 2x2 mesh is
+#: 2.16e-2 from the single rank in relative L2, and the single rank 2.88e-2
+#: from fp32 compute).  A
+#: parameter after AdamW is held to 2e-2 of its leaf's largest value but
+#: for at most ADAM_OUTLIERS of the leaf's elements, each within two full
+#: steps (2 x the summed learning rates; AdamW's two-step |m/sqrt(v)| is at
+#: most 1.0003, so the limit is 1.01 of that): AdamW divides by sqrt(v),
+#: so where a gradient is at bf16's noise level its step carries that
+#: noise, up to a full step of either sign.  The CPU tests allow 1e-3 of a
+#: leaf in fp32; bf16's noise is ~2^8 larger, and this phase at the
+#: reduced config's widths on the CPU gives 2.8e-3
+BF16_GATE = 2e-2
+ADAM_OUTLIERS = 1e-2
+ADAM_STEPS = 1.01
+#: (b)'s fp32 gate: phase 4's relative max error, kernel path against plain
+EP_GATE = 1e-3
+
+
+def _train_mesh_setup():
+    """Phase 17 (a)'s workload: full-width qwen3-4b cut to 4 layers, fp32
+    parameters and bf16 compute, 4 x 256 tokens, blockwise attention
+    (256-row chunks), plain norms, selective remat; warmup 1, so steps 1
+    and 2 have lr > 0."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import ForwardOpts, LM, make_batch
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=4)
+    assert cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
+    lm = LM(cfg)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=10)
+    opts = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
+                       mixer_impl="plain", q_chunk=256, kv_chunk=256,
+                       remat="selective")
+    return lm, tcfg, opts, make_batch(cfg, 4, 256, rng=TRAIN_MESH_SEED)
+
+
+def _ref_dir(nbytes: int) -> Path:
+    """Where the parent leaves a single-rank reference for the rank
+    processes to read: host memory (/dev/shm) when it has room for twice
+    ``nbytes``, else ``build/`` on disk."""
+    import os
+    import tempfile
+    shm = Path("/dev/shm")
+    if shm.is_dir():
+        st = os.statvfs(shm)
+        if st.f_bavail * st.f_frsize >= 2 * nbytes:
+            return Path(tempfile.mkdtemp(prefix="repro_phase17_", dir=shm))
+    (ROOT / "build").mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix="phase17_", dir=ROOT / "build"))
+
+
+def _save_ref(where: Path, tag: str, tensors) -> None:
+    for i, t in enumerate(tensors):
+        np.save(where / f"{tag}{i}.npy", t.detach().float().cpu().numpy())
+
+
+def _ref_shard(where: Path, tag: str, i: int, spec, mesh):
+    """This rank's shard of reference leaf ``i``, read from its file (only
+    the slice is copied) and put on the card."""
+    from repro_torch.parallel.sharding import shard
+    arr = np.load(where / f"{tag}{i}.npy", mmap_mode="c")
+    return shard(torch.from_numpy(arr), spec, mesh).to(DEV)
+
+
+def _leaf_rel(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _leaf_l2(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp(min=1e-30))
+
+
+def _adam_off(a, b, lr_sum: float) -> tuple:
+    """(share of elements past BF16_GATE of the leaf's largest value, the
+    largest of those differences in units of 2 x ``lr_sum``)."""
+    d = (a.detach().float() - b.float()).abs()
+    off = d > BF16_GATE * float(b.abs().max())
+    worst = float(d[off].max()) / (2 * lr_sum) if bool(off.any()) else 0.0
+    return float(off.float().mean()), worst
+
+
+def _grads_of(lm, state, batch, opts, tcfg, mesh=None, rules=None):
+    """Step 0's loss metrics and gradients (this rank's rows and shards
+    under a context)."""
+    from repro_torch.parallel.sharding import batch_rows
+    from repro_torch.train.optimizer import tree_leaves
+    leaves = tree_leaves(state["params"])
+    for p in leaves:
+        p.requires_grad_(True)
+    if mesh is not None:
+        r = batch_rows(mesh, rules, batch["tokens"].shape[0])
+        batch = {k: v[r] for k, v in batch.items()}
+    batch = {k: v.to(DEV) for k, v in batch.items()}
+    loss, met = lm.loss(state["params"], batch, opts,
+                        moe_aux_weight=tcfg.moe_aux_loss, z_loss=tcfg.z_loss)
+    grads = torch.autograd.grad(loss, leaves)
+    return {k: float(v.detach()) for k, v in met.items()}, grads
+
+
+def _spawn(flag: str, n: int, env_extra: dict, timeout_s: float = 600.0):
+    """``n`` rank processes of this script (``flag R --port P``) on this
+    card; returns each rank's RESULT object, failing the phase if any rank
+    fails."""
+    import os
+    port = _free_port()
+    env = dict(os.environ, **env_extra)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+         "--port", str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
+        for r in range(n)]
+    outs = [""] * n
+    try:
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for r, p in enumerate(procs):
+            outs[r] = p.communicate()[0]
+            for line in outs[r].splitlines():
+                if not line.startswith("RESULT "):
+                    log(f"[{flag[2:]} {r}] {line}")
+    codes = [p.returncode for p in procs]
+    assert codes == [0] * n, f"{flag} ranks exited with {codes}"
+    return [json.loads(next(l for l in out.splitlines()
+                            if l.startswith("RESULT "))[7:]) for out in outs]
+
+
+def train_mesh(report) -> None:
+    """Phase 17 (a) and (d): full-width qwen3-4b cut to 4 layers, trained on
+    a 2x2 ``data x model`` mesh of four rank processes of this script
+    (``--train-mesh-rank R --port P``) over gloo on this card, with the
+    default opts and then ``tp_shardmap=True``, against a single-rank run
+    of the port on the same weights and batch; then the int8 gradient sync
+    over the four ranks on (a)'s gradients."""
+    import shutil
+    from repro_torch.models import LM
+    from repro_torch.models.common import spec_leaves
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+    lm, tcfg, opts, batch = _train_mesh_setup()
+    leaf_paths = [path for path, _ in spec_leaves(lm.spec())]
+    state = init_train_state(lm, TRAIN_MESH_SEED, tcfg, device=DEV)
+    met, grads = _grads_of(lm, state, batch, opts, tcfg)
+    # each gradient leaf's own bf16 error: its distance from the step-0
+    # gradient in fp32 compute, on the same parameters and batch
+    exact = _grads_of(LM(dataclasses.replace(lm.cfg, dtype="float32")),
+                      state, batch, opts, tcfg)[1]
+    noise = [_leaf_l2(g, e) for g, e in zip(grads, exact)]
+    del exact
+    step = make_train_step(lm, tcfg, opts)
+    losses, times = [met["loss"]], []
+    for i in range(TRAIN_MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    params = tree_leaves(state["params"])
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        {"params": state["params"], "opt": state["opt"]}))
+    n_elems = sum(t.numel() for t in params)
+    where = _ref_dir(8 * n_elems)
+    try:
+        t0 = time.perf_counter()
+        _save_ref(where, "g", grads)
+        _save_ref(where, "p", params)
+        with open(where / "noise.json", "w") as f:
+            json.dump(noise, f)
+        log(f"[2x2 train] single-rank reference: losses (step-0 grads, then "
+            f"{TRAIN_MESH_STEPS} steps) {losses}, step ms "
+            f"{[round(t * 1e3, 1) for t in times]}, train state "
+            f"{state_bytes / 2**30:.3f} GiB; written to {where} in "
+            f"{time.perf_counter() - t0:.1f}s")
+        del state, grads, params, m
+        free()
+        results = _spawn("--train-mesh-rank", 4,
+                         {"REPRO_PHASE17_REF": str(where)})
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    n_leaves = len(results[0]["default"]["specs"])
+    for variant, _ in TRAIN_MESH_VARIANTS:
+        for r, res in enumerate(results):
+            v = res[variant]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(v["losses"],
+                                                           losses))
+            want = {"softmax_xent_fwd": TRAIN_MESH_STEPS,
+                    "softmax_xent_bwd": TRAIN_MESH_STEPS,
+                    "adamw_fused": TRAIN_MESH_STEPS * n_leaves}
+            got = {k: n for k, n in v["launches"].items() if n}
+            (share, _, path), steps = v["param_off"]
+            log(f"[2x2 train {variant} rank {r}] losses {v['losses']} "
+                f"(single rank {losses}; worst rel {rel:.3e}, limit "
+                f"{BF16_GATE}); step-0 gradient shards: relative L2 error at "
+                f"most {v['grad_l2'][0]:.3f} of its leaf's limit "
+                f"({v['grad_l2'][3]}: {v['grad_l2'][1]:.3e}, limit "
+                f"{v['grad_l2'][2]:.3e}), worst rel max err "
+                f"{v['grad_rel'][0]:.3e} "
+                f"({v['grad_rel'][1]}); parameters after step "
+                f"{TRAIN_MESH_STEPS - 1}: at most {share:.2e} of a leaf past "
+                f"{BF16_GATE} of its largest value ({path}; limit "
+                f"{ADAM_OUTLIERS}), those within {steps:.3f} x two full steps "
+                f"(limit {ADAM_STEPS}); launches {got} (expected {want})")
+            assert rel <= BF16_GATE, f"[2x2 {variant}] losses differ"
+            assert v["grad_l2"][0] <= 1.0, \
+                f"[2x2 {variant}] gradient shards differ"
+            assert share <= ADAM_OUTLIERS and steps <= ADAM_STEPS, \
+                f"[2x2 {variant}] parameters differ"
+            assert got == want, f"[2x2 {variant}] K4/K5 launches differ"
+            share = v["coll_s"] / sum(v["step_s"])
+            log(f"[2x2 train {variant} rank {r}] step ms "
+                f"{[round(t * 1e3, 1) for t in v['step_s']]} (single rank "
+                f"{[round(t * 1e3, 1) for t in times]}), collectives "
+                f"{v['coll_calls']} a step, {v['coll_bytes'] / 2**20:.1f} MiB "
+                f"a step, {share * 100:.1f}% of the steps' host time inside "
+                f"them; train state {v['state_bytes'] / 2**30:.3f} GiB "
+                f"({v['state_bytes'] / state_bytes:.4f} of the single rank's "
+                f"{state_bytes / 2**30:.3f} GiB), peak memory "
+                f"{v['peak'] / 2**30:.2f} GiB [{nvidia_smi_line()}]")
+    res0 = results[0]["default"]
+    log(f"[2x2 train] the single rank's own bf16 gradient error (against "
+        f"fp32 compute, relative L2): {max(noise):.3e} at most "
+        f"({leaf_paths[int(np.argmax(noise))]}), "
+        f"{sum(n > BF16_GATE / 2 for n in noise)} leaves above "
+        f"{BF16_GATE / 2}")
+    log(f"[2x2 train] leaves whole on every rank: {res0['whole']}; "
+        f"leaves a dropped rule replicates: {res0['dropped'] or 'none'}")
+    for kernel in ("softmax_xent_fwd", "softmax_xent_bwd", "adamw_fused"):
+        report[f"{kernel}[qwen3-4b 2x2 train]"] = {
+            "launches": results[0]["default"]["launches"][kernel]}
+    gen = torch.Generator().manual_seed(17)
+    fwd, bwd = k4_timed(2 * 256, lm.cfg.padded_vocab, gen,
+                        " (a 2x2 rank's logit rows)")
+    report["softmax_xent_fwd[qwen3-4b 2x2 train]"].update(fwd)
+    report["softmax_xent_bwd[qwen3-4b 2x2 train]"].update(bwd)
+    report["adamw_fused[qwen3-4b 2x2 train]"].update(
+        k5_timed(res0["largest"], gen, " (a 2x2 rank's largest shard)"))
+    free()
+    for r, res in enumerate(results):
+        c = res["compression"]
+        log(f"[int8 sync rank {r}] {c['n']} gradient floats over 4 ranks: "
+            f"max error against the fp32 mean {c['bucket']:.3f} quantization "
+            f"buckets (limit 1); bytes gathered {c['bytes']} (formula: int8 "
+            f"sync {c['int8_formula']}, f32 all-reduce {c['f32_formula']}), "
+            f"{c['ms']:.1f} ms [{nvidia_smi_line()}]")
+        assert c["bucket"] <= 1.0 + 1e-6, "int8 sync leaves its bucket"
+
+
+def _dropped(leaves, specs, rules, mesh) -> list:
+    """The leaves with a dim whose rule names an axis of ``mesh`` but that
+    stays whole (the dim does not divide, or the axis is taken): the
+    replication a dropped rule costs."""
+    out = []
+    for (path, p), spec in zip(leaves, specs):
+        entries = tuple(spec) + (None,) * (len(p.axes) - len(spec))
+        for name, entry in zip(p.axes, entries):
+            rule = rules.get(name) if name else None
+            names = (rule,) if isinstance(rule, str) else (rule or ())
+            if entry is None and any(a in mesh.shape for a in names):
+                out.append(path)
+                break
+    return out
+
+
+def train_mesh_main(rank: int, port: int) -> int:
+    """One rank of phase 17 (a) and (d)."""
+    import os
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import spec_leaves
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.collectives import CollectiveCounter
+    from repro_torch.parallel.compression import (
+        init_error_state, make_compressed_grad_sync, wire_bytes_f32_allreduce,
+        wire_bytes_int8_sync)
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import (default_rules,
+                                               sharding_context, shard_tree,
+                                               spec_for)
+    from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import (init_opt_state, lr_schedule,
+                                             tree_leaves, tree_map)
+    from repro_torch.train.trainer import train_state_specs
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=4,
+                            timeout=timedelta(minutes=10))
+    assert torch.cuda.is_available(), "a phase 17 rank found no card"
+    where = Path(os.environ["REPRO_PHASE17_REF"])
+    mesh = make_mesh((2, 2), ("data", "model"))
+    rules = default_rules(mesh.axis_names)
+    lm, tcfg, opts, batch = _train_mesh_setup()
+    leaves = spec_leaves(lm.spec())
+    specs = [spec_for(p.axes, p.shape, rules, mesh) for _, p in leaves]
+    shards = shard_tree(lm.init(TRAIN_MESH_SEED, device=DEV,
+                                dtype=torch.float32),
+                        train_state_specs(lm, mesh, rules)["params"], mesh)
+    free()
+
+    with open(where / "noise.json") as f:
+        noise = json.load(f)
+
+    def grad_errs(got):
+        """(the largest relative L2 error over its leaf's limit, the
+        error, the limit, the leaf), then (the largest rel max err, the
+        leaf)."""
+        refs = [_ref_shard(where, "g", i, s, mesh)
+                for i, s in enumerate(specs)]
+        l2 = [(e / lim, e, lim, path) for (path, _), e, lim in zip(
+            leaves, (_leaf_l2(g, r) for g, r in zip(got, refs)),
+            (max(BF16_GATE, 2 * n) for n in noise))]
+        return (max(l2), max((_leaf_rel(g, r), path) for (path, _), g, r in
+                             zip(leaves, got, refs)))
+
+    lr_sum = sum(lr_schedule(tcfg, i) for i in range(TRAIN_MESH_STEPS))
+
+    def adam(got):
+        offs = [(*_adam_off(g, _ref_shard(where, "p", i, s, mesh), lr_sum),
+                 path) for i, ((path, _), g, s) in enumerate(zip(
+                     leaves, got, specs))]
+        return max(offs), max(o[1] for o in offs)
+
+    out, kept = {}, None
+    for variant, kw in TRAIN_MESH_VARIANTS:
+        params = tree_map(torch.clone, shards)
+        state = {"params": params, "opt": init_opt_state(params), "step": 0}
+        o = dataclasses.replace(opts, **kw)
+        with sharding_context(mesh, rules):
+            met, grads = _grads_of(lm, state, batch, o, tcfg, mesh, rules)
+            step = make_train_step(lm, tcfg, o)
+            ops.reset_launch_counts()
+            cc = CollectiveCounter()
+            losses, times = [met["loss"]], []
+            with cc:
+                for _ in range(TRAIN_MESH_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch)
+                    losses.append(float(m["loss"]))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            launches = ops.launch_counts()
+        out[variant] = dict(
+            losses=losses, step_s=times, launches=launches,
+            **dict(zip(("grad_l2", "grad_rel"), grad_errs(grads))),
+            param_off=adam(tree_leaves(state["params"])),
+            coll_calls=cc.total // TRAIN_MESH_STEPS,
+            coll_bytes=cc.bytes // TRAIN_MESH_STEPS, coll_s=cc.seconds,
+            state_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(
+                {"params": state["params"], "opt": state["opt"]})),
+            peak=torch.cuda.max_memory_allocated(),
+            specs=[str(s) for s in specs],
+            whole=sum(1 for s in specs if not s),
+            dropped=_dropped(leaves, specs, rules, mesh),
+            largest=max(t.numel() for t in tree_leaves(shards)))
+        if kept is None:
+            kept = [g.detach() for g in grads]
+        del state, grads
+        free()
+    # (d) the int8 sync over the four ranks, each with its gradient tree
+    m4 = make_mesh((4,), ("data",))
+    sync = make_compressed_grad_sync(m4, "data")
+    tree = {path: g for (path, _), g in zip(leaves, kept)}
+    cc = CollectiveCounter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with cc:
+        mean, _ = sync(tree, init_error_state(tree))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    bucket = 0.0
+    for path, g in tree.items():
+        q = mean[path]
+        exact = coll.all_reduce(g, m4.group("data")) / 4
+        amax = torch.tensor([float(g.abs().max())])
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=m4.group("data"))
+        scale = max(float(amax[0]), 1e-12) / 127
+        bucket = max(bucket, float((q - exact).abs().max()) / scale)
+    n = sum(g.numel() for g in kept)
+    out["compression"] = dict(
+        n=n, bucket=bucket, bytes=cc.bytes, ms=ms,
+        int8_formula=wire_bytes_int8_sync(n, 4),
+        f32_formula=wire_bytes_f32_allreduce(n))
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def ep_pp(report) -> None:
+    """Phase 17 (b) and (c), on two rank processes of this script
+    (``--train-mesh-pair R --port P``) over gloo on this card: (b)
+    moonshot-v1-16b-a3b at full width cut to 2 layers on a 1x2 mesh with
+    ``moe_ep=True`` (32 experts a rank), 4 x 256 tokens, in fp32: step 0's
+    loss and gradients against the port's own MoE with one capacity group
+    per rank (``moe_ffn(groups=2)``, the per-device capacity that expert
+    parallelism counts) to phase 4's fp32 1e-3, then two steps.  fp32,
+    because a router decision is discontinuous: in bf16 the split
+    attention's rounding moves near-tied tokens to other experts, which
+    moves whole tokens' gradients (at the reduced config's widths on the
+    CPU, 16% on an expert leaf); (c) ``build_pp_forward`` over 2 stages on
+    qwen3-4b cut to 4 layers at full width in fp32 against
+    ``LM.forward``."""
+    import shutil
+    from functools import partial
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import ForwardOpts, LM, make_batch
+    from repro_torch.models import moe as moe_mod
+    del report
+    cfg = dataclasses.replace(get_config(MOONSHOT), num_layers=2,
+                              dtype="float32")
+    lm = LM(cfg)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=10)
+    opts = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
+                       mixer_impl="plain", q_chunk=256, kv_chunk=256,
+                       remat="selective")
+    batch = make_batch(cfg, 4, 256, rng=EP_SEED)
+    params = lm.init(EP_SEED, device=DEV, dtype=torch.float32)
+    state = {"params": params, "opt": {}, "step": 0}
+    with _patched(moe_mod, "moe_ffn", partial(moe_mod.moe_ffn, groups=2)):
+        met, grads = _grads_of(lm, state, batch, opts, tcfg)
+    n_elems = sum(g.numel() for g in grads)
+    where = _ref_dir(4 * n_elems)
+    try:
+        _save_ref(where, "g", grads)
+        del params, state, grads
+        free()
+        with open(where / "loss.json", "w") as f:
+            json.dump(met, f)
+        log(f"[ep] reference (one capacity group a rank): loss "
+            f"{met['loss']:.6f}, moe_aux {met['moe_aux']:.6f}")
+        results = _spawn("--train-mesh-pair", 2,
+                         {"REPRO_PHASE17_REF": str(where)})
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    for r, res in enumerate(results):
+        e = res["ep"]
+        rel = abs(e["loss"] - met["loss"]) / abs(met["loss"])
+        log(f"[ep rank {r}] step-0 loss {e['loss']:.6f} (reference "
+            f"{met['loss']:.6f}, rel {rel:.3e}, limit {EP_GATE}), worst "
+            f"gradient shard rel max err {e['grad_rel'][0]:.3e} "
+            f"({e['grad_rel'][1]}; limit {EP_GATE}); steps' losses "
+            f"{e['losses']}; all_to_all {e['a2a_bytes']} bytes a layer "
+            f"(forward, both hops: the slot buffers {e['slot_bytes']}; "
+            f"epmoe's formula {e['wire_bytes']}), step ms "
+            f"{[round(t * 1e3, 1) for t in e['step_s']]}, peak "
+            f"{e['peak'] / 2**30:.2f} GiB [{nvidia_smi_line()}]")
+        assert rel <= EP_GATE, "[ep] the loss differs from the reference"
+        assert e["grad_rel"][0] <= EP_GATE, "[ep] gradients differ"
+        assert all(np.isfinite(e["losses"])), "[ep] a loss is not finite"
+        assert e["a2a_bytes"] == e["slot_bytes"], "[ep] a2a bytes"
+        p = res["pp"]
+        log(f"[pp rank {r}] 2 stages x 2 microbatches, logits against "
+            f"LM.forward: rel max err {p['rel']:.3e} (limit 1e-3); "
+            f"pipelined forward {p['ms']:.1f} ms, LM.forward {p['ref_ms']:.1f} "
+            f"ms [{nvidia_smi_line()}]")
+        assert p["rel"] <= 1e-3, "[pp] the pipelined forward differs"
+
+
+def train_mesh_pair_main(rank: int, port: int) -> int:
+    """One rank of phase 17 (b) and (c)."""
+    import os
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.pp_dryrun import build_pp_forward
+    from repro_torch.models import ForwardOpts, LM, make_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import spec_leaves
+    from repro_torch.parallel.collectives import CollectiveCounter
+    from repro_torch.parallel.epmoe import slot_bytes, wire_bytes
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import (default_rules,
+                                               sharding_context, shard_tree,
+                                               spec_for)
+    from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import train_state_specs
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(minutes=10))
+    assert torch.cuda.is_available(), "a phase 17 rank found no card"
+    where = Path(os.environ["REPRO_PHASE17_REF"])
+    out = {}
+    # (b) expert parallel
+    mesh = make_mesh((1, 2), ("data", "model"))
+    rules = default_rules(mesh.axis_names)
+    cfg = dataclasses.replace(get_config(MOONSHOT), num_layers=2,
+                              dtype="float32")
+    lm = LM(cfg)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=10)
+    opts = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
+                       mixer_impl="plain", q_chunk=256, kv_chunk=256,
+                       remat="selective", moe_ep=True)
+    batch = make_batch(cfg, 4, 256, rng=EP_SEED)
+    leaves = spec_leaves(lm.spec())
+    specs = [spec_for(p.axes, p.shape, rules, mesh) for _, p in leaves]
+    params = shard_tree(lm.init(EP_SEED, device=DEV, dtype=torch.float32),
+                        train_state_specs(lm, mesh, rules)["params"], mesh)
+    free()
+    state = {"params": params, "opt": init_opt_state(params), "step": 0}
+    cc = CollectiveCounter()
+    with sharding_context(mesh, rules):
+        with cc:
+            met, grads = _grads_of(lm, state, batch, opts, tcfg, mesh, rules)
+        errs = [(_leaf_rel(g, _ref_shard(where, "g", i, s, mesh)), path)
+                for i, ((path, _), g, s) in enumerate(zip(leaves, grads,
+                                                          specs))]
+        del grads
+        step = make_train_step(lm, tcfg, opts)
+        losses, times = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    tokens = 4 * 256 // 2
+    itemsize = 4                     # fp32 slots
+    out["ep"] = dict(
+        loss=met["loss"], grad_rel=max(errs), losses=losses, step_s=times,
+        # fwd and bwd each run both hops of every layer
+        a2a_bytes=cc.bytes_by.get("all_to_all_single", 0) // (
+            2 * cfg.num_layers),
+        slot_bytes=slot_bytes(cfg, tokens, itemsize),
+        wire_bytes=wire_bytes(cfg, tokens, itemsize),
+        peak=torch.cuda.max_memory_allocated())
+    del state, params, m
+    free()
+    # (c) the pipelined forward
+    pm = make_mesh((2, 1), ("pod", "data"))
+    prules = default_rules(pm.axis_names)
+    prules["batch"] = ("data",)
+    qcfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=4,
+                               dtype="float32")
+    qlm = LM(qcfg)
+    qp = qlm.init(PP_SEED, device=DEV, dtype=torch.float32)
+    popts = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
+                        q_chunk=256, kv_chunk=256, remat="none")
+    toks = make_batch(qcfg, 4, 256, rng=PP_SEED)["tokens"].to(DEV)
+    s = pm.coords["pod"]
+    stage = dict(qp, layers=tfm.layer_params(qp, slice(2 * s, 2 * s + 2)))
+    fwd = build_pp_forward(qlm, qcfg, pm, prules, popts, 2)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, _ = qlm.forward(qp, toks, popts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = fwd(stage, toks)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    out["pp"] = dict(rel=_leaf_rel(got, ref), ms=(t2 - t1) * 1e3,
+                     ref_ms=(t1 - t0) * 1e3)
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def train_mesh_phase(report) -> None:
+    """Phase 17: (a) and (d) on four ranks, (b) and (c) on two."""
+    train_mesh(report)
+    free()
+    ep_pp(report)
+    free()
+
+
 def free() -> None:
     """Drop what a finished phase left, so the next one has the card."""
     gc.collect()
@@ -5633,7 +6275,7 @@ def main() -> int:
           "4 ranks")
     check_k1_partials(report)
     free()
-    sharded_ranks(report, phase5_streams)
+    sharded_ranks(report)
     free()
     mesh2d_ranks()
     free()
@@ -5677,6 +6319,13 @@ def main() -> int:
     t0 = time.perf_counter()
     encdec_phase(report)
     log(f"phase 16 took {time.perf_counter() - t0:.1f}s")
+
+    phase("17 parallel training on this card's rank processes: qwen3-4b "
+          "(4 layers) FSDP + TP on 2x2, moonshot expert parallel on 1x2, a "
+          "2-stage pipeline, the int8 gradient sync")
+    t0 = time.perf_counter()
+    train_mesh_phase(report)
+    log(f"phase 17 took {time.perf_counter() - t0:.1f}s")
 
     csrc = "src/repro_torch/csrc/"
     meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",
@@ -5737,6 +6386,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    for flag, entry in (("--train-mesh-rank", "train_mesh_main"),
+                        ("--train-mesh-pair", "train_mesh_pair_main")):
+        if flag in sys.argv:
+            argv = sys.argv[1:]
+            opt = {argv[i]: int(argv[i + 1]) for i in range(0, len(argv), 2)}
+            sys.exit(globals()[entry](opt[flag], opt["--port"]))
     if "--mesh2d-rank" in sys.argv:
         argv = sys.argv[1:]
         opt = {argv[i]: int(argv[i + 1]) for i in range(0, len(argv), 2)}

@@ -12,7 +12,7 @@ dense cache behind a stub audio frontend (seamless-m4t-large-v2).  Their files a
 package's, values unchanged (the port is held to the JAX package, not to
 the hub configs the files cite)."""
 from repro_torch.configs.arctic_480b import CONFIG as _arctic
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.configs.granite import GRANITE_8B, GRANITE_13B, GRANITE_20B
 from repro_torch.configs.internvl2_2b import CONFIG as _internvl2
 from repro_torch.configs.llama3_2_3b import CONFIG as _llama32
@@ -42,4 +42,5 @@ def archs(*families: str):
     return sorted(n for n, c in CONFIGS.items() if c.family in families)
 
 
-__all__ = ["CONFIGS", "ModelConfig", "TrainConfig", "archs", "get_config"]
+__all__ = ["CONFIGS", "ModelConfig", "ShapeConfig", "TrainConfig", "archs",
+           "get_config"]

@@ -1,6 +1,6 @@
 """Model and training configuration for the PyTorch port: copies of
-``ModelConfig`` (and its ``reduced()``) and ``TrainConfig`` from the JAX
-package's ``configs/base.py``, kept verbatim so both packages describe a
+``ModelConfig`` (and its ``reduced()``), ``ShapeConfig`` and
+``TrainConfig`` from the JAX package's ``configs/base.py``, kept verbatim so both packages describe a
 model and its optimizer with the same numbers.  The port imports
 nothing of the JAX package, so it carries its own copy.
 
@@ -262,6 +262,21 @@ class ModelConfig:
         if self.family == "vlm":
             changes.update(num_image_tokens=8)
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input-shape cell. kind selects which step gets lowered."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
 
 
 @dataclass(frozen=True)

@@ -12,6 +12,11 @@ a dict, so a checkpoint that the JAX trainer writes restores in the port and
 the other way round.  Restores verify each shard's sha256.  Tensors are
 copied to the host for the write; a restore places each leaf on the device
 and in the dtype of the template's leaf.
+
+A state sharded over a mesh (``parallel.sharding``) is saved whole: with
+``shardings`` the ranks gather every leaf and rank 0 writes the usual
+format.  It restores onto any mesh, or onto one rank (elastic restart):
+with ``shardings`` each rank reads the whole leaves and keeps its slice.
 """
 from __future__ import annotations
 
@@ -54,8 +59,22 @@ def _to_numpy(leaf) -> np.ndarray:
 
 def save_checkpoint(directory: str, state, step: int,
                     uploader: Optional[Callable[[str, int], Any]] = None,
-                    keep_last: int = 3) -> Dict:
-    """Blocking local write; optional async upload callback(key, nbytes)."""
+                    keep_last: int = 3, shardings=None, mesh=None) -> Dict:
+    """Blocking local write; optional async upload callback(key, nbytes).
+    With ``shardings`` (the specs of a state sharded over ``mesh``) every
+    rank must call it: the leaves are gathered whole, rank 0 writes, and
+    the other ranks return None once the write is done."""
+    if shardings is not None:
+        from repro_torch.parallel.sharding import unshard_tree
+        state = unshard_tree(state, shardings, mesh)
+        if mesh.rank != 0:
+            _barrier()
+            return None
+        try:
+            return save_checkpoint(directory, state, step, uploader,
+                                   keep_last)
+        finally:
+            _barrier()
     d = Path(directory) / f"step_{step:08d}"
     tmp = Path(directory) / f".tmp_step_{step:08d}"
     if tmp.exists():
@@ -100,6 +119,12 @@ def save_checkpoint(directory: str, state, step: int,
     return manifest
 
 
+def _barrier():
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _gc(directory: str, keep_last: int):
     steps = sorted(p for p in Path(directory).glob("step_*") if p.is_dir())
     for p in steps[:-keep_last]:
@@ -128,11 +153,14 @@ def _restore_leaf(path, arr, like):
 
 
 def load_checkpoint(directory: str, step: Optional[int] = None,
-                    template=None, verify: bool = True):
+                    template=None, shardings=None, verify: bool = True,
+                    mesh=None):
     """Restore a state.  Without ``template`` returns ({path: array}, step);
     with one (a state of the same structure) returns (state, step), each
     tensor leaf on the template leaf's device and in its dtype, each int
-    leaf an int."""
+    leaf an int.  With ``shardings`` (a tree of specs congruent with the
+    template) and ``mesh``, each leaf is this rank's slice of the saved
+    one (``sharding.shard``), and the template holds this rank's shards."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -152,7 +180,15 @@ def load_checkpoint(directory: str, step: Optional[int] = None,
                     leaves[entry["path"]] = npz[entry["key"]]
     if template is None:
         return leaves, step
-    restored = {path: _restore_leaf(path, leaves[path], like)
+    specs = dict(_flatten_with_paths(shardings)) if shardings is not None \
+        else {}
+
+    def mine(path, arr):
+        if path not in specs or not arr.ndim:
+            return arr
+        from repro_torch.parallel.sharding import shard
+        return shard(torch.from_numpy(arr), specs[path], mesh).numpy()
+    restored = {path: _restore_leaf(path, mine(path, leaves[path]), like)
                 for path, like in _flatten_with_paths(template)}
 
     def build(node, prefix):

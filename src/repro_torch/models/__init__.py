@@ -1,4 +1,4 @@
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, make_batch
 from repro_torch.models.transformer import ForwardOpts
 
-__all__ = ["LM", "ForwardOpts"]
+__all__ = ["LM", "ForwardOpts", "make_batch"]

@@ -38,6 +38,9 @@ from repro_torch.kernels.quant import (check_pool_write, dequantize_kv,
                                        quantize_kv)
 from repro_torch.models.common import (P, add_bias, apply_rope, dense_spec,
                                        depth_scale, norm_spec, rms_norm)
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.seqattn import seq_sharded_attention
+from repro_torch.parallel.tpmm import col_proj_tp, o_proj_tp, tp_group
 
 NEG_INF = -1e30
 
@@ -49,49 +52,85 @@ def attention_spec(cfg, cross: bool = False):
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     bias = cfg.use_bias
-    spec = {"wq": dense_spec((d, h, hd), bias),
-            "wk": dense_spec((d, kv, hd), bias),
-            "wv": dense_spec((d, kv, hd), bias),
-            "wo": {"kernel": P((h, hd, d), scale=depth_scale(cfg))}}
+    spec = {"wq": dense_spec((d, h, hd), ("embed", "heads", "head_dim"),
+                             bias),
+            "wk": dense_spec((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                             bias),
+            "wv": dense_spec((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                             bias),
+            "wo": {"kernel": P((h, hd, d), scale=depth_scale(cfg),
+                               axes=("heads", "head_dim", "embed"))}}
     if bias:
-        spec["wo"]["bias"] = P((d,), init="zeros")
+        spec["wo"]["bias"] = P((d,), init="zeros", axes=("embed",))
     if cfg.qk_norm and not cross:
-        spec["q_norm"] = norm_spec(cfg, hd)
-        spec["k_norm"] = norm_spec(cfg, hd)
+        spec["q_norm"] = norm_spec(cfg, hd, axis="head_dim")
+        spec["k_norm"] = norm_spec(cfg, hd, axis="head_dim")
     return spec
 
 
-def _proj(p, x):
+def _proj(p, x, psum_dtype=None):
     """x (B, S, d) @ kernel (d, H, D) -> (B, S, H, D), in x's dtype, plus
-    the (H, D) bias where ``p`` has one."""
-    w = p["kernel"]
-    w2 = w.reshape(w.shape[0], -1).to(x.dtype)
-    return add_bias(p, (x @ w2).reshape(*x.shape[:2], *w.shape[1:]))
+    the (H, D) bias where ``p`` has one (``tpmm.col_proj_tp``: this rank's
+    heads when the kernel's are split over the model axis)."""
+    return col_proj_tp(x, p["kernel"], p.get("bias"), psum_dtype=psum_dtype)
 
 
-def project_qkv(p, cfg, x, positions, norm_impl: str = "kernel"):
+def project_qkv(p, cfg, x, positions, norm_impl: str = "kernel",
+                flat_heads: bool = False, full_heads: bool = False,
+                psum_dtype=None):
     """Returns q (B, S, KV, G, D) grouped for GQA and k, v (B, S, KV, D).
-    Biases are added before qwen3's q/k norms, which come before RoPE."""
-    q = _proj(p["wq"], x)
-    k = _proj(p["wk"], x)
-    v = _proj(p["wv"], x)
+    Biases are added before qwen3's q/k norms, which come before RoPE.
+
+    ``flat_heads`` (train/prefill) repeats K/V to H, so q is (B, S, H, 1, D)
+    and k, v (B, S, H, D), as JAX's.  Under a sharding context whose model
+    axis splits the heads (``tpmm``), q, k and v hold this rank's heads;
+    where the rule for ``kv_heads`` dropped (KV does not divide), K/V are
+    whole on every rank and each of this rank's q heads takes its own K/V
+    head, flat; ``full_heads`` gathers every head back (sequence-sharded
+    attention splits the rows instead)."""
+    q = _proj(p["wq"], x, psum_dtype)
+    k = _proj(p["wk"], x, psum_dtype)
+    v = _proj(p["wv"], x, psum_dtype)
+    gq = tp_group(p["wq"]["kernel"], 1)
+    gkv = tp_group(p["wk"]["kernel"], 1)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps, norm_impl)
-        k = rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps, norm_impl)
+        # the scales are whole on every rank: a split of heads takes a
+        # share of their gradient
+        q = rms_norm(q, coll.copy_to(p["q_norm"]["scale"], gq, psum_dtype),
+                     cfg.norm_eps, norm_impl)
+        k = rms_norm(k, coll.copy_to(p["k_norm"]["scale"], gkv, psum_dtype),
+                     cfg.norm_eps, norm_impl)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if full_heads:
+        q = coll.gather_from(q, 2, gq)
+        k = coll.gather_from(k, 2, gkv)
+        v = coll.gather_from(v, 2, gkv)
+    elif gq is not None and gkv is None:
+        k = coll.copy_to(k, gq, psum_dtype)
+        v = coll.copy_to(v, gq, psum_dtype)
+        hl = q.shape[2]
+        heads = coll.group_rank(gq) * hl + torch.arange(hl, device=q.device)
+        group = cfg.num_heads // cfg.num_kv_heads
+        k, v = k[:, :, heads // group], v[:, :, heads // group]
     b, s, h, hd = q.shape
-    kv = cfg.num_kv_heads
+    kv = k.shape[2]
+    if flat_heads and kv != h:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+        kv = h
     return q.reshape(b, s, kv, h // kv, hd), k, v
 
 
-def output_proj(p, cfg, y):
+def output_proj(p, cfg, y, psum_dtype=None):
     """y (B, S, KV, G, D) -> (B, S, d), plus ``wo``'s bias where it has
-    one."""
+    one (``tpmm.o_proj_tp``: y holds this rank's heads, and the partial
+    sums are reduced over the model group, when ``wo``'s heads are
+    split)."""
     b, s = y.shape[:2]
-    wo = p["wo"]["kernel"]
-    return add_bias(p["wo"], y.reshape(b, s, -1)
-                    @ wo.reshape(-1, wo.shape[-1]).to(y.dtype))
+    wo = p["wo"]
+    return o_proj_tp(y.reshape(b, s, -1, y.shape[-1]), wo["kernel"],
+                     wo.get("bias"), psum_dtype=psum_dtype)
 
 
 def dense_attention(q, k, v, causal: bool):
@@ -155,21 +194,40 @@ def blockwise_attention(q, k, v, causal: bool, q_chunk: int = 1024,
 
 def attention_block(p, cfg, x, *, impl: str = "flash", causal: bool = True,
                     norm_impl: str = "kernel", q_chunk: int = 1024,
-                    kv_chunk: int = 1024):
+                    kv_chunk: int = 1024, flat_heads: bool = False,
+                    tp_shardmap: bool = False):
     """Self-attention over a full sequence (prefill, or training with
-    ``impl="blockwise"``).  Returns (y, (k, v))."""
+    ``impl="blockwise"``; ``"seqsp"``, causal only, splits the query rows
+    over the model axis, ``parallel.seqattn``).  Under a sharding context
+    the projections are tensor-parallel (``tpmm``), their reductions in
+    fp32 or, with ``tp_shardmap``, in the compute dtype.  Returns (y,
+    (k, v))."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = project_qkv(p, cfg, x, positions, norm_impl)
+    psum = None if tp_shardmap else torch.float32
+    seqsp = impl == "seqsp"
+    q, k, v = project_qkv(p, cfg, x, positions, norm_impl,
+                          flat_heads=flat_heads, full_heads=seqsp,
+                          psum_dtype=psum)
     if impl == "flash":
         y = ops.flash_attention(q, k, v, causal=causal)
     elif impl == "dense":
         y = dense_attention(q, k, v, causal)
     elif impl == "blockwise":
         y = blockwise_attention(q, k, v, causal, q_chunk, kv_chunk)
+    elif seqsp:
+        if not causal:
+            raise ValueError("attn_impl='seqsp' is causal only")
+        y = seq_sharded_attention(q, k, v, q_chunk=q_chunk,
+                                  kv_chunk=kv_chunk)
+        g = tp_group(p["wo"]["kernel"], 0)
+        if g is not None:       # whole heads on every rank: keep this rank's
+            b, hl = y.shape[0], p["wo"]["kernel"].shape[0]
+            y = coll.copy_to(y.reshape(b, s, -1, y.shape[-1]), g, psum)
+            y = y[:, :, coll.group_rank(g) * hl:(coll.group_rank(g) + 1) * hl]
     else:
         raise ValueError(impl)
-    return output_proj(p, cfg, y), (k, v)
+    return output_proj(p, cfg, y, psum), (k, v)
 
 
 def cross_attention_block(p, cfg, x, enc_kv):

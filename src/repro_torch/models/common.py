@@ -13,10 +13,11 @@ fp32 (``P.fp32``).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,33 +50,72 @@ def resolve_device(device) -> torch.device:
 
 @dataclass(frozen=True)
 class P:
-    """A parameter spec leaf: shape, initializer and its scale (the JAX
-    ``P`` without logical axes).  ``fp32`` leaves keep fp32 whatever the
-    compute dtype: norm scales, JAX's ``pin_dtype`` leaves and matrices that
-    JAX uses in fp32."""
+    """A parameter spec leaf: shape, initializer and its scale, and the
+    logical name of each dim (``axes``, the JAX ``P``'s), which
+    ``repro_torch.parallel.sharding`` maps onto a mesh.  ``fp32`` leaves
+    keep fp32 whatever the compute dtype: norm scales, JAX's ``pin_dtype``
+    leaves and matrices that JAX uses in fp32."""
     shape: Tuple[int, ...]
     init: str = "normal"  # normal | zeros | ones | uniform_conv | a_log |
     #                       dt_bias | rwkv_decay
     scale: float = 0.02
     fp32: bool = False
+    axes: Tuple[Optional[str], ...] = ()
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"P{self.shape}: axes {self.axes} name "
+                             f"{len(self.axes)} dims, not {len(self.shape)}")
 
 
-def norm_spec(cfg, d: int = 0):
+def spec_leaves(spec, prefix: str = ""):
+    """(path, P) of every leaf of a spec tree, in sorted-key order (the
+    order of ``optimizer.tree_leaves``); paths join keys with ``/``."""
+    if isinstance(spec, P):
+        return [(prefix, spec)]
+    return [leaf for k in sorted(spec)
+            for leaf in spec_leaves(spec[k], f"{prefix}/{k}" if prefix
+                                    else k)]
+
+
+def spec_tree_map(fn, spec):
+    if isinstance(spec, P):
+        return fn(spec)
+    return {k: spec_tree_map(fn, v) for k, v in spec.items()}
+
+
+def logical_axes(spec):
+    """The tree of each leaf's logical axes (the JAX ``logical_axes``)."""
+    return spec_tree_map(lambda p: p.axes, spec)
+
+
+def abstract_params(spec, dtype):
+    """Tensors on the ``meta`` device with each leaf's shape and dtype
+    (``dtype``, fp32 for ``fp32`` leaves): the PyTorch form of the JAX
+    ``abstract_params``' ``ShapeDtypeStruct`` tree.  Nothing is
+    allocated."""
+    return spec_tree_map(
+        lambda p: torch.empty(p.shape, device="meta",
+                              dtype=torch.float32 if p.fp32 else dtype), spec)
+
+
+def norm_spec(cfg, d: int = 0, axis: str = "norm"):
     d = d or cfg.d_model
     if cfg.norm == "rmsnorm":
-        return {"scale": P((d,), init="ones", fp32=True)}
+        return {"scale": P((d,), init="ones", fp32=True, axes=(axis,))}
     assert cfg.norm == "layernorm", cfg.norm
-    return {"scale": P((d,), init="ones", fp32=True),
-            "bias": P((d,), init="zeros", fp32=True)}
+    return {"scale": P((d,), init="ones", fp32=True, axes=(axis,)),
+            "bias": P((d,), init="zeros", fp32=True, axes=(axis,))}
 
 
-def dense_spec(shape, use_bias: bool, scale: float = 0.02):
-    """A matrix ``{"kernel": (d_in, *out)}`` and, with ``use_bias``, a
-    ``"bias"`` over every output dim (``shape[1:]``), zeros at init (the
-    JAX ``dense_spec``)."""
-    spec = {"kernel": P(tuple(shape), scale=scale)}
+def dense_spec(shape, axes, use_bias: bool, scale: float = 0.02):
+    """A matrix ``{"kernel": (d_in, *out)}`` with logical ``axes`` and,
+    with ``use_bias``, a ``"bias"`` over every output dim (``shape[1:]``,
+    ``axes[1:]``), zeros at init (the JAX ``dense_spec``)."""
+    spec = {"kernel": P(tuple(shape), scale=scale, axes=tuple(axes))}
     if use_bias:
-        spec["bias"] = P(tuple(shape[1:]), init="zeros")
+        spec["bias"] = P(tuple(shape[1:]), init="zeros",
+                         axes=tuple(axes[1:]))
     return spec
 
 
@@ -86,11 +126,12 @@ def add_bias(p, y):
     return y + p["bias"].to(y.dtype) if "bias" in p else y
 
 
-def stack_spec(spec, n: int):
-    """Add a leading stacked-layers dim to every leaf."""
-    if isinstance(spec, P):
-        return P((n,) + spec.shape, spec.init, spec.scale, spec.fp32)
-    return {k: stack_spec(v, n) for k, v in spec.items()}
+def stack_spec(spec, n: int, axis_name: Optional[str] = "layers"):
+    """Add a leading stacked-layers dim, named ``axis_name``, to every
+    leaf."""
+    return spec_tree_map(
+        lambda p: dataclasses.replace(p, shape=(n,) + p.shape,
+                                      axes=(axis_name,) + p.axes), spec)
 
 
 def depth_scale(cfg) -> float:

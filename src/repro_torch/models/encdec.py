@@ -29,8 +29,10 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import DTYPES, P, apply_norm, norm_spec, \
     stack_spec
 from repro_torch.models.transformer import (ForwardOpts, _records_grad,
-                                            _remat, _stack, embed,
-                                            layer_params, unembed)
+                                            _refuse_model_split, _remat,
+                                            _stack, embed, layer_params,
+                                            unembed, use, use_top)
+from repro_torch.parallel import sharding
 
 
 def enc_layer_spec(cfg):
@@ -47,21 +49,25 @@ def dec_layer_spec(cfg):
 
 def build_spec(cfg):
     d, v = cfg.d_model, cfg.padded_vocab
-    return {"embed": {"table": P((v, d))},
+    return {"embed": {"table": P((v, d), axes=("vocab", "embed"))},
             "enc_layers": stack_spec(enc_layer_spec(cfg), cfg.encoder_layers),
             "enc_norm": norm_spec(cfg),
             "dec_layers": stack_spec(dec_layer_spec(cfg), cfg.num_layers),
             "final_norm": norm_spec(cfg),
-            "lm_head": {"kernel": P((d, v))}}
+            "lm_head": {"kernel": P((d, v), axes=("embed", "vocab"))}}
 
 
-def encode(params, cfg, enc_embeds, opts: ForwardOpts = ForwardOpts()):
+def encode(params, cfg, enc_embeds, opts: ForwardOpts = ForwardOpts(),
+           sf=None):
     """enc_embeds (B, E, d), the stub frontend's output -> the encoder's
-    hidden states (B, E, d) in the compute dtype."""
+    hidden states (B, E, d) in the compute dtype.  ``sf``: the
+    ``ShardedForward`` of a sharded forward (``forward``), whose layers
+    this gathers one by one; the other leaves come gathered
+    (``use_top``)."""
     h = enc_embeds.to(DTYPES[cfg.dtype])
 
     def body(h, i):
-        lp = layer_params(params, i, "enc_layers")
+        lp = use(params, "enc_layers", sf, i)
         a, _ = attn.attention_block(
             lp["attn"], cfg, apply_norm(lp["ln1"], h, cfg, opts.norm_impl),
             impl=opts.attn_impl, causal=False, norm_impl=opts.norm_impl,
@@ -79,7 +85,7 @@ def encode(params, cfg, enc_embeds, opts: ForwardOpts = ForwardOpts()):
 
 def decoder_forward(params, cfg, tokens, enc_out,
                     opts: ForwardOpts = ForwardOpts(),
-                    collect_cache: bool = False):
+                    collect_cache: bool = False, sf=None):
     """tokens (B, S), enc_out (B, E, d) -> (logits (B, S, Vp), cache |
     None): with ``collect_cache``, ``{"layers": {"k", "v", "xk", "xv"}}``,
     the self-attention K/V (L, B, S, KV, D) and the cross-attention K/V
@@ -87,7 +93,7 @@ def decoder_forward(params, cfg, tokens, enc_out,
     h = embed(params, cfg, tokens)
 
     def body(h, enc_out, i):
-        lp = layer_params(params, i, "dec_layers")
+        lp = use(params, "dec_layers", sf, i)
         a, (k, v) = attn.attention_block(
             lp["self_attn"], cfg,
             apply_norm(lp["ln1"], h, cfg, opts.norm_impl),
@@ -117,9 +123,19 @@ def decoder_forward(params, cfg, tokens, enc_out,
 def forward(params, cfg, tokens, enc_embeds,
             opts: ForwardOpts = ForwardOpts(), collect_cache: bool = False):
     """The encoder over ``enc_embeds`` (B, E, d), then the decoder over
-    tokens (B, S).  Returns (logits (B, S, Vp), cache | None)."""
-    enc_out = encode(params, cfg, enc_embeds, opts)
-    return decoder_forward(params, cfg, tokens, enc_out, opts, collect_cache)
+    tokens (B, S).  Returns (logits (B, S, Vp), cache | None).  Under a
+    sharding context on a mesh of processes, this rank's share of the
+    batch, its FSDP shards gathered layer by layer; a model split of the
+    weights is refused (ROADMAP item 25)."""
+    sf = sharding.sharded_forward(cfg, build_spec)
+    if sf is not None:
+        if collect_cache:
+            raise ValueError("a sharded forward collects no cache")
+        _refuse_model_split(cfg, sf)
+    params = use_top(params, sf)
+    enc_out = encode(params, cfg, enc_embeds, opts, sf)
+    return decoder_forward(params, cfg, tokens, enc_out, opts, collect_cache,
+                           sf)
 
 
 def init_cache(cfg, batch_size: int, max_seq: int, enc_len: int, device,

@@ -8,13 +8,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, transformer
-from repro_torch.models.common import (DTYPES, cross_entropy, init_params,
+from repro_torch.models.common import (DTYPES, abstract_params, cross_entropy,
+                                       init_params, logical_axes,
                                        resolve_device)
 from repro_torch.models.transformer import ForwardOpts
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
 
 
 @dataclass
@@ -37,6 +41,16 @@ class LM:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return init_params(self.spec(), gen, dev,
                            dtype or DTYPES[self.cfg.dtype])
+
+    def abstract_params(self):
+        """Meta tensors with the shapes and dtypes of ``init(dtype=
+        param_dtype)``'s leaves (the JAX ``LM.abstract_params``)."""
+        return abstract_params(self.spec(), DTYPES[self.cfg.param_dtype])
+
+    def param_logical_axes(self):
+        """Each parameter's logical axes (the JAX ``LM.param_logical_axes``),
+        which ``parallel.sharding.spec_for`` resolves on a mesh."""
+        return logical_axes(self.spec())
 
     def _enc(self, enc_embeds):
         if enc_embeds is None:
@@ -74,7 +88,14 @@ class LM:
         config "enc_embeds" (B, S // enc_ratio, d).  Returns (loss,
         {"loss", "nll", "z_loss", "moe_aux"}), the JAX ``LM.loss``: the
         loss adds ``moe_aux_weight`` times the layers' summed MoE
-        load-balance loss (0 but for the moe family)."""
+        load-balance loss (0 but for the moe family).
+
+        Under a sharding context on a mesh of processes, ``batch`` is this
+        rank's rows of the global batch (``make_train_step`` takes them):
+        the loss returned is this rank's share (its tokens' loss over the
+        global count, its aux loss over the dp ranks), whose gradients
+        summed over the dp group are the global loss's, and the metrics
+        are the global batch's, the same on every rank."""
         logits, _, aux = self.forward(params, batch["tokens"], opts,
                                       img_embeds=batch.get("img_embeds"),
                                       enc_embeds=batch.get("enc_embeds"),
@@ -84,8 +105,19 @@ class LM:
         loss, ce = cross_entropy(logits, batch["labels"], self.cfg.vocab_size,
                                  z_loss=z_loss, impl=opts.xent_impl)
         loss = loss + moe_aux_weight * aux
-        return loss, {"loss": loss, "nll": ce["nll"], "z_loss": ce["z_loss"],
-                      "moe_aux": aux}
+        metrics = {"loss": loss, "nll": ce["nll"], "z_loss": ce["z_loss"],
+                   "moe_aux": aux}
+        ctx = sharding.active_mesh()
+        if ctx is None:
+            return loss, metrics
+        # this rank's share: its rows' loss over the dp ranks' count, so the
+        # shares' gradients sum, over the dp group, to the global loss's
+        mesh, rules = ctx
+        axes = sharding.batch_axes(mesh, rules)
+        n_dp = mesh.axis_size(axes) if axes else 1
+        dp = mesh.group(axes) if axes else None
+        return loss / n_dp, {k: coll.all_reduce(v.detach(), dp) / n_dp
+                             for k, v in metrics.items()}
 
     def prefill(self, params, tokens, opts: ForwardOpts = ForwardOpts(),
                 img_embeds=None, enc_embeds=None):
@@ -226,3 +258,42 @@ def text_len(cfg: ModelConfig, seq_len: int) -> int:
     if transformer.has_image(cfg):
         return seq_len - cfg.num_image_tokens
     return seq_len
+
+
+def text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """The text positions of a ``seq_len`` sequence: a vlm config's image
+    positions come first and are not text."""
+    if cfg.family == "vlm" and cfg.num_image_tokens:
+        return seq_len - cfg.num_image_tokens
+    return seq_len
+
+
+def make_batch(cfg: ModelConfig, shape_or_bs, seq_len: int = 0, rng=None,
+               dtype=torch.bfloat16):
+    """A random batch on the CPU (the JAX ``make_batch``): int32 "tokens"
+    and "labels" (B, text_len), and for a vlm config "img_embeds", for an
+    encdec config "enc_embeds", normal draws in ``dtype``.  The draws are
+    JAX's numpy ``default_rng(rng or 0)`` calls in JAX's order, and the
+    embeddings round through fp32 as JAX's conversion does, so the batch
+    equals JAX's bit for bit."""
+    if isinstance(shape_or_bs, ShapeConfig):
+        b, s = shape_or_bs.global_batch, shape_or_bs.seq_len
+    else:
+        b, s = shape_or_bs, seq_len
+    gen = np.random.default_rng(0 if rng is None else rng)
+    st = text_len(cfg, s)
+
+    def ints():
+        return torch.from_numpy(
+            gen.integers(0, cfg.vocab_size, (b, st)).astype(np.int32))
+
+    def normal(shape):
+        return torch.from_numpy(
+            gen.normal(0, 1, shape).astype(np.float32)).to(dtype)
+
+    batch = {"tokens": ints(), "labels": ints()}
+    if transformer.has_image(cfg):
+        batch["img_embeds"] = normal((b, cfg.num_image_tokens, cfg.d_model))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = normal((b, s // cfg.enc_ratio, cfg.d_model))
+    return batch

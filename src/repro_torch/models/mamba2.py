@@ -24,25 +24,29 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import P, rms_norm
+from repro_torch.parallel.tpmm import col_proj_tp, down_proj_tp
 
 
 def mamba_spec(cfg):
     d, din, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     w = cfg.ssm_conv_dim
     return {
-        "wz": {"kernel": P((d, din))},
-        "wx": {"kernel": P((d, din))},
-        "wB": {"kernel": P((d, n))},
-        "wC": {"kernel": P((d, n))},
-        "wdt": {"kernel": P((d, h))},
-        "conv_x": P((w, din), init="uniform_conv"),
-        "conv_B": P((w, n), init="uniform_conv"),
-        "conv_C": P((w, n), init="uniform_conv"),
-        "A_log": P((h,), init="a_log", fp32=True),
-        "D": P((h,), init="ones", fp32=True),
-        "dt_bias": P((h,), init="dt_bias", fp32=True),
-        "norm": {"scale": P((din,), init="ones", fp32=True)},
-        "wo": {"kernel": P((din, d))},
+        "wz": {"kernel": P((d, din), axes=("embed", "mamba_inner"))},
+        "wx": {"kernel": P((d, din), axes=("embed", "mamba_inner"))},
+        "wB": {"kernel": P((d, n), axes=("embed", "state"))},
+        "wC": {"kernel": P((d, n), axes=("embed", "state"))},
+        "wdt": {"kernel": P((d, h), axes=("embed", "mamba_heads"))},
+        "conv_x": P((w, din), init="uniform_conv",
+                    axes=("conv", "mamba_inner")),
+        "conv_B": P((w, n), init="uniform_conv", axes=("conv", "state")),
+        "conv_C": P((w, n), init="uniform_conv", axes=("conv", "state")),
+        "A_log": P((h,), init="a_log", fp32=True, axes=("mamba_heads",)),
+        "D": P((h,), init="ones", fp32=True, axes=("mamba_heads",)),
+        "dt_bias": P((h,), init="dt_bias", fp32=True,
+                     axes=("mamba_heads",)),
+        "norm": {"scale": P((din,), init="ones", fp32=True,
+                            axes=("mamba_inner",))},
+        "wo": {"kernel": P((din, d), axes=("mamba_inner", "embed"))},
     }
 
 
@@ -131,7 +135,8 @@ def ssd_chunked(X, dA, Bm, Cm, chunk: int, initial_state=None,
 
 
 def mamba_block(p, cfg, x, *, impl: str = "kernel", norm_impl: str = "kernel",
-                conv_state=None, ssm_state=None, decode: bool = False):
+                conv_state=None, ssm_state=None, decode: bool = False,
+                tp_shardmap: bool = False):
     """x (B, S, d) -> (y (B, S, d), (conv state, SSM state)), as JAX's.
     The conv state (B, w-1, d_inner + 2N) comes in concatenated, as a
     cache holds it, and goes out as its three slices (x, B, C) in x's
@@ -143,13 +148,18 @@ def mamba_block(p, cfg, x, *, impl: str = "kernel", norm_impl: str = "kernel",
     JAX's exact single-step recurrence from ``conv_state``/``ssm_state``
     (zeros when None): the state update and readout in fp32, Y cast to the
     model dtype.  Weights are cast to x's dtype at each use, as JAX casts
-    its fp32 masters."""
+    its fp32 masters.  With ``tp_shardmap`` the z/x in-projections and the
+    out-projection go through ``parallel.tpmm``, as JAX's (the plain
+    contractions outside a context that splits ``mamba_inner``; training
+    refuses such a split of the hybrid family, ROADMAP item 25)."""
     b, s, d = x.shape
     din, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
     dtype = x.dtype
 
     def proj(name):
+        if tp_shardmap and name in ("wz", "wx"):
+            return col_proj_tp(x, p[name]["kernel"], psum_dtype=None)
         return x @ p[name]["kernel"].to(dtype)
 
     z, xs, Bm, Cm, dt = (proj(k) for k in ("wz", "wx", "wB", "wC", "wdt"))
@@ -187,4 +197,6 @@ def mamba_block(p, cfg, x, *, impl: str = "kernel", norm_impl: str = "kernel",
     Y = Y + p["D"].to(dtype)[None, None, :, None] * X
     Y = Y.reshape(b, s, din)
     Y = rms_norm(Y * F.silu(z), p["norm"]["scale"], cfg.norm_eps, norm_impl)
-    return Y @ p["wo"]["kernel"].to(dtype), ((cs_x, cs_b, cs_c), final)
+    out = (down_proj_tp(Y, p["wo"]["kernel"]) if tp_shardmap
+           else Y @ p["wo"]["kernel"].to(dtype))
+    return out, ((cs_x, cs_b, cs_c), final)

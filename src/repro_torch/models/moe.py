@@ -33,6 +33,8 @@ import torch
 
 from repro_torch.models.common import P, activation
 from repro_torch.models.mlp import mlp, mlp_spec
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.tpmm import col_proj_tp, tp_group
 
 
 def moe_spec(cfg):
@@ -41,10 +43,11 @@ def moe_spec(cfg):
     ``wi``/``wg`` (E, d, f) and ``wo`` (E, f, d); with
     ``cfg.dense_residual`` (arctic) the dense FFN ``dense`` beside them."""
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
-    spec = {"router": {"kernel": P((d, e), fp32=True)},
-            "wi": {"kernel": P((e, d, f))},
-            "wg": {"kernel": P((e, d, f))},
-            "wo": {"kernel": P((e, f, d))}}
+    spec = {"router": {"kernel": P((d, e), fp32=True,
+                                   axes=("embed", "expert"))},
+            "wi": {"kernel": P((e, d, f), axes=("expert", "embed", "mlp"))},
+            "wg": {"kernel": P((e, d, f), axes=("expert", "embed", "mlp"))},
+            "wo": {"kernel": P((e, f, d), axes=("expert", "mlp", "embed"))}}
     if cfg.dense_residual:
         spec["dense"] = mlp_spec(cfg)
     return spec
@@ -72,8 +75,12 @@ def top_k(probs, k: int):
 
 def route(router_p, cfg, xg):
     """xg (G, S, d) -> gates (G, S, k) fp32, expert ids (G, S, k) and the
-    Switch/GShard load-balance loss (× E²)."""
-    logits = xg.float() @ router_p["kernel"].float()
+    Switch/GShard load-balance loss (× E²).  Under a sharding context that
+    splits the experts, the router's columns are this rank's, and the
+    logits are gathered whole."""
+    w = router_p["kernel"]
+    logits = coll.gather_from(col_proj_tp(xg.float(), w), -1,
+                              tp_group(w, 1))
     probs = torch.softmax(logits, dim=-1)
     gates, ids = top_k(probs, cfg.experts_per_token)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -113,9 +120,14 @@ def dispatch(xg, flat_idx, keep, rows: int):
     return buf
 
 
-def moe_ffn(p, cfg, x, groups: int = 0):
+def moe_ffn(p, cfg, x, groups: int = 0, tp_shardmap: bool = False):
     """x (B, S, d) -> (y (B, S, d), aux).  ``groups`` defaults to B: each
-    sequence routes on its own, capacity computed per sequence."""
+    sequence routes on its own, capacity computed per sequence.  Under a
+    sharding context that splits the experts over the model axis, routing
+    and dispatch are the same on every rank, each rank runs its experts'
+    products and combines their slots, and the partial sums are reduced
+    over the model group (in fp32, or with ``tp_shardmap`` in the compute
+    dtype)."""
     b, s, d = x.shape
     g = groups or b
     xg = x.reshape(g, (b * s) // g, d)
@@ -128,6 +140,13 @@ def moe_ffn(p, cfg, x, groups: int = 0):
     flat_idx, keep = capacity_slots(ids, gates, cap, e)
     keep = keep.to(dtype)
     buf = dispatch(xg, flat_idx, keep, e * cap).reshape(g, e, cap, d)
+    psum = None if tp_shardmap else torch.float32
+    tp = tp_group(p["wi"]["kernel"], 0)
+    e_loc = p["wi"]["kernel"].shape[0]
+    first = coll.group_rank(tp) * e_loc * cap   # this rank's first slot
+    if tp is not None:
+        buf = coll.copy_to(buf, tp, psum)[:, coll.group_rank(tp) * e_loc:
+                                          (coll.group_rank(tp) + 1) * e_loc]
 
     # the expert FFN: products batched over the expert dim
     act = activation(cfg.act)
@@ -135,17 +154,24 @@ def moe_ffn(p, cfg, x, groups: int = 0):
     hg = torch.einsum("gecd,edf->gecf", buf, p["wg"]["kernel"].to(dtype))
     out = torch.einsum("gecf,efd->gecd", act(hg) * hi,
                        p["wo"]["kernel"].to(dtype))
-    out_flat = out.reshape(g, e * cap, d)
+    out_flat = out.reshape(g, e_loc * cap, d)
 
-    # combine: k weighted gathers
+    # combine: k weighted gathers (of this rank's slots, under a split,
+    # where the gates, whole on every rank, take a share of their gradient)
+    gates = coll.copy_to(gates, tp, psum)
     y = torch.zeros_like(xg)
     for j in range(flat_idx.shape[-1]):
-        gathered = out_flat.gather(1, flat_idx[..., j, None].expand(g, sg, d))
-        y = y + gathered * (gates[..., j, None].to(dtype)
-                            * keep[..., j, None])
-    y = y.reshape(b, s, d)
+        idx = flat_idx[..., j]
+        w = gates[..., j, None].to(dtype) * keep[..., j, None]
+        if tp is not None:
+            mine = (idx >= first) & (idx < first + e_loc * cap)
+            idx = (idx - first).clamp(0, e_loc * cap - 1)
+            w = w * mine[..., None].to(dtype)
+        gathered = out_flat.gather(1, idx[..., None].expand(g, sg, d))
+        y = y + gathered * w
+    y = coll.reduce_from(y, tp, psum).reshape(b, s, d)
     if "dense" in p:             # arctic: the dense FFN beside the experts
-        y = y + mlp(p["dense"], cfg, x)
+        y = y + mlp(p["dense"], cfg, x, tp_shardmap)
     return y, aux
 
 

@@ -33,33 +33,35 @@ def tmix_spec(cfg):
     d = cfg.d_model
     h, k = cfg.rwkv_heads, cfg.rwkv_head_dim
     return {
-        "mu_x": P((d,), init="zeros", fp32=True),
-        "mu": P((5, d), init="zeros", fp32=True),
-        "W1": {"kernel": P((d, 5 * LORA_MIX))},
-        "W2": {"kernel": P((5, LORA_MIX, d))},
-        "wr": {"kernel": P((d, d))},
-        "wk": {"kernel": P((d, d))},
-        "wv": {"kernel": P((d, d))},
-        "wg": {"kernel": P((d, d))},
-        "w0": P((d,), init="rwkv_decay", fp32=True),
-        "wA": {"kernel": P((d, LORA_DECAY))},
+        "mu_x": P((d,), init="zeros", fp32=True, axes=("embed",)),
+        "mu": P((5, d), init="zeros", fp32=True, axes=(None, "embed")),
+        "W1": {"kernel": P((d, 5 * LORA_MIX), axes=("embed", "lora"))},
+        "W2": {"kernel": P((5, LORA_MIX, d), axes=(None, "lora", "embed"))},
+        "wr": {"kernel": P((d, d), axes=("embed", "rwkv_heads"))},
+        "wk": {"kernel": P((d, d), axes=("embed", "rwkv_heads"))},
+        "wv": {"kernel": P((d, d), axes=("embed", "rwkv_heads"))},
+        "wg": {"kernel": P((d, d), axes=("embed", "rwkv_heads"))},
+        "w0": P((d,), init="rwkv_decay", fp32=True, axes=("embed",)),
+        "wA": {"kernel": P((d, LORA_DECAY), axes=("embed", "lora"))},
         # JAX multiplies by wB in fp32: kept fp32 under bf16 compute
-        "wB": {"kernel": P((LORA_DECAY, d), fp32=True)},
-        "u": P((h, k), init="normal", scale=0.3, fp32=True),
-        "ln_x": {"scale": P((d,), init="ones", fp32=True),
-                 "bias": P((d,), init="zeros", fp32=True)},
-        "wo": {"kernel": P((d, d))},
+        "wB": {"kernel": P((LORA_DECAY, d), fp32=True,
+                           axes=("lora", "embed"))},
+        "u": P((h, k), init="normal", scale=0.3, fp32=True,
+               axes=("rwkv_heads", None)),
+        "ln_x": {"scale": P((d,), init="ones", fp32=True, axes=("embed",)),
+                 "bias": P((d,), init="zeros", fp32=True, axes=("embed",))},
+        "wo": {"kernel": P((d, d), axes=("rwkv_heads", "embed"))},
     }
 
 
 def cmix_spec(cfg):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu_k": P((d,), init="zeros", fp32=True),
-        "mu_r": P((d,), init="zeros", fp32=True),
-        "wk": {"kernel": P((d, f))},
-        "wv": {"kernel": P((f, d))},
-        "wr": {"kernel": P((d, d))},
+        "mu_k": P((d,), init="zeros", fp32=True, axes=("embed",)),
+        "mu_r": P((d,), init="zeros", fp32=True, axes=("embed",)),
+        "wk": {"kernel": P((d, f), axes=("embed", "mlp"))},
+        "wv": {"kernel": P((f, d), axes=("mlp", "embed"))},
+        "wr": {"kernel": P((d, d), axes=("embed", "rwkv_heads"))},
     }
 
 

@@ -22,9 +22,19 @@ weights:
 
 Recurrent state has no per-position mask: a recurrent prefill takes
 equal-length prompts, as JAX's does.
+
+Under ``parallel.sharding.sharding_context`` on a mesh of processes,
+``forward`` runs this rank's share of a sharded model
+(``sharding.ShardedForward``): each layer's weights are gathered over the
+batch axes just before the layer (FSDP), the embedding, attention, MLP,
+experts and the vocab projection are split over the model axis where the
+rules split their weights (``parallel.tpmm``), and the logits come out
+whole for this rank's batch rows.  The hybrid and ssm families take no
+model split (ROADMAP item 25).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -36,10 +46,14 @@ from repro_torch.models import mamba2, moe as moe_mod, rwkv6
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (DTYPES, P, apply_norm, norm_spec,
                                        stack_spec)
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
+from repro_torch.parallel.tpmm import col_proj_tp, tp_group
 
 @dataclass(frozen=True)
 class ForwardOpts:
-    attn_impl: str = "flash"      # flash (K2) | dense (reference) | blockwise
+    attn_impl: str = "flash"      # flash (K2) | dense (reference) |
+    #                               blockwise | seqsp (sequence-sharded)
     norm_impl: str = "kernel"     # kernel (K3) | plain (reference)
     q_chunk: int = 1024           # blockwise attention chunks
     kv_chunk: int = 1024
@@ -47,6 +61,10 @@ class ForwardOpts:
     xent_impl: str = "kernel"     # loss: kernel (K4) | plain (reference)
     mixer_impl: str = "kernel"    # mamba2 SSD / rwkv6 WKV: kernel (K6/K7) |
     #                               plain (the JAX models' chunked forms)
+    flat_heads: bool = False      # repeat K/V to H heads (train/prefill)
+    tp_shardmap: bool = False     # tensor-parallel reductions in the compute
+    #                               dtype (tpmm's), not fp32 (GSPMD's)
+    moe_ep: bool = False          # expert parallel (parallel.epmoe)
 
     def __post_init__(self):
         if self.remat not in REMAT_POLICIES:
@@ -61,10 +79,12 @@ REMAT_POLICIES = ("none", "selective", "full")
 # (B, S, d) by a (d, e) weight, dispatches ``aten.mm`` on the folded rows
 # (``addmm`` with a bias); batched products (attention scores and PV, the
 # SSD and WKV einsums) dispatch ``bmm`` and are recomputed, as is every
-# elementwise op.  JAX's policy also saves ``TP_SAVE_NAME``, the outputs of
-# ``parallel/tpmm.py``'s tensor-parallel contractions, which the port does
-# not have until ROADMAP item 18: no op of the port carries that name.
-_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# elementwise op.  JAX's policy also saves ``TP_SAVE_NAME``, the reduced
+# outputs of the tensor-parallel contractions; the port saves every
+# collective's output (``parallel.collectives.SAVED_OPS``), so the
+# backward's replay of a layer runs no collective again.
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) \
+    + coll.SAVED_OPS
 
 
 def _selective_policy(ctx, op, *args, **kwargs):
@@ -81,16 +101,37 @@ def _remat(fn, policy: str):
     """The JAX ``_remat``: ``fn`` as it is (``"none"``), or checkpointed, so
     its backward recomputes what it did not keep: everything but its inputs
     (``"full"``), or all but the outputs of the matmuls with no batch dims
-    (``"selective"``).  Recomputation runs the same ops on the same inputs,
-    so values and gradients are those of ``"none"``."""
+    and of the collectives (``"selective"``).  Recomputation runs the same
+    ops on the same inputs, under the sharding context of the forward
+    (autograd may replay it on another thread), so values and gradients
+    are those of ``"none"``."""
     if policy == "none":
         return fn
-    if policy == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    if policy == "selective":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
-                                        context_fn=_selective_contexts)
-    raise ValueError(policy)
+    if policy not in ("full", "selective"):
+        raise ValueError(policy)
+
+    def run(*args):
+        ctx = sharding.current_context()
+
+        def contexts():
+            fwd, rec = (_selective_contexts() if policy == "selective"
+                        else (contextlib.nullcontext(),
+                              contextlib.nullcontext()))
+            return fwd, _replay(ctx, rec)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=contexts)
+    return run
+
+
+@contextlib.contextmanager
+def _replay(ctx, rec):
+    """The recompute's context: the forward's sharding context, then
+    ``rec``."""
+    with contextlib.ExitStack() as stack:
+        if ctx is not None:
+            stack.enter_context(sharding.sharding_context(*ctx))
+        stack.enter_context(rec)
+        yield
 
 
 def _records_grad(params, h) -> bool:
@@ -128,7 +169,7 @@ def layer_spec(cfg):
 def shared_block_spec(cfg):
     """Zamba2's shared attention + FFN block (weights tied across uses)."""
     d = cfg.d_model
-    return {"in_proj": {"kernel": P((2 * d, d))},
+    return {"in_proj": {"kernel": P((2 * d, d), axes=(None, "embed"))},
             "ln1": norm_spec(cfg), "attn": attn.attention_spec(cfg),
             "ln2": norm_spec(cfg), "mlp": mlp_mod.mlp_spec(cfg)}
 
@@ -140,18 +181,18 @@ def has_image(cfg) -> bool:
 
 def build_spec(cfg):
     d, v = cfg.d_model, cfg.padded_vocab
-    spec = {"embed": {"table": P((v, d))},
+    spec = {"embed": {"table": P((v, d), axes=("vocab", "embed"))},
             "layers": stack_spec(layer_spec(cfg), cfg.num_layers),
             "final_norm": norm_spec(cfg)}
     if not cfg.tie_embeddings:
-        spec["lm_head"] = {"kernel": P((d, v))}
+        spec["lm_head"] = {"kernel": P((d, v), axes=("embed", "vocab"))}
     if cfg.family == "hybrid" and cfg.hybrid_attn_every:
         spec["shared"] = shared_block_spec(cfg)
     if has_image(cfg):
         # the stub ViT's learned image positions, zeros at init and fp32
         # (JAX pins their dtype)
         spec["img_pos"] = P((cfg.num_image_tokens, d), init="zeros",
-                            fp32=True)
+                            fp32=True, axes=("img", "embed"))
     return spec
 
 
@@ -164,16 +205,64 @@ def layer_params(params, i: int, stack: str = "layers"):
     return pick(params[stack])
 
 
-def embed(params, cfg, tokens):
-    """Token embedding in the compute dtype (``cfg.dtype``)."""
-    return params["embed"]["table"][tokens].to(DTYPES[cfg.dtype])
+def use(params, name: str, sf=None, i=None):
+    """``params[name]``, or layer ``i`` of that stacked subtree, as the
+    forward uses it: under a ``ShardedForward`` gathered for use
+    (``sharding.ShardedForward.use``), else as it is."""
+    sub = params[name] if i is None else layer_params(params, i, name)
+    return sub if sf is None else sf.use(sub, sf.specs[name],
+                                         stacked=i is not None)
 
 
-def embed_inputs(params, cfg, tokens, img_embeds=None):
+#: the subtrees a sharded forward gathers where it uses them, layer by layer
+_PER_USE = ("layers", "shared", "enc_layers", "dec_layers")
+
+
+def use_top(params, sf):
+    """``params`` with every subtree but the layers (and zamba2's shared
+    block) gathered once for the whole forward under a ``ShardedForward``:
+    a tied embedding then serves the lookup and the vocab projection from
+    one gather, whose backward reduce-scatters their summed gradient once.
+    Without one, ``params`` as it is."""
+    if sf is None:
+        return params
+    return {k: v if k in _PER_USE else use(params, k, sf)
+            for k, v in params.items()}
+
+
+def _refuse_model_split(cfg, sf):
+    """Tensor parallelism covers the dense, vlm and moe families; the
+    others train under a mesh without a model split only."""
+    if sf is not None and sf.model_size() > 1:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}): a mesh with a model axis of "
+            f"{sf.model_size()} splits its weights, and tensor parallelism "
+            "of the hybrid, ssm and enc-dec families is not ported yet "
+            "(ROADMAP item 25); train it on a mesh without a model split")
+
+
+def embed(params, cfg, tokens, psum_dtype=torch.float32):
+    """Token embedding in the compute dtype (``cfg.dtype``).  Where the
+    table is this rank's rows of a vocab split over the model axis
+    (``use_top``), each rank looks up the tokens of its rows and the
+    embeddings are summed over the model group."""
+    table = params["embed"]["table"]
+    g = tp_group(table, 0)
+    if g is None:
+        return table[tokens].to(DTYPES[cfg.dtype])
+    vl = table.shape[0]
+    local = tokens.long() - coll.group_rank(g) * vl
+    mine = ((local >= 0) & (local < vl))[..., None].to(table.dtype)
+    e = table[local.clamp(0, vl - 1)] * mine
+    return coll.reduce_from(e, g, psum_dtype).to(DTYPES[cfg.dtype])
+
+
+def embed_inputs(params, cfg, tokens, img_embeds=None,
+                 psum_dtype=torch.float32):
     """The JAX ``embed_inputs``: the token embedding (B, S, d) and, for a
     vlm config, the stub ViT's (B, num_image_tokens, d) patch embeddings
     plus ``img_pos`` in front of it, in the compute dtype: (B, n + S, d)."""
-    h = embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens, psum_dtype)
     if not has_image(cfg):
         return h
     if img_embeds is None:
@@ -185,34 +274,55 @@ def embed_inputs(params, cfg, tokens, img_embeds=None):
     return torch.cat([img, h], dim=1)
 
 
-def unembed(params, cfg, h, norm_impl: str = "kernel"):
+def unembed(params, cfg, h, norm_impl: str = "kernel",
+            psum_dtype=torch.float32):
+    """The final norm and the vocab projection.  Where the vocab is split
+    over the model axis (``use_top``), each rank projects onto its columns
+    and the logits are gathered whole over the model group."""
     h = apply_norm(params["final_norm"], h, cfg, norm_impl)
     if cfg.tie_embeddings:
-        return h @ params["embed"]["table"].to(h.dtype).T
-    return h @ params["lm_head"]["kernel"].to(h.dtype)
+        table = params["embed"]["table"]
+        g = tp_group(table, 0)
+        logits = coll.copy_to(h, g, psum_dtype) @ table.to(h.dtype).T
+    else:
+        w = params["lm_head"]["kernel"]
+        g = tp_group(w, 1)
+        logits = col_proj_tp(h, w, psum_dtype=psum_dtype)
+    return coll.gather_from(logits, -1, g)
 
 
 # each layer body returns (h, aux, cache): aux is the MoE load-balance
 # loss of a moe layer, None for the others
 
-def _ffn(lp, cfg, f_in):
+def _ffn(lp, cfg, f_in, opts: ForwardOpts):
     """The dense FFN, or a moe layer's experts (each sequence routes on its
-    own).  Returns (y, aux | None)."""
+    own; with ``opts.moe_ep`` expert parallel, ``parallel.epmoe``).
+    Returns (y, aux | None)."""
     if "moe" in lp:
-        return moe_mod.moe_ffn(lp["moe"], cfg, f_in)
-    return mlp_mod.mlp(lp["mlp"], cfg, f_in), None
+        if opts.moe_ep:
+            from repro_torch.parallel.epmoe import moe_ffn_ep
+            return moe_ffn_ep(lp["moe"], cfg, f_in)
+        return moe_mod.moe_ffn(lp["moe"], cfg, f_in,
+                               tp_shardmap=opts.tp_shardmap)
+    return mlp_mod.mlp(lp["mlp"], cfg, f_in, opts.tp_shardmap), None
+
+
+def _attention(p, cfg, x, opts: ForwardOpts, collect: bool):
+    # flat_heads repeats K/V, so it is off when the (grouped) decode cache
+    # is collected, as in JAX
+    return attn.attention_block(p, cfg, x, impl=opts.attn_impl,
+                                norm_impl=opts.norm_impl,
+                                q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk,
+                                flat_heads=opts.flat_heads and not collect,
+                                tp_shardmap=opts.tp_shardmap)
 
 
 def _attn_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
-    del collect                  # the K/V come with the attention output
     a_in = apply_norm(lp["ln1"], h, cfg, opts.norm_impl)
-    a, (k, v) = attn.attention_block(lp["attn"], cfg, a_in,
-                                     impl=opts.attn_impl,
-                                     norm_impl=opts.norm_impl,
-                                     q_chunk=opts.q_chunk,
-                                     kv_chunk=opts.kv_chunk)
+    a, (k, v) = _attention(lp["attn"], cfg, a_in, opts, collect)
     h = h + a
-    f, aux = _ffn(lp, cfg, apply_norm(lp["ln2"], h, cfg, opts.norm_impl))
+    f, aux = _ffn(lp, cfg, apply_norm(lp["ln2"], h, cfg, opts.norm_impl),
+                  opts)
     return h + f, aux, {"k": k, "v": v}
 
 
@@ -233,7 +343,7 @@ def _hybrid_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
     x = apply_norm(lp["ln1"], h, cfg, opts.norm_impl)
     y, (conv, ssm) = mamba2.mamba_block(
         lp["mamba"], cfg, x, impl="plain" if collect else opts.mixer_impl,
-        norm_impl=opts.norm_impl)
+        norm_impl=opts.norm_impl, tp_shardmap=opts.tp_shardmap)
     if not collect:
         return h + y, None, None
     return h + y, None, {"conv": torch.cat(conv, dim=-1), "ssm": ssm}
@@ -245,21 +355,22 @@ def _shared_in(sp, h, emb0):
     return torch.cat([h, emb0], dim=-1) @ sp["in_proj"]["kernel"].to(h.dtype)
 
 
-def _shared_ffn(sp, cfg, u, norm_impl: str):
+def _shared_ffn(sp, cfg, u, norm_impl: str, tp_shardmap: bool = False):
     return u + mlp_mod.mlp(sp["mlp"], cfg,
-                           apply_norm(sp["ln2"], u, cfg, norm_impl))
+                           apply_norm(sp["ln2"], u, cfg, norm_impl),
+                           tp_shardmap)
 
 
-def _shared_block(sp, cfg, h, emb0, opts: ForwardOpts):
+def _shared_block(sp, cfg, h, emb0, opts: ForwardOpts, collect: bool = False):
     """Zamba2's shared block through attention (K2 under
     ``attn_impl="flash"``) and the FFN; its output is added to h.  Returns
     (h, {"k", "v"})."""
     u = _shared_in(sp, h, emb0)
-    a, (k, v) = attn.attention_block(
-        sp["attn"], cfg, apply_norm(sp["ln1"], u, cfg, opts.norm_impl),
-        impl=opts.attn_impl, norm_impl=opts.norm_impl, q_chunk=opts.q_chunk,
-        kv_chunk=opts.kv_chunk)
-    return h + _shared_ffn(sp, cfg, u + a, opts.norm_impl), {"k": k, "v": v}
+    a, (k, v) = _attention(sp["attn"], cfg,
+                           apply_norm(sp["ln1"], u, cfg, opts.norm_impl),
+                           opts, collect)
+    return (h + _shared_ffn(sp, cfg, u + a, opts.norm_impl,
+                            opts.tp_shardmap), {"k": k, "v": v})
 
 
 def _fires(cfg, i: int) -> bool:
@@ -293,18 +404,31 @@ def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
     (L, B, H, P, N) fp32 for hybrid, whose cache also holds ``"shared"``:
     the shared block's ``{"k", "v"}`` (n_shared, B, S, KV, D), use j at
     index j.  A hybrid stack runs its shared block after layer i whenever
-    i % every == every - 1."""
+    i % every == every - 1.
+
+    Under a sharding context on a mesh of processes (see the module), the
+    forward is this rank's share: ``tokens`` are its batch rows, the
+    parameters its shards, and no cache is collected."""
     layer = {"dense": _attn_layer, "vlm": _attn_layer, "moe": _attn_layer,
              "ssm": _ssm_layer, "hybrid": _hybrid_layer}[cfg.family]
-    h = embed_inputs(params, cfg, tokens, img_embeds)
+    sf = sharding.sharded_forward(cfg, build_spec)
+    if sf is not None:
+        if collect_cache:
+            raise ValueError("a sharded forward collects no cache")
+        if cfg.family in ("hybrid", "ssm"):
+            _refuse_model_split(cfg, sf)
+    psum = None if opts.tp_shardmap else torch.float32
+    params = use_top(params, sf)
+    h = embed_inputs(params, cfg, tokens, img_embeds, psum)
     emb0 = h
 
     def body(h, i):
-        h, aux, cache = layer(layer_params(params, i), cfg, h, opts,
+        h, aux, cache = layer(use(params, "layers", sf, i), cfg, h, opts,
                               collect_cache)
         kv = None
         if _fires(cfg, i):
-            h, kv = _shared_block(params["shared"], cfg, h, emb0, opts)
+            h, kv = _shared_block(use(params, "shared", sf), cfg, h, emb0,
+                                  opts, collect_cache)
         return h, aux, cache, kv
 
     if _records_grad(params, h):
@@ -318,7 +442,7 @@ def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
             shared.append(kv)
         if collect_cache:
             caches.append(cache)
-    logits = unembed(params, cfg, h, opts.norm_impl)
+    logits = unembed(params, cfg, h, opts.norm_impl, psum)
     cache = None
     if collect_cache:
         cache = {"layers": _stack(caches)}

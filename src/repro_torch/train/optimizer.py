@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels.adamw_update import adamw_fused, adamw_ref
+from repro_torch.parallel import collectives as coll
 
 
 def tree_leaves(tree):
@@ -63,24 +64,41 @@ def init_opt_state(params) -> Dict[str, Any]:
     return state
 
 
-def global_norm(tree):
-    """The fp32 L2 norm over every leaf, a 0-d tensor on their device."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g, dtype=torch.float32)
-         for g in tree_leaves(tree)]))
+def global_norm(tree, groups=None):
+    """The fp32 L2 norm over every leaf, a 0-d tensor on their device.
+    ``groups`` (one per leaf of a sharded tree, ``None`` for a leaf whole
+    on every rank): each leaf is this rank's shard, its squares are summed
+    over the ranks of its group, and an element that a dropped rule
+    replicates counts once."""
+    leaves = tree_leaves(tree)
+    if groups is None:
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g, dtype=torch.float32)
+             for g in leaves]))
+    sums = {}
+    for g, leaf in zip(groups, leaves):
+        sq = torch.linalg.vector_norm(leaf, dtype=torch.float32).square()
+        key = id(g)
+        sums[key] = (g, sums[key][1] + sq) if key in sums else (g, sq)
+    return torch.sqrt(sum(coll.all_reduce(sq, g) for g, sq in
+                          sums.values()))
 
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, step: int, tcfg: TrainConfig,
-                 impl: str = "kernel"):
+                 impl: str = "kernel", norm_groups=None):
     """One AdamW step of every parameter, in place.  ``grads`` is a tree
     congruent with ``params`` or its ``tree_leaves``; it may be bf16;
     moments and masters are fp32.  Weight decay applies to leaves of two or
     more dims, as in JAX (that includes the stacked (L, d) layer-norm
     scales).  ``impl="kernel"`` runs K5 (its plain version on CPU tensors),
-    ``"plain"`` always the plain version.  Returns {"grad_norm", "lr"}."""
+    ``"plain"`` always the plain version.  On a sharded state every leaf is
+    this rank's shard: the update is elementwise, so K5 on a shard is K5 on
+    the whole leaf sliced, and the clip scale comes from the global norm
+    over ``norm_groups`` (``global_norm``).  Returns {"grad_norm",
+    "lr"}."""
     update = {"kernel": adamw_fused, "plain": adamw_ref}[impl]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, norm_groups)
     scale = (torch.clamp(tcfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if tcfg.grad_clip > 0 else torch.ones((), device=gnorm.device))
     lr = lr_schedule(tcfg, step)

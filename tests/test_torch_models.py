@@ -12,11 +12,13 @@ import pytest
 import torch
 
 from repro.configs import CONFIGS as JCONFIGS
+from repro.configs.base import ShapeConfig as JShapeConfig
 from repro.models import ForwardOpts as JOpts
 from repro.models import LM as JLM
 from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro_torch.configs import CONFIGS as TCONFIGS
+from repro_torch.configs import ShapeConfig as TShapeConfig
 from repro_torch.models import ForwardOpts, LM
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
@@ -54,6 +56,12 @@ def test_config_copies_equal_jax(name):
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert dataclasses.asdict(j.reduced()) == dataclasses.asdict(t.reduced())
     assert j.param_count() == t.param_count()
+    # ShapeConfig is a copy too: its fields and tokens_per_step
+    for kind in ("train", "prefill", "decode"):
+        js, ts = JShapeConfig(name, 128, 4, kind), TShapeConfig(name, 128, 4,
+                                                                kind)
+        assert dataclasses.asdict(js) == dataclasses.asdict(ts)
+        assert js.tokens_per_step == ts.tokens_per_step
 
 
 @pytest.mark.parametrize("impl", ["kernel", "plain"])

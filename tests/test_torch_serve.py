@@ -233,6 +233,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    __import__(m.name)\n"
         "import repro_torch.models.moe, repro_torch.models.encdec\n"
+        "import repro_torch.parallel.collectives, repro_torch.parallel.mesh\n"
+        "import repro_torch.parallel.sharding, repro_torch.parallel.tpmm\n"
+        "import repro_torch.parallel.seqattn, repro_torch.parallel.epmoe\n"
+        "import repro_torch.parallel.compression\n"
+        "import repro_torch.parallel.pipeline, repro_torch.launch.pp_dryrun\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
@@ -241,8 +246,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
-    # 35, the ten of repro_torch.core, models.moe and models.encdec
-    assert int(res.stdout) >= 47
+    # 35, the ten of repro_torch.core, models.moe and models.encdec, and
+    # the nine of parallel training (parallel.collectives, mesh, sharding,
+    # tpmm, seqattn, epmoe, compression, pipeline and launch.pp_dryrun)
+    assert int(res.stdout) >= 56
 
 
 def test_default_device_entry_points_raise_without_a_card():
