@@ -332,6 +332,22 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    the error against the fp32 mean within one quantization bucket, the
    bytes gathered against ``wire_bytes_int8_sync`` and
    ``wire_bytes_f32_allreduce``; the phase's time.
+18. the dry-run against the card (``launch/dryrun.py``; its ranks of a
+   fake group of four run as ``--dryrun-rank R`` with no card, alongside):
+   (a) phase 7's step, counted once after its timed steps
+   (``FlopCounterMode`` and the kernels' work, ``roofline.kernels``),
+   against its dry-run on one rank: FLOPs equal, peak memory within 25%
+   of the prediction, and the step's H100 roofline bound, the measured
+   step's share of it and the MFU; (b) phase 17 (a)'s collectives by kind
+   (count and bytes) on every rank against that rank's dry-run; (c) the
+   sharded dense-cache decode of full-width qwen3-4b cut to 4 layers,
+   bf16, 8 slots over 1,024 rows, 8 steps, on a 2x2 mesh of four rank
+   processes (``--decode-mesh-rank R --port P``): logits against the
+   single rank as phase 17 holds bf16 (relative L2 within 2e-2 or twice
+   the single rank's own bf16 error against fp32 compute), the same in
+   fp32 compute to 1e-3 (two steps), K3 launches and collectives equal to the
+   dry-run's, step ms; (d) ``python -m repro_torch.launch.dryrun --arch
+   qwen3-4b --shape decode_32k`` under this machine's torch.
 
 It then prints a ``kernels`` JSON line (K1's entries at the serve shape,
 with the long shape's numbers under ``long``; phases 11 and 14's head
@@ -365,9 +381,15 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the bound column's rates and formulas (each kernel's work), shared with
+# the dry-run and the roofline
+from repro_torch.roofline import kernels as rk  # noqa: E402
+from repro_torch.roofline.kernels import k1_bound  # noqa: E402
+
 T0 = time.perf_counter()
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: the card's bf16 dense peak, which every MFU line divides by
+BF16_PEAK = rk.PEAK_FLOPS[torch.bfloat16]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DEV = "cuda"
 
@@ -425,12 +447,6 @@ def eager_ms(fn, iters: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(nbytes: float, flops: float, dtype) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_err(a, b) -> float:
@@ -547,28 +563,6 @@ def k1_library(q, pools, table, pos, off=None):
     kg = heads(pools[0], pools[2] if quant else None)
     vg = heads(pools[1], pools[3] if quant else None)
     return (lambda: sdpa(qh, kg, vg, attn_mask=mask)), rows
-
-
-def k1_bound(q, table, rows: int, quant: bool, partials: bool):
-    """K1's least time for ``rows`` live rows: each K/V byte (int8: and its
-    fp32 scale) read once, q read once, the output (partials: the fp32
-    triple) written once, the table and positions read once; operations:
-    QK and PV at q's peak (bf16 q, native or int8 rows: the tensor cores,
-    where the kernel converts int8 rows to bf16), and int8's
-    dequantization at the fp32 peak.  Returns (ms, "bytes" or
-    "operations", bytes)."""
-    b, kv, g, d = q.shape
-    row_b = kv * (d + 4) if quant else kv * d * q.element_size()
-    out_b = b * kv * g * (d + 2) * 4 if partials else \
-        q.numel() * q.element_size()
-    nbytes = (2 * rows * row_b + q.numel() * q.element_size() + out_b
-              + 4 * (table.numel() + b))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (4 * kv * g * d * rows / PEAK_FLOPS[q.dtype]
-             + (2 * rows * kv * d if quant else 0)
-             / PEAK_FLOPS[torch.float32]) * 1e3
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else
-            (t_ops, "operations")) + (nbytes,)
 
 
 def k1_splits(pd, q, k_pool, table, quant=False) -> int:
@@ -800,10 +794,9 @@ def time_k2(fa, what, b, s, kv, g, d, dtype, gen, causal=True):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=causal,
                                   enable_gqa=g > 1))
-    size = q.element_size()
-    nbytes = size * (2 * q.numel() + 2 * k.numel())
-    flops = 4 * b * kv * g * d * (s * (s + 1) // 2 if causal else s * s)
-    bms, by = bound(nbytes, flops, dtype)
+    work = rk.flash_attention(q, k, causal)
+    nbytes, flops = work.nbytes, work.total_flops
+    bms, by = work.bound()
     log(f"K2 timing {what}: {str(dtype)[6:]} "
         f"{'causal' if causal else 'non-causal'} B={b} H={kv * g} "
         f"KV={kv} S={s} D={d}: kernel {ms:.4f} ms (eager back-to-back "
@@ -945,7 +938,7 @@ def k3_timed(n, d, gen, what=""):
     plain_ms = time_ms(rotating(xs, lambda x: rn.rmsnorm_ref(x, sc)))
     lib_ms = time_ms(rotating(xs, lambda x: torch.nn.functional.rms_norm(
         x, (d,), sc16, 1e-5)))
-    bms, by = bound(2 * x.numel() * 2 + 4 * d, 4 * n * d, torch.float32)
+    bms, by = rk.rmsnorm(x, d).bound()
     log(f"K3 timing bf16 N={n} d={d}{what}, {K3_BUFFERS} input and output "
         f"buffers in turn ({K3_BUFFERS * 2 * x.numel() * 2 / 1e6:.0f} MB, "
         f"beyond the 50 MB L2): kernel {ms:.4f} ms (eager "
@@ -1051,11 +1044,10 @@ def k4_timed(n, vp, gen, what=""):
     bwd["library_ms"] = eager_ms(lambda: torch.autograd.grad(
         out, xf, g_nll, retain_graph=True), iters=20)
     del xf, out
-    elems = n * vp
-    fwd["bound_ms"], fwd["bound_by"] = bound(elems * 2 + n * 4 + 2 * n * 4,
-                                             4 * elems, torch.float32)
-    bwd["bound_ms"], bwd["bound_by"] = bound(2 * elems * 2 + 4 * n * 4,
-                                             4 * elems, torch.float32)
+    fwd["bound_ms"], fwd["bound_by"] = rk.softmax_xent_fwd(
+        n, vp, x.element_size()).bound()
+    bwd["bound_ms"], bwd["bound_by"] = rk.softmax_xent_bwd(
+        n, vp, x.element_size()).bound()
     for name, r, err, lib in (("forward", fwd, err_f, "F.cross_entropy"),
                               ("backward", bwd, err_b,
                                "autograd of F.cross_entropy, eager")):
@@ -1128,7 +1120,7 @@ def k5_timed(n, gen, what=""):
         [p], [g], [m], [v], [], steps, lr=K5_HYPER["lr"], beta1=0.9,
         beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False,
         maximize=False, grad_scale=None, found_inf=None), iters=10)
-    bms, by = bound(n * 28, 15 * n, torch.float32)
+    bms, by = rk.adamw(n, g.element_size()).bound()
     log(f"K5 timing fp32 grads, n={n}{what}: kernel {ms:.4f} ms (eager "
         f"back-to-back {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"torch._fused_adamw_ {lib_ms:.4f} ms, bound {bms:.5f} ms ({by}) "
@@ -1163,10 +1155,6 @@ def k7_inputs(b, s, h, kd, dtype, gen):
     u = 0.3 * torch.randn(h, kd, generator=gen)
     return ([t.to(DEV, dtype) for t in (r, k, v)]
             + [lw.clamp(min=-2.5).to(DEV), u.to(DEV)])
-
-
-def _nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def check_k6(report):
@@ -1262,9 +1250,9 @@ def check_k6(report):
     x, da = (t.transpose(1, 2).flatten(0, 1) for t in (xm, dam))
     plain_ms = time_ms(lambda: ssd.ssd_scan_ref(x, da, bm, cm, chunk=chunk),
                        iters=5)
-    nbytes = _nbytes(xm, dam, bm, cm) + _nbytes(xm)
-    flops = 5 * xm.numel() * n
-    bms, by = bound(nbytes, flops, torch.bfloat16)
+    work = rk.ssd_scan(xm, dam, bm, cm)
+    nbytes, flops = work.nbytes, work.total_flops
+    bms, by = work.bound()
     log(f"ssd_scan_bhsd timing bf16 {shape} S=2048, model layout: kernel "
         f"{ms:.4f} ms (eager back-to-back {host_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, no PyTorch call computes the scan, bound "
@@ -1400,11 +1388,12 @@ def check_k7(report):
                                                  chunk=chunk), iters=5)
     fp32 = [t.float() for t in timed[:3]] + list(timed[3:])
     fp32_ms = time_ms(lambda: ops.rwkv6_wkv(*fp32, chunk=chunk), iters=20)
-    nbytes = _nbytes(*timed) + _nbytes(timed[2])
-    flops = 5 * timed[2].numel() * kd
-    bms, by = bound(nbytes, flops, torch.bfloat16)
-    fp32_bytes = _nbytes(*fp32) + _nbytes(fp32[2])
-    fp32_bms, _ = bound(fp32_bytes, flops, torch.float32)
+    work = rk.wkv6_scan(*timed)
+    nbytes, flops = work.nbytes, work.total_flops
+    bms, by = work.bound()
+    fp32_work = rk.wkv6_scan(*fp32)
+    fp32_bytes = fp32_work.nbytes
+    fp32_bms, _ = fp32_work.bound()
     log(f"wkv6_scan_bhsd timing bf16 {shape} S=2048, model layout: kernel "
         f"{ms:.4f} ms (eager back-to-back {host_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, no PyTorch call computes the scan, bound "
@@ -2269,7 +2258,8 @@ def chunk_attention_time() -> None:
     live = int(((last // page) + 1).sum()) * page
     cols = int((qpos + 1).sum())
     nbytes = 2 * (2 * live * kv * d + n * c * kv * g * d) + 4 * n * m
-    t_bound, by = bound(nbytes, 4 * cols * kv * g * d, torch.bfloat16)
+    t_bound, by = rk.Work(
+        nbytes, ((torch.bfloat16, 4 * cols * kv * g * d),)).bound()
     ms, eager, lib = time_ms(plain), eager_ms(plain), time_ms(library)
     log(f"chunk attention (no kernel), one layer, 2 chunks of 64 over 32 "
         f"table pages ({live} live rows), bf16: {ms:.4f} ms (eager back to "
@@ -3328,7 +3318,24 @@ def train_grads_bf16():
 
 # ------------------------------------------------------------- phase 7 ----
 
-def train_run(report, steps: int = 10):
+def counted_step(fn) -> dict:
+    """One call of ``fn`` (a step on the card) under ``FlopCounterMode``
+    and a ``roofline.kernels`` counter: its aten FLOPs, its kernels' work
+    and its peak device memory."""
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc, rk.WorkCounter() as kw:
+        fn()
+        torch.cuda.synchronize()
+    return dict(aten_flops=fc.get_total_flops(),
+                kernel_flops=kw.total_flops, kernels=kw.summary(),
+                peak=torch.cuda.max_memory_allocated(), before=before)
+
+
+def train_run(report, steps: int = 10) -> dict:
+    """Phase 7; returns its counted step and setup, for phase 18 (a)."""
     import dataclasses
     import tempfile
     from repro_torch.configs import TrainConfig, get_config
@@ -3395,10 +3402,17 @@ def train_run(report, steps: int = 10):
         f"{step_s[0] * 1e3:.1f} ms, mean step {steady * 1e3:.2f} ms over "
         f"steps 2..{steps - 1} ({b * s / steady:.1f} tok/s), peak memory "
         f"{peak:.2f} GiB ({before:.2f} GiB allocated before the run), MFU "
-        f"{flops / steady / 989e12 * 100:.2f}% of 989 TFLOP/s "
+        f"{flops / steady / BF16_PEAK * 100:.2f}% of "
+        f"{BF16_PEAK / 1e12:.0f} TFLOP/s "
         f"({flops / 1e12:.2f} TFLOP per step) [{nvidia_smi_line()}]")
     for name in ("softmax_xent_fwd", "softmax_xent_bwd", "adamw_fused"):
         report[name]["launches"] = launches[name]
+    # phase 18 (a) reads one counted step after the timed ones
+    counted = dict(counted_step(lambda: loop.train_step(final, batch)),
+                   lm=lm, tcfg=tcfg, opts=opts, step_ms=steady * 1e3,
+                   batch={k: (tuple(np.shape(v)), torch.as_tensor(v).dtype)
+                          for k, v in batch.items()},
+                   model_flops=flops)
     profile_call("train step",
                  lambda: float(loop.train_step(final, batch)[1]["loss"]))
     del final, loop
@@ -3424,6 +3438,7 @@ def train_run(report, steps: int = 10):
         f"{max(rel['grad_norm']):.3e}")
     assert max(rel["loss"]) <= 2e-2, \
         "the kernel path's loss trajectory leaves the plain path's"
+    return counted
 
 
 KERNEL_GROUPS = (("K1 paged_decode", ("paged_decode_split_kernel",)),
@@ -4924,7 +4939,8 @@ def recurrent_train(report, steps: int = 6) -> None:
                 log(f"{tag} {steps} steps: first {step_s[0] * 1e3:.1f} ms, "
                     f"mean step {steady * 1e3:.2f} ms over steps 2..{steps - 1}"
                     f" ({b * s / steady:.1f} tok/s), MFU "
-                    f"{flops / steady / 989e12 * 100:.2f}% of 989 TFLOP/s "
+                    f"{flops / steady / BF16_PEAK * 100:.2f}% of "
+                    f"{BF16_PEAK / 1e12:.0f} TFLOP/s "
                     f"({flops / 1e12:.2f} TFLOP a step), peak memory "
                     f"{peak:.2f} GiB [{nvidia_smi_line()}]")
                 for kernel in ("softmax_xent_fwd", "softmax_xent_bwd",
@@ -5093,7 +5109,8 @@ def vlm_train(steps: int = 4) -> None:
     log(f"{tag} {steps} steps: first {step_s[0] * 1e3:.1f} ms, mean step "
         f"{steady * 1e3:.2f} ms over steps 1..{steps - 1} "
         f"({b * s / steady:.1f} positions/s), MFU "
-        f"{flops / steady / 989e12 * 100:.2f}% of 989 TFLOP/s, peak memory "
+        f"{flops / steady / BF16_PEAK * 100:.2f}% of "
+        f"{BF16_PEAK / 1e12:.0f} TFLOP/s, peak memory "
         f"{peak:.2f} GiB [{nvidia_smi_line()}]")
     free()
 
@@ -5516,7 +5533,8 @@ def encdec_train(report, steps: int = 4) -> None:
     log(f"{tag} {steps} steps: first {step_s[0] * 1e3:.1f} ms, mean step "
         f"{steady * 1e3:.2f} ms over steps 1..{steps - 1} "
         f"({b * s / steady:.1f} tok/s), MFU "
-        f"{flops / steady / 989e12 * 100:.2f}% of 989 TFLOP/s, peak memory "
+        f"{flops / steady / BF16_PEAK * 100:.2f}% of "
+        f"{BF16_PEAK / 1e12:.0f} TFLOP/s, peak memory "
         f"{peak:.2f} GiB [{nvidia_smi_line()}]")
     gen = torch.Generator().manual_seed(163)
     fwd, bwd = k4_timed(b * s, cfg.padded_vocab, gen,
@@ -5671,14 +5689,25 @@ def _spawn(flag: str, n: int, env_extra: dict, timeout_s: float = 600.0):
     """``n`` rank processes of this script (``flag R --port P``) on this
     card; returns each rank's RESULT object, failing the phase if any rank
     fails."""
+    return _collect(flag, _start(flag, n, env_extra), timeout_s)
+
+
+def _start(flag: str, n: int, env_extra: dict) -> list:
+    """Starts ``n`` processes of this script, ``flag R --port P``."""
     import os
     port = _free_port()
     env = dict(os.environ, **env_extra)
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), flag, str(r),
          "--port", str(port)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
         for r in range(n)]
+
+
+def _collect(flag: str, procs: list, timeout_s: float = 600.0) -> list:
+    """Each of ``_start``'s processes' RESULT object, failing the phase if
+    any fails or outlasts ``timeout_s``; every process is stopped."""
+    n = len(procs)
     outs = [""] * n
     try:
         deadline = time.monotonic() + timeout_s
@@ -5702,13 +5731,14 @@ def _spawn(flag: str, n: int, env_extra: dict, timeout_s: float = 600.0):
                             if l.startswith("RESULT "))[7:]) for out in outs]
 
 
-def train_mesh(report) -> None:
+def train_mesh(report) -> list:
     """Phase 17 (a) and (d): full-width qwen3-4b cut to 4 layers, trained on
     a 2x2 ``data x model`` mesh of four rank processes of this script
     (``--train-mesh-rank R --port P``) over gloo on this card, with the
     default opts and then ``tp_shardmap=True``, against a single-rank run
     of the port on the same weights and batch; then the int8 gradient sync
-    over the four ranks on (a)'s gradients."""
+    over the four ranks on (a)'s gradients.  Returns (a)'s collectives on
+    each rank (the default opts, all steps), for phase 18 (b)."""
     import shutil
     from repro_torch.models import LM
     from repro_torch.models.common import spec_leaves
@@ -5821,6 +5851,7 @@ def train_mesh(report) -> None:
             f"sync {c['int8_formula']}, f32 all-reduce {c['f32_formula']}), "
             f"{c['ms']:.1f} ms [{nvidia_smi_line()}]")
         assert c["bucket"] <= 1.0 + 1e-6, "int8 sync leaves its bucket"
+    return [r["default"]["coll_kinds"] for r in results]
 
 
 def _dropped(leaves, specs, rules, mesh) -> list:
@@ -5854,6 +5885,7 @@ def train_mesh_main(rank: int, port: int) -> int:
         init_error_state, make_compressed_grad_sync, wire_bytes_f32_allreduce,
         wire_bytes_int8_sync)
     from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.roofline.collectives import parse_collectives
     from repro_torch.parallel.sharding import (default_rules,
                                                sharding_context, shard_tree,
                                                spec_for)
@@ -5926,6 +5958,8 @@ def train_mesh_main(rank: int, port: int) -> int:
             param_off=adam(tree_leaves(state["params"])),
             coll_calls=cc.total // TRAIN_MESH_STEPS,
             coll_bytes=cc.bytes // TRAIN_MESH_STEPS, coll_s=cc.seconds,
+            # phase 18 (b): every collective of the steps, by kind
+            coll_kinds=parse_collectives(cc.records)["per_kind"],
             state_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(
                 {"params": state["params"], "opt": state["opt"]})),
             peak=torch.cuda.max_memory_allocated(),
@@ -6140,12 +6174,287 @@ def train_mesh_pair_main(rank: int, port: int) -> int:
     return 0
 
 
-def train_mesh_phase(report) -> None:
-    """Phase 17: (a) and (d) on four ranks, (b) and (c) on two."""
-    train_mesh(report)
+def train_mesh_phase(report) -> list:
+    """Phase 17: (a) and (d) on four ranks, (b) and (c) on two.  Returns
+    (a)'s collectives on each rank."""
+    kinds = train_mesh(report)
     free()
     ep_pp(report)
     free()
+    return kinds
+
+
+# ------------------------------------------------------------ phase 18 ----
+
+DECODE_MESH_SEED = 18
+DECODE_MESH_STEPS = 8
+#: the fp32-compute run of (c) shows the split exact; two steps do that
+DECODE_FP32_STEPS = 2
+#: (c)'s decode: qwen3-4b cut to 4 layers, B slots over a dense cache
+DECODE_B, DECODE_S = 8, 1024
+#: (a)'s gate on the card's peak memory against the dry-run's prediction
+PEAK_GATE = 0.25
+
+
+def _decode_mesh_setup(device):
+    """Phase 18 (c)'s model and inputs on ``device`` ("meta": their meta
+    stand-ins): full-width qwen3-4b cut to 4 layers, bf16, the dense
+    cache of DECODE_B slots x DECODE_S rows filled from a seed, each
+    step's tokens, and slot positions spread over the cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=4)
+    lm = LM(cfg)
+    cache = lm.init_cache(DECODE_B, DECODE_S, backend=None, device=device)
+    if device == "meta":
+        return lm, cache, None, None
+    gen = torch.Generator(device=device).manual_seed(DECODE_MESH_SEED)
+    for t in cache["layers"].values():
+        t.normal_(generator=gen)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (DECODE_MESH_STEPS, DECODE_B, 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    pos = torch.tensor([100, 231, 362, 493, 624, 755, 886, 1000],
+                       dtype=torch.int32, device=device)
+    return lm, cache, toks, pos
+
+
+def dryrun_rank_main(rank: int, port: int) -> int:
+    """One rank of phase 18 (b) and (c)'s dry-runs, on a fake group of four
+    ranks and no card: the collectives of phase 17 (a)'s train step and of
+    (c)'s decode step on this rank of the 2x2 mesh."""
+    del port
+    from repro_torch.launch.dryrun import dryrun_step, init_fake_group
+    from repro_torch.models import ForwardOpts
+    from repro_torch.models.common import abstract_params
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import default_rules
+    init_fake_group(4, rank)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    rules = default_rules(mesh.axis_names)
+    lm, tcfg, opts, batch = _train_mesh_setup()
+    meta = {k: torch.empty(tuple(v.shape), dtype=v.dtype, device="meta")
+            for k, v in batch.items()}
+    t0 = time.perf_counter()
+    train = dryrun_step(lm, "train", meta, mesh, rules, opts, tcfg)
+    dlm, cache, _, _ = _decode_mesh_setup("meta")
+    dmeta = {"tokens": torch.empty((DECODE_B, 1), dtype=torch.int32,
+                                   device="meta"),
+             "cache": cache,
+             "cache_index": torch.empty((), dtype=torch.int32,
+                                        device="meta")}
+    decode = dryrun_step(dlm, "decode", dmeta, mesh, rules, ForwardOpts(),
+                         params=abstract_params(dlm.spec(), torch.bfloat16))
+    print("RESULT " + json.dumps({
+        "train": train["collectives"]["per_kind"],
+        "decode": decode["collectives"]["per_kind"],
+        "decode_kernels": decode["kernels"],
+        "s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def decode_mesh_main(rank: int, port: int) -> int:
+    """One rank of phase 18 (c): the sharded dense-cache decode step on a
+    2x2 ``data x model`` mesh over gloo on this card, against the single
+    rank on the same weights, cache and tokens, in bf16 (counted) and in
+    fp32 compute."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.parallel.collectives import CollectiveCounter
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import (default_rules,
+                                               logical_to_sharding,
+                                               sharding_context, shard_tree)
+    from repro_torch.roofline.collectives import parse_collectives
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=4,
+                            timeout=timedelta(minutes=10))
+    assert torch.cuda.is_available(), "a phase 18 rank found no card"
+    mesh = make_mesh((2, 2), ("data", "model"))
+    rules = default_rules(mesh.axis_names)
+    lm, cache, toks, pos = _decode_mesh_setup(DEV)
+    # the same weights, cache and tokens in fp32 compute: the single rank's
+    # own bf16 error, and the split's exactness without bf16's rounding
+    lm32 = LM(dataclasses.replace(lm.cfg, dtype="float32"))
+    cache32 = {"layers": {k: v.float() for k, v in cache["layers"].items()}}
+    params = lm.init(DECODE_MESH_SEED, device=DEV)
+
+    def single(model, c, steps):
+        c = {"layers": {k: v.clone() for k, v in c["layers"].items()}}
+        with torch.no_grad():
+            return [model.decode_step(params, toks[i], c, pos + i)[0]
+                    for i in range(steps)]
+
+    ref = single(lm, cache, DECODE_MESH_STEPS)
+    ref32 = single(lm32, cache32, DECODE_MESH_STEPS)
+    sp = shard_tree(params, logical_to_sharding(
+        lm.param_logical_axes(), params, mesh, rules), mesh)
+    sc, sc32 = (lm.shard_cache(c, mesh, rules) for c in (cache, cache32))
+    del params, cache, cache32
+    free()
+    ops.reset_launch_counts()
+    cc = CollectiveCounter()
+    got, times = [], []
+    with torch.no_grad(), sharding_context(mesh, rules), cc:
+        for i in range(DECODE_MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.append(lm.decode_step(sp, toks[i], sc, pos + i)[0])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    with torch.no_grad(), sharding_context(mesh, rules):
+        got32 = [lm32.decode_step(sp, toks[i], sc32, pos + i)[0]
+                 for i in range(DECODE_FP32_STEPS)]
+
+    def worst(fn, a, b):
+        return max(fn(x, y) for x, y in zip(a, b))
+
+    out = dict(rel=worst(_leaf_rel, got, ref),
+               l2=worst(_leaf_l2, got, ref),
+               noise=worst(_leaf_l2, ref, ref32),
+               rel32=worst(_leaf_rel, got32, ref32),
+               shape=list(got[0].shape), step_s=times, launches=launches,
+               kinds=parse_collectives(cc.records)["per_kind"],
+               coll_s=cc.seconds, peak=torch.cuda.max_memory_allocated(),
+               cache_shard=list(sc["layers"]["k"].shape))
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def _times(kinds: dict, n: int) -> dict:
+    return {k: {"count": v["count"] * n, "bytes": v["bytes"] * n}
+            for k, v in kinds.items()}
+
+
+def dryrun_phase(p7: dict, p17: list) -> None:
+    """Phase 18: does the dry-run predict the port's real steps on this
+    card?  (a) phase 7's counted step against its dry-run on one rank, (b)
+    phase 17 (a)'s 2x2 collectives against each rank's dry-run, (c) the
+    sharded dense-cache decode on 2x2 ranks against the single rank and
+    its dry-run, (d) the command line on a full-size cell.  ``p7`` is
+    ``train_run``'s counted step, ``p17`` phase 17 (a)'s collectives on
+    each rank."""
+    import os
+    from repro_torch.launch.dryrun import dryrun_step
+    from repro_torch.roofline.analysis import Roofline
+    cpu_only = {"CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT / "src")}
+    dry_procs = _start("--dryrun-rank", 4, cpu_only)
+    out_dir = ROOT / "build" / "dryrun_torch"
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-4b", "--shape", "decode_32k", "--out-dir", str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT, env=dict(os.environ, **cpu_only))
+    try:
+        # (a) phase 7's step: the card's counts against the dry-run's
+        meta = {k: torch.empty(shape, dtype=dt, device="meta")
+                for k, (shape, dt) in p7["batch"].items()}
+        t0 = time.perf_counter()
+        rec = dryrun_step(p7["lm"], "train", meta, None, None, p7["opts"],
+                          p7["tcfg"])
+        dry_s = time.perf_counter() - t0
+        card = p7["aten_flops"] + p7["kernel_flops"]
+        ca, ma = rec["cost_analysis"], rec["memory_analysis"]
+        peak, want = p7["peak"], ma["peak_size_in_bytes"]
+        off = abs(peak - want) / want
+        log(f"(a) phase 7's step (qwen3-4b at 12 layers, 8 x 256): FLOPs on "
+            f"the card {p7['aten_flops']} (FlopCounterMode) + {p7['kernel_flops']} "
+            f"(K4, K5) = {card}; dry-run on one rank {int(ca['aten_flops'])} + "
+            f"{int(ca['kernel_flops'])} = {int(ca['flops'])} "
+            f"({dry_s:.1f}s on meta tensors); kernels on the card "
+            f"{ {k: v['launches'] for k, v in p7['kernels'].items()} }, "
+            f"dry-run { {k: v['launches'] for k, v in rec['kernels'].items()} }")
+        log(f"(a) peak memory: card {peak / 2**30:.3f} GiB "
+            f"(max_memory_allocated over the step, {p7['before'] / 2**30:.3f} "
+            f"GiB allocated before it), dry-run {want / 2**30:.3f} GiB "
+            f"(arguments {ma['argument_size_in_bytes'] / 2**30:.3f} + temps "
+            f"{ma['temp_size_in_bytes'] / 2**30:.3f}); off by {off * 100:.1f}% "
+            f"(limit {PEAK_GATE * 100:.0f}%)")
+        failed = [m for ok, m in (
+            (card == ca["flops"], "(a) the dry-run's FLOPs are not the card's"),
+            (off <= PEAK_GATE, "(a) the dry-run's peak memory misses the "
+                               "card's")) if not ok]
+        r = Roofline("qwen3-4b[12 layers]", "train 8x256", "1x1", 1,
+                     ca["flops"], ca["bytes accessed"], 0.0,
+                     p7["model_flops"], 8 * 256,
+                     fp32_flops=ca["flops_by_dtype"].get("float32", 0.0))
+        step_s = p7["step_ms"] / 1e3
+        log(f"(a) H100 roofline of the step: compute {r.compute_s * 1e3:.3f} ms "
+            f"({ca['flops_by_dtype']}), memory {r.memory_s * 1e3:.3f} ms "
+            f"({int(ca['bytes accessed'])} B accessed), bound "
+            f"{r.bound_s * 1e3:.3f} ms ({r.dominant}); measured step "
+            f"{p7['step_ms']:.2f} ms (phase 7's mean), {r.bound_s / step_s * 100:.1f}% "
+            f"of it the bound; MFU "
+            f"{p7['model_flops'] / step_s / BF16_PEAK * 100:.2f}% "
+            f"(at the bound {r.mfu_bound * 100:.2f}%) [{nvidia_smi_line()}]")
+        # (c) the sharded decode on four rank processes
+        t0 = time.perf_counter()
+        dec = _spawn("--decode-mesh-rank", 4, {})
+        dec_s = time.perf_counter() - t0
+        dry = _collect("--dryrun-rank", dry_procs)
+        cli_out = cli.communicate(timeout=300)[0]
+    finally:
+        for p in dry_procs + [cli]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    # (b) phase 17 (a)'s collectives on every rank: 3 steps of the dry-run's
+    for r, (real, d) in enumerate(zip(p17, dry)):
+        log(f"(b) rank {r}: phase 17 (a)'s {TRAIN_MESH_STEPS} steps {real}; "
+            f"dry-run x {TRAIN_MESH_STEPS} {_times(d['train'], TRAIN_MESH_STEPS)}")
+        if real != _times(d["train"], TRAIN_MESH_STEPS):
+            failed.append(f"(b) rank {r}: the dry-run's collectives are not "
+                          "the card's")
+    for r, (res, d) in enumerate(zip(dec, dry)):
+        k3 = res["launches"]["rmsnorm_rows"]
+        want_k3 = DECODE_MESH_STEPS * d["decode_kernels"]["rmsnorm_rows"][
+            "launches"]
+        lim = max(BF16_GATE, 2 * res["noise"])
+        log(f"(c) rank {r}: logits {res['shape']} against the single rank: "
+            f"relative L2 error {res['l2']:.3e} (limit {lim:.3e}: {BF16_GATE} "
+            f"or twice the single rank's own bf16 error against fp32 "
+            f"compute, {res['noise']:.3e}), rel max err {res['rel']:.3e}; "
+            f"in fp32 compute rel max err {res['rel32']:.3e} (limit "
+            f"{EP_GATE}); cache shard "
+            f"{res['cache_shard']}; K3 launches {k3} (dry-run {want_k3}); "
+            f"step ms {[round(t * 1e3, 1) for t in res['step_s']]}, "
+            f"{res['coll_s'] / sum(res['step_s']) * 100:.1f}% of it in "
+            f"collectives; collectives {res['kinds']}, dry-run x "
+            f"{DECODE_MESH_STEPS} {_times(d['decode'], DECODE_MESH_STEPS)}; "
+            f"peak {res['peak'] / 2**30:.2f} GiB [{nvidia_smi_line()}]")
+        failed += [m for ok, m in (
+            (res["l2"] <= lim, f"(c) rank {r}: bf16 logits differ"),
+            (res["rel32"] <= EP_GATE, f"(c) rank {r}: fp32 logits differ"),
+            (k3 == want_k3 == DECODE_MESH_STEPS * 17,
+             f"(c) rank {r}: K3 launches"),
+            (res["kinds"] == _times(d["decode"], DECODE_MESH_STEPS),
+             f"(c) rank {r}: the dry-run's collectives are not the card's"))
+            if not ok]
+    log(f"(c) 2x2 decode ranks took {dec_s:.1f}s; the four dry-run ranks "
+        f"{max(d['s'] for d in dry):.1f}s each at most")
+    # (d) the command line on a full-size cell under this machine's torch
+    for line in cli_out.splitlines():
+        log(f"(d) {line}")
+    path = out_dir / "pod16x16" / "qwen3-4b__decode_32k.json"
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    if cli.returncode != 0 or not rec.get("ok"):
+        failed.append("(d) the dry-run CLI failed")
+        rec = {"cost_analysis": {"flops": 0}, "dryrun_s": None,
+               "collectives": {"total_bytes": 0},
+               "memory_analysis": {"peak_size_in_bytes": 0}}
+    log(f"(d) qwen3-4b x decode_32k on 256 fake ranks under torch "
+        f"{torch.__version__}: {rec['cost_analysis']['flops']:.4g} FLOPs, "
+        f"{rec['collectives']['total_bytes']:.4g} collective bytes, "
+        f"{rec['memory_analysis']['peak_size_in_bytes'] / 2**30:.2f} GiB peak "
+        f"a rank, in {rec['dryrun_s']}s")
+    assert not failed, failed
 
 
 def free() -> None:
@@ -6260,7 +6569,7 @@ def main() -> int:
     free()
 
     phase("7 train full-width qwen3-4b, 12 layers, bf16 compute")
-    train_run(report)
+    p7 = train_run(report)
     free()
 
     phase("8 full-width zamba2-1.2b and rwkv6-1.6b fp32: kernel path vs "
@@ -6324,8 +6633,17 @@ def main() -> int:
           "(4 layers) FSDP + TP on 2x2, moonshot expert parallel on 1x2, a "
           "2-stage pipeline, the int8 gradient sync")
     t0 = time.perf_counter()
-    train_mesh_phase(report)
+    p17 = train_mesh_phase(report)
     log(f"phase 17 took {time.perf_counter() - t0:.1f}s")
+
+    phase("18 dry-run against the card: phase 7's step counted against its "
+          "dry-run, phase 17's 2x2 collectives, the sharded dense-cache "
+          "decode on 2x2, the dry-run CLI on a full-size cell")
+    t0 = time.perf_counter()
+    dryrun_phase(p7, p17)
+    del p7
+    free()
+    log(f"phase 18 took {time.perf_counter() - t0:.1f}s")
 
     csrc = "src/repro_torch/csrc/"
     meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",
@@ -6387,7 +6705,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     for flag, entry in (("--train-mesh-rank", "train_mesh_main"),
-                        ("--train-mesh-pair", "train_mesh_pair_main")):
+                        ("--train-mesh-pair", "train_mesh_pair_main"),
+                        ("--decode-mesh-rank", "decode_mesh_main"),
+                        ("--dryrun-rank", "dryrun_rank_main")):
         if flag in sys.argv:
             argv = sys.argv[1:]
             opt = {argv[i]: int(argv[i + 1]) for i in range(0, len(argv), 2)}

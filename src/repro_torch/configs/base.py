@@ -1,7 +1,8 @@
-"""Model and training configuration for the PyTorch port: copies of
-``ModelConfig`` (and its ``reduced()``), ``ShapeConfig`` and
-``TrainConfig`` from the JAX package's ``configs/base.py``, kept verbatim so both packages describe a
-model and its optimizer with the same numbers.  The port imports
+"""Model, shape, parallelism, training and job configuration for the
+PyTorch port: copies of ``ModelConfig`` (and its ``reduced()``),
+``ShapeConfig``, ``ParallelConfig``, ``TrainConfig`` and ``RunConfig`` from
+the JAX package's ``configs/base.py``, kept verbatim so both packages
+describe a model, its mesh and its optimizer with the same numbers.  The port imports
 nothing of the JAX package, so it carries its own copy.
 
 One ``ModelConfig`` dataclass covers every architecture family
@@ -14,7 +15,9 @@ for CPU tests.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 
 def pad_to_multiple(x: int, m: int) -> int:
@@ -280,6 +283,25 @@ class ShapeConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """How a job maps onto the mesh."""
+    mesh_shape: Tuple[int, ...] = (16, 16)
+    mesh_axes: Tuple[str, ...] = ("data", "model")
+    fsdp: bool = True               # shard params/opt over "data" (ZeRO-3)
+    zero_stage: int = 3             # 0: replicated grads+state; 2: sharded state; 3: sharded params
+    pipeline_stages: int = 1        # >1 => pipeline over leading axis
+    remat: str = "selective"        # none | selective | full
+    scan_layers: bool = True
+    microbatches: int = 1
+    grad_compression: str = "none"  # none | int8_ef
+    collective_matmul: bool = False
+
+    @property
+    def num_devices(self) -> int:
+        return math.prod(self.mesh_shape)
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 3e-4
     min_lr_ratio: float = 0.1
@@ -293,3 +315,14 @@ class TrainConfig:
     seed: int = 0
     z_loss: float = 1e-4            # logit z-loss (stability at scale)
     moe_aux_loss: float = 1e-2      # load-balance loss weight
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """A full job description (what the scheduler queues)."""
+    model: ModelConfig = None
+    shape: ShapeConfig = None
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    checkpoint_every: Optional[int] = None  # None => Young's formula

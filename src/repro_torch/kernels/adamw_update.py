@@ -15,7 +15,10 @@ the host.  The TPU kernel returns new (m, v, master); the port updates in
 place, which saves three tensor-sized allocations per parameter.
 
 ``adamw_fused`` launches the kernel for CUDA tensors and runs the plain
-version, ``adamw_ref``, for CPU tensors; it never falls back.  Triton is
+version, ``adamw_ref``, for CPU tensors; it never falls back.  On meta
+tensors (the dry-run) it updates nothing, as there is nothing to update in
+place.  Each launch and meta call reports its work to an active
+``roofline.kernels`` counter.  Triton is
 imported, and the kernel compiled, only where it is launched.
 """
 from __future__ import annotations
@@ -26,6 +29,7 @@ import os
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as work
 
 BLOCK = 4096
 
@@ -84,7 +88,7 @@ def adamw_fused(g, m, v, p, scale, *, lr: float, beta1: float, beta2: float,
         return adamw_ref(g, m, v, p, scale, lr=lr, beta1=beta1, beta2=beta2,
                          eps=eps, weight_decay=weight_decay,
                          bias_corr1=bias_corr1, bias_corr2=bias_corr2)
-    if p.device.type != "cuda":
+    if p.device.type not in ("cuda", "meta"):
         raise ValueError(f"adamw_fused: no kernel for {p.device}")
     if g.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"adamw_fused: unsupported gradient dtype {g.dtype}")
@@ -101,10 +105,13 @@ def adamw_fused(g, m, v, p, scale, *, lr: float, beta1: float, beta2: float,
             or scale.numel() != 1):
         raise ValueError("adamw_fused: scale must be one float32 on "
                          f"{p.device}")
-    g = g.contiguous()
     n = p.numel()
     if not n:
         return
+    work.report("adamw_fused", work.adamw, n, g.element_size())
+    if p.device.type == "meta":
+        return
+    g = g.contiguous()
     triton, kernel = _kernel()
     with _build.on_device(p.device):
         kernel[(triton.cdiv(n, BLOCK),)](

@@ -14,8 +14,11 @@ layout q (B*KV*G, S, D), k, v (B*KV, S, D); and ``flash_attention_model``
 on the model layout q (B, S, KV, G, D), k, v (B, S, KV, D), which the kernel
 reads and writes through element strides, with no permute or copy.  Each
 launches the kernel for CUDA tensors and runs the plain version,
-``flash_attention_ref``, for CPU tensors; it never falls back.  The kernel
-has no backward, so it raises on a CUDA input that requires a gradient
+``flash_attention_ref``, for CPU tensors; it never falls back.  On meta
+tensors (the dry-run) it checks the operands as ``plan`` does and returns
+a meta output, computing nothing.  Each launch and meta call reports its
+work to an active ``roofline.kernels`` counter.  The kernel has no
+backward, so it raises on a CUDA or meta input that requires a gradient
 rather than return a tensor that cuts the graph.
 
 ``plan`` is the launch's host side as a pure function of the tensors'
@@ -34,6 +37,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as work
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BF16_HEAD_DIMS = (32, 64, 128)
@@ -178,6 +182,11 @@ def _launch(q, k, v, out, causal: bool) -> None:
     """Launch K2 on model-layout views (see ``plan``) into ``out``."""
     _build.refuse_autograd("flash_attention", q, k, v)
     p = plan(q, k, v, out, causal=causal)
+    work.report("flash_attention_bhsd" if p.mode == "bf16"
+                else "flash_attention_bhsd_fp32", work.flash_attention, q, k,
+                causal)
+    if q.device.type == "meta":
+        return
     strides = (ctypes.c_longlong * 14)(*p.strides())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with _build.on_device(q.device):
@@ -193,7 +202,7 @@ def _launch(q, k, v, out, causal: bool) -> None:
 
 
 def _device(q):
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     return q.device.type
 

@@ -23,9 +23,12 @@ x (BH, S, P), da (BH, S); and ``ssd_scan_model`` on the model layout x
 (B, S, H, P), da (B, S, H), which the kernel reads and writes through
 element strides, with no permute or copy.  Each launches the kernel for
 CUDA tensors and runs the plain version, ``ssd_scan_ref``, for CPU
-tensors; it never falls back.  Neither package has a backward for this
-scan, so it raises on a CUDA input that requires a gradient rather than
-return a tensor that cuts the graph.  ``plan`` is the launch's host side as
+tensors; it never falls back.  On meta tensors (the dry-run) it checks
+the operands as ``plan`` does and returns a meta output, computing
+nothing.  Each launch and meta call reports its work to an active
+``roofline.kernels`` counter.  Neither package has a backward for this
+scan, so it raises on a CUDA or meta input that requires a gradient rather
+than return a tensor that cuts the graph.  ``plan`` is the launch's host side as
 a pure function of the tensors (tested on CPU tensors).  Both modes count
 their launches in ``ssd_scan_bhsd.launches``, whichever entry launched.
 
@@ -42,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as work
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # P and N: the bf16 mode pads both to 64 in shared memory; the fp32 mode's
@@ -227,6 +231,9 @@ def _launch(x, da, b, c, out) -> None:
     """Launch K6 on model-layout views (see ``plan``) into ``out``."""
     _build.refuse_autograd("ssd_scan_bhsd", x, da, b, c)
     p = plan(x, da, b, c, out)
+    work.report("ssd_scan_bhsd", work.ssd_scan, x, da, b, c)
+    if x.device.type == "meta":
+        return
     strides = (ctypes.c_longlong * 13)(*p.strides())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with _build.on_device(x.device):
@@ -239,7 +246,7 @@ def _launch(x, da, b, c, out) -> None:
 
 
 def _device(x) -> str:
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_scan_bhsd: no kernel for {x.device}")
     return x.device.type
 

@@ -3,8 +3,9 @@
 Model code calls these; each reshapes to its kernel's layout and back
 (K2, K6 and K7 read and write the model layout themselves, through
 strides).
-On a CPU tensor the kernel module runs its plain version, on a CUDA tensor it
-launches the kernel (``repro_torch.kernels.{flash_attention,paged_decode,
+On a CPU tensor the kernel module runs its plain version, on a meta tensor
+(the dry-run) its meta path, on a CUDA tensor it launches the kernel
+(``repro_torch.kernels.{flash_attention,paged_decode,
 rmsnorm,softmax_xent,adamw_update,mamba2_ssd,rwkv6_wkv}``).  ``launch_counts()`` reads how often
 each kernel was launched; a launch is counted only where a kernel actually
 runs, never for a plain version.  K2 counts its two modes apart:

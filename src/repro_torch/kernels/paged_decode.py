@@ -19,10 +19,14 @@ bounds it on the card and what its design does about that:
   with no live page in the shard gives exactly ``(0, 0, NEG_INF)``.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
-version, ``paged_decode_ref``, for CPU tensors; it never falls back.  The
-kernels have no backward, so they raise on a CUDA input that requires a
-gradient rather than return a tensor that cuts the graph.  Each counts its
-own launches: one per call.
+version, ``paged_decode_ref``, for CPU tensors; it never falls back.  On
+meta tensors (the dry-run) it checks the operands and returns meta outputs
+of the kernel's shapes and dtypes, computing nothing.  Each launch and
+meta call reports its work to an active ``roofline.kernels`` counter, as
+over the whole table (the live rows are on the card).  The kernels have no
+backward, so they raise on a CUDA or meta input that requires a gradient
+rather than return a tensor that cuts the graph.  Each counts its own
+launches: one per call.
 
 Every mode is one launch of one design: each slot's live pages split over
 the ``splits`` blocks of a thread-block cluster, merged in distributed
@@ -47,6 +51,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as work
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -253,7 +258,7 @@ def _launch(fn, q, k_pool, v_pool, scales, page_table, positions,
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pool, v_pool, page_table, positions, ks,
                                 vs, page_offset, partials)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{what}: no kernel for {q.device}")
     _build.refuse_autograd(what, q, k_pool, v_pool,
                            *(s for s in scales if s is not None))
@@ -270,6 +275,14 @@ def _launch(fn, q, k_pool, v_pool, scales, page_table, positions,
         operands += [("k_scale", ks, (n_pages, page, kv), torch.float32),
                      ("v_scale", vs, (n_pages, page, kv), torch.float32)]
     _check(what, q, operands)
+    work.report(what, work.paged_decode, q, page_table, b * m * page, quant,
+                partials)
+    if q.device.type == "meta":
+        if partials:
+            l = torch.empty(b, kv, g, dtype=torch.float32, device="meta")
+            return (torch.empty(b, kv, g, d, dtype=torch.float32,
+                                device="meta"), l, torch.empty_like(l))
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if d * k_pool.element_size() % 16 or k_pool.data_ptr() % 16 \
             or v_pool.data_ptr() % 16:
         raise ValueError(f"{what}: rows of {d} {k_pool.dtype} are not a "

@@ -10,9 +10,12 @@ It is bound by memory: 2 bytes read and 2 written per bf16 element against
 norm) and the D=128 head rows of qwen3's q/k norms.
 
 ``rmsnorm_rows`` launches the kernel for CUDA tensors and runs the plain
-version, ``rmsnorm_ref``, for CPU tensors; it never falls back.  The kernel
-has no backward, so it raises on a CUDA input that requires a gradient
-rather than return a tensor that cuts the graph.  Triton is imported, and
+version, ``rmsnorm_ref``, for CPU tensors; it never falls back.  On meta
+tensors (the dry-run) it returns a meta output of the kernel's shape and
+dtype and computes nothing.  Each launch and meta call reports its work
+to an active ``roofline.kernels`` counter.  The kernel has no backward,
+so it raises on a CUDA or meta input that requires a gradient rather than
+return a tensor that cuts the graph.  Triton is imported, and
 the kernel compiled, only where it is launched.
 """
 from __future__ import annotations
@@ -23,6 +26,7 @@ import os
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as work
 
 
 def rmsnorm_ref(x, scale, *, eps: float = 1e-5):
@@ -59,7 +63,7 @@ def rmsnorm_rows(x, scale, *, eps: float = 1e-5):
     """x: (N, d); scale: (d,) fp32.  Returns (N, d) like x."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps=eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm_rows: no kernel for {x.device}")
     _build.refuse_autograd("rmsnorm_rows", x, scale)
     n, d = x.shape
@@ -70,6 +74,9 @@ def rmsnorm_rows(x, scale, *, eps: float = 1e-5):
                          f"float32 ({d},) on {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"rmsnorm_rows: unsupported dtype {x.dtype}")
+    work.report("rmsnorm_rows", work.rmsnorm, x, d)
+    if x.device.type == "meta":
+        return torch.empty((n, d), dtype=x.dtype, device="meta")
     x = x.contiguous()
     out = torch.empty_like(x)
     triton, kernel = _kernel()

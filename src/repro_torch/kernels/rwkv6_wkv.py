@@ -33,9 +33,12 @@ r, k, lw (BH, S, K), v (BH, S, V); and ``wkv6_scan_model`` on the model
 layout r, k, lw (B, S, H, K), v (B, S, H, V), which the kernel reads and
 writes through element strides, with no permute or copy.  Each launches the
 kernel for CUDA tensors and runs the plain version, ``wkv6_scan_ref``, for
-CPU tensors; it never falls back.  Neither package has a backward for this
-recurrence, so it raises on a CUDA input that requires a gradient rather
-than return a tensor that cuts the graph.  ``plan`` is the launch's host
+CPU tensors; it never falls back.  On meta tensors (the dry-run) it checks
+the operands as ``plan`` does and returns a meta output, computing
+nothing.  Each launch and meta call reports its work to an active
+``roofline.kernels`` counter.  Neither package has a backward for this
+recurrence, so it raises on a CUDA or meta input that requires a gradient
+rather than return a tensor that cuts the graph.  ``plan`` is the launch's host
 side as a pure function of the tensors (tested on CPU tensors).  Both modes
 count their launches in ``wkv6_scan_bhsd.launches``, whichever entry
 launched.
@@ -53,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as work
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 32         # 32 steps x 2.5 / 2 = 40, the clip of the split
@@ -327,6 +331,9 @@ def wkv6_scan_mma_emu(r, k, v, lw, u):
 
 def _launch(p: Plan, r, k, v, lw, u, out) -> None:
     """Launch K7 as ``p`` says on model-layout views (see ``plan``)."""
+    work.report("wkv6_scan_bhsd", work.wkv6_scan, r, k, v, lw, u)
+    if r.device.type == "meta":
+        return
     strides = (ctypes.c_longlong * 15)(*p.strides())
     u = u.contiguous()
     stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -340,7 +347,7 @@ def _launch(p: Plan, r, k, v, lw, u, out) -> None:
 
 
 def _device(r) -> str:
-    if r.device.type not in ("cpu", "cuda"):
+    if r.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"wkv6_scan_bhsd: no kernel for {r.device}")
     return r.device.type
 

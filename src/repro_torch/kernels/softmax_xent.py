@@ -14,7 +14,10 @@ differentiated through ``SoftmaxXent``, whose backward is the second kernel.
 
 ``softmax_xent_fwd`` and ``softmax_xent_bwd`` launch their kernels for CUDA
 tensors and run the plain versions, ``softmax_xent_ref`` and
-``softmax_xent_bwd_ref``, for CPU tensors; they never fall back.
+``softmax_xent_bwd_ref``, for CPU tensors; they never fall back.  On meta
+tensors (the dry-run) each returns meta outputs of its kernel's shapes
+and dtypes and computes nothing.  Each launch and meta call reports its
+work to an active ``roofline.kernels`` counter.
 
 Layouts: logits (N, Vp) float32 or bfloat16; labels (N,) int32 or int64,
 each < vocab; nll, lse (N,) float32; dlogits like logits.  Columns >= vocab
@@ -27,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import kernels as work
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
@@ -86,10 +90,15 @@ def softmax_xent_fwd(logits, labels, vocab: int):
     """logits (N, Vp); labels (N,).  Returns (nll, lse), (N,) fp32 each."""
     if logits.device.type == "cpu":
         return softmax_xent_ref(logits, labels, vocab)
-    if logits.device.type != "cuda":
+    if logits.device.type not in ("cuda", "meta"):
         raise ValueError(f"softmax_xent_fwd: no kernel for {logits.device}")
     _check("softmax_xent_fwd", logits, labels, vocab)
     n, vp = logits.shape
+    work.report("softmax_xent_fwd", work.softmax_xent_fwd, n, vp,
+                logits.element_size())
+    if logits.device.type == "meta":
+        return (torch.empty(n, device="meta", dtype=torch.float32),
+                torch.empty(n, device="meta", dtype=torch.float32))
     logits = logits.contiguous()
     _check_aligned("softmax_xent_fwd", logits)
     labels = labels.to(torch.int32).contiguous()
@@ -111,7 +120,7 @@ def softmax_xent_bwd(logits, labels, lse, g_nll, g_lse, vocab: int):
     lse)``; ``lse`` is the forward's.  Returns dlogits like logits."""
     if logits.device.type == "cpu":
         return softmax_xent_bwd_ref(logits, labels, lse, g_nll, g_lse, vocab)
-    if logits.device.type != "cuda":
+    if logits.device.type not in ("cuda", "meta"):
         raise ValueError(f"softmax_xent_bwd: no kernel for {logits.device}")
     _check("softmax_xent_bwd", logits, labels, vocab)
     n, vp = logits.shape
@@ -120,6 +129,10 @@ def softmax_xent_bwd(logits, labels, lse, g_nll, g_lse, vocab: int):
             raise ValueError(f"softmax_xent_bwd: {name} is "
                              f"{tuple(t.shape)} on {t.device}, expected "
                              f"({n},) on {logits.device}")
+    work.report("softmax_xent_bwd", work.softmax_xent_bwd, n, vp,
+                logits.element_size())
+    if logits.device.type == "meta":
+        return torch.empty((n, vp), dtype=logits.dtype, device="meta")
     logits = logits.contiguous()
     _check_aligned("softmax_xent_bwd", logits)
     labels = labels.to(torch.int32).contiguous()

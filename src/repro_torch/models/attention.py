@@ -602,3 +602,76 @@ def attention_decode_block(p, cfg, x, k_pool, v_pool, positions,
     y = decode_attention(q, k_pool, v_pool, positions, page_table,
                          decode_impl, k_scale=k_scale, v_scale=v_scale)
     return output_proj(p, cfg, y)
+
+
+# ------------------------------------------------- sharded dense decode ----
+
+def dense_decode_partials(q, k_rows, v_rows, positions, offset: int):
+    """One rank's partial decode attention over its rows of a dense cache
+    split along the sequence: q (B, 1, KV, G, D) at (B,) global
+    ``positions``; k_rows, v_rows (B, S_local, KV, D), the positions from
+    ``offset``.  Row j is live where ``offset + j <= positions``.  Scores
+    and softmax in fp32, the weights cast to the rows' dtype before PV, as
+    in ``chunk_attention``.  Returns the raw fp32 triple (acc (B, 1, KV, G, D), l (B, KV, G), m (B, KV,
+    G)); a rank with no live row of a slot gives (0, 0, NEG_INF)."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q, k_rows).float()[..., 0, :]
+    s = s / math.sqrt(q.shape[-1])
+    cols = offset + torch.arange(k_rows.shape[1], device=q.device)
+    valid = (cols[None, :] <= positions.long()[:, None])[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    mx = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - mx[..., None]), torch.zeros_like(s))
+    acc = torch.einsum("bkgs,bskd->bkgd", p.to(v_rows.dtype), v_rows)
+    return acc.float()[:, None], p.sum(dim=-1), mx
+
+
+def merge_decode_partials(acc, l, m, group):
+    """The online-softmax merge of ``dense_decode_partials`` over the ranks
+    of ``group`` (``None``: this rank's alone), in functional collectives:
+    one all-reduce MAX of m, then one all-reduce SUM of acc·w and l·w
+    packed into one (B, 1, KV, G, D + 1) tensor, ``w = exp(m - max m)``.
+    Returns (B, 1, KV, G, D) fp32, the same on every rank."""
+    gm = coll.all_reduce(m, group, op="max")
+    w = torch.exp(m - gm)[:, None, ..., None]
+    d = acc.shape[-1]
+    packed = coll.all_reduce(torch.cat([acc * w, l[:, None, ..., None] * w],
+                                       dim=-1), group)
+    return packed[..., :d] / torch.clamp(packed[..., d:], min=1e-30)
+
+
+def sharded_attention_decode_block(p, cfg, x, k_rows, v_rows, positions,
+                                   seq_group, offset: int,
+                                   norm_impl: str = "kernel"):
+    """One-token decode of this rank's batch rows over its rows of a dense
+    cache split along the sequence over ``seq_group`` (its positions from
+    ``offset``; ``None``: the whole sequence), under a sharding context.
+    The projections are tensor-parallel (``tpmm``); q, k and v come out
+    with every head (gathered over the model group where the rules split
+    the heads, whole where they drop the split) and enter the
+    sequence-split attention through ``copy_to``.  The rank holding a
+    slot's position writes its new K/V row in place; every rank attends
+    over its live rows, the partials merge over ``seq_group``, and the
+    output projection takes this rank's heads of the merged rows and
+    reduces over the model group.  x (B, 1, d) -> (B, 1, d)."""
+    psum = torch.float32
+    q, k, v = project_qkv(p, cfg, x, positions[:, None], norm_impl,
+                          full_heads=True, psum_dtype=psum)
+    q, k, v = (coll.copy_to(t, seq_group, psum) for t in (q, k, v))
+    b, s_loc = k_rows.shape[:2]
+    local = positions.long() - offset
+    mine = ((local >= 0) & (local < s_loc))[:, None, None]
+    idx = local.clamp(0, s_loc - 1)
+    rows = torch.arange(b, device=x.device)
+    for cache, new in ((k_rows, k), (v_rows, v)):
+        cache[rows, idx] = torch.where(mine, new[:, 0].to(cache.dtype),
+                                       cache[rows, idx])
+    y = merge_decode_partials(
+        *dense_decode_partials(q, k_rows, v_rows, positions, offset),
+        seq_group).to(q.dtype)
+    y = y.reshape(b, 1, -1, y.shape[-1])
+    g = tp_group(p["wo"]["kernel"], 0)
+    if g is not None:          # every head on every rank: keep this rank's
+        hl = p["wo"]["kernel"].shape[0]
+        r = coll.group_rank(g)
+        y = coll.copy_to(y, g, psum)[:, :, r * hl:(r + 1) * hl]
+    return output_proj(p, cfg, y, psum)

@@ -28,11 +28,17 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import DTYPES, P, apply_norm, norm_spec, \
     stack_spec
-from repro_torch.models.transformer import (ForwardOpts, _records_grad,
+from repro_torch.models.transformer import (ForwardOpts, _cache_split,
+                                            _records_grad,
                                             _refuse_model_split, _remat,
-                                            _stack, embed, layer_params,
-                                            unembed, use, use_top)
+                                            _stack, embed, unembed, use,
+                                            use_top)
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding
+
+#: the logical axes of every leaf of the enc-dec cache, the cross-attention
+#: K/V's too (the JAX ``input_logical_axes``' choice)
+ENC_CACHE_AXES = ("layers", "batch", "kv_seq", "kv_heads", None)
 
 
 def enc_layer_spec(cfg):
@@ -126,11 +132,10 @@ def forward(params, cfg, tokens, enc_embeds,
     tokens (B, S).  Returns (logits (B, S, Vp), cache | None).  Under a
     sharding context on a mesh of processes, this rank's share of the
     batch, its FSDP shards gathered layer by layer; a model split of the
-    weights is refused (ROADMAP item 25)."""
+    weights is refused (ROADMAP item 25); a collected cache holds this
+    rank's rows."""
     sf = sharding.sharded_forward(cfg, build_spec)
     if sf is not None:
-        if collect_cache:
-            raise ValueError("a sharded forward collects no cache")
         _refuse_model_split(cfg, sf)
     params = use_top(params, sf)
     enc_out = encode(params, cfg, enc_embeds, opts, sf)
@@ -158,14 +163,29 @@ def decode_step(params, cfg, tokens, cache, positions,
     ``cache`` the dense layout of ``init_cache`` (or a prefill's cache
     whose K/V rows were copied into one), its self-attention rows written
     in place at each slot's position.  Returns (logits (B, 1, Vp),
-    cache)."""
+    cache).  Under a sharding context on a mesh of processes (a data-only
+    mesh: ROADMAP item 25), ``tokens`` and ``positions`` are the global
+    batch's and ``cache`` this rank's rows of it (``LM.shard_cache``);
+    the whole batch's logits come back on every rank."""
     if "page_table" in cache:
         raise ValueError("paged KV decode is decoder-only transformer "
                          "families")
     lc = cache["layers"]
+    sf = sharding.sharded_forward(cfg, build_spec)
+    dp = rows = None
+    if sf is not None:
+        _refuse_model_split(cfg, sf)
+        for name in lc:
+            if _cache_split(cache, "layers", name, ENC_CACHE_AXES, sf)[0]:
+                raise ValueError("the enc-dec decode takes a cache split "
+                                 "over its batch rows only")
+        rows = sharding.batch_rows(sf.mesh, sf.rules, tokens.shape[0])
+        dp = sf.mesh.group(sf.batch_axes) if sf.batch_axes else None
+        tokens, positions = tokens[rows], positions[rows]
+        params = use_top(params, sf)
     h = embed(params, cfg, tokens)
     for i in range(cfg.num_layers):
-        lp = layer_params(params, i, "dec_layers")
+        lp = use(params, "dec_layers", sf, i)
         h = h + attn.attention_decode_block(
             lp["self_attn"], cfg, apply_norm(lp["ln1"], h, cfg, norm_impl),
             lc["k"][i], lc["v"][i], positions, norm_impl=norm_impl)
@@ -174,4 +194,5 @@ def decode_step(params, cfg, tokens, cache, positions,
             (lc["xk"][i], lc["xv"][i]))
         h = h + mlp_mod.mlp(lp["mlp"], cfg,
                             apply_norm(lp["ln3"], h, cfg, norm_impl))
-    return unembed(params, cfg, h, norm_impl), cache
+    logits = unembed(params, cfg, h, norm_impl)
+    return (logits if sf is None else coll.gather_from(logits, 0, dp)), cache

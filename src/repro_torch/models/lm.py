@@ -2,11 +2,12 @@
 ``repro.models.lm.LM``) for every family: the decoder-only stack
 (``transformer``: dense, vlm, moe, hybrid, ssm) and the encoder-decoder
 (``encdec``).  The recurrent families and encdec prefill and decode over
-their raw dense cache only."""
+their raw dense cache only.  ``input_specs`` and ``input_logical_axes``
+describe a shape cell's batch on meta tensors, for the dry-run."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -129,18 +130,38 @@ class LM:
         recurrent families the cache holds the final states (and zamba2's
         shared K/V over the S prompt rows), which ``decode_step`` continues
         from once the K/V rows are copied into a cache of the decode
-        length (for encdec: its self-attention K/V)."""
-        logits, cache = self.forward(params, tokens, opts, collect_cache=True,
-                                     img_embeds=img_embeds,
-                                     enc_embeds=enc_embeds)
-        return logits[:, -1:], cache
+        length (for encdec: its self-attention K/V).
+
+        Under a sharding context on a mesh of processes, ``tokens`` and the
+        embeddings are the global batch's: this rank runs its rows, and
+        the last row's logits of the whole batch come back on every rank,
+        with this rank's cache (its rows; the K/V heads its projections
+        computed)."""
+        ctx = sharding.active_mesh()
+        if ctx is None:
+            logits, cache = self.forward(params, tokens, opts,
+                                         collect_cache=True,
+                                         img_embeds=img_embeds,
+                                         enc_embeds=enc_embeds)
+            return logits[:, -1:], cache
+        mesh, rules = ctx
+        rows = sharding.batch_rows(mesh, rules, tokens.shape[0])
+        axes = sharding.batch_axes(mesh, rules)
+        logits, cache = self.forward(
+            params, tokens[rows], opts, collect_cache=True,
+            img_embeds=None if img_embeds is None else img_embeds[rows],
+            enc_embeds=None if enc_embeds is None else enc_embeds[rows])
+        return (coll.gather_from(logits[:, -1:], 0,
+                                 mesh.group(axes) if axes else None), cache)
 
     def decode_step(self, params, tokens, cache, positions,
                     decode_impl: str = "kernel", norm_impl: str = "kernel",
                     pool_group=None, dp_group=None):
         """One token per slot at (B,) positions (``transformer.decode_step``;
         an encdec config: ``encdec.decode_step`` over its dense cache,
-        ``decode_impl`` ignored)."""
+        ``decode_impl`` ignored).  Under a sharding context, the global
+        batch's tokens and positions over this rank's cache shards
+        (``shard_cache``), the whole batch's logits on every rank."""
         if self.is_encdec:
             if pool_group is not None or dp_group is not None:
                 raise ValueError("sharded paged decode is decoder-only")
@@ -151,6 +172,22 @@ class LM:
                                        norm_impl=norm_impl,
                                        pool_group=pool_group,
                                        dp_group=dp_group)
+
+    def cache_logical_axes(self, cache):
+        """The logical axes of every leaf of the raw dense cache: the
+        decoder stack's ``transformer.cache_logical_axes``, and for encdec
+        ("layers", "batch", "kv_seq", "kv_heads", None) on every leaf,
+        the cross-attention K/V's too (JAX's ``input_logical_axes``)."""
+        if self.is_encdec:
+            return {k: _tree_const(v, encdec.ENC_CACHE_AXES)
+                    for k, v in cache.items()}
+        return transformer.cache_logical_axes(self.cfg, cache)
+
+    def shard_cache(self, cache, mesh, rules):
+        """This rank's shards of a whole raw dense cache, which the sharded
+        ``decode_step`` takes (``transformer.shard_cache``)."""
+        return transformer.shard_cache(self.cfg, cache, mesh, rules,
+                                       self.cache_logical_axes(cache))
 
     def prefill_chunk(self, params, tokens, cache, start_pos, dest, last_pos,
                       norm_impl: str = "kernel", pool_group=None,
@@ -252,6 +289,12 @@ class LM:
                                dtype=dtype)
 
 
+def _tree_const(tree, value):
+    if isinstance(tree, dict):
+        return {k: _tree_const(v, value) for k, v in tree.items()}
+    return value
+
+
 def text_len(cfg: ModelConfig, seq_len: int) -> int:
     """Text positions of a ``seq_len`` sequence: a vlm config's image takes
     its first ``num_image_tokens`` (the JAX ``text_len``)."""
@@ -260,12 +303,60 @@ def text_len(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
-def text_len(cfg: ModelConfig, seq_len: int) -> int:
-    """The text positions of a ``seq_len`` sequence: a vlm config's image
-    positions come first and are not text."""
-    if cfg.family == "vlm" and cfg.num_image_tokens:
-        return seq_len - cfg.num_image_tokens
-    return seq_len
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Meta tensors standing in for the batch of a shape cell (the JAX
+    ``input_specs``' ``ShapeDtypeStruct``s; nothing is allocated).
+
+    - train/prefill: int32 tokens (+ labels for train) and any stub
+      frontend's embeddings in ``dtype`` (a vlm config's image patches, an
+      encdec config's frames).
+    - decode: one new int32 token per sequence, the raw dense cache at
+      seq_len (``LM.init_cache(backend=None, device="meta")``) and the 0-d
+      int32 ``cache_index``, the position every sequence decodes at.
+    """
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt=torch.int32):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        st = text_len(cfg, s)
+        batch: Dict[str, Any] = {"tokens": meta((b, st))}
+        if shape.kind == "train":
+            batch["labels"] = meta((b, st))
+        if transformer.has_image(cfg):
+            batch["img_embeds"] = meta((b, cfg.num_image_tokens, cfg.d_model),
+                                       dtype)
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = meta((b, s // cfg.enc_ratio, cfg.d_model),
+                                       dtype)
+        return batch
+    if shape.kind == "decode":
+        return {"tokens": meta((b, 1)),
+                "cache": LM(cfg).init_cache(b, s, backend=None,
+                                            device="meta", dtype=dtype),
+                "cache_index": meta(())}
+    raise ValueError(shape.kind)
+
+
+def input_logical_axes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The logical axes of every leaf of ``input_specs`` (the JAX
+    ``input_logical_axes``)."""
+    if shape.kind in ("train", "prefill"):
+        axes: Dict[str, Any] = {"tokens": ("batch", "seq")}
+        if shape.kind == "train":
+            axes["labels"] = ("batch", "seq")
+        if transformer.has_image(cfg):
+            axes["img_embeds"] = ("batch", "seq", "embed")
+        if cfg.family == "encdec":
+            axes["enc_embeds"] = ("batch", "enc_seq", "embed")
+        return axes
+    lm = LM(cfg)
+    cache = lm.init_cache(shape.global_batch, shape.seq_len, backend=None,
+                          device="meta")
+    return {"tokens": ("batch", None), "cache": lm.cache_logical_axes(cache),
+            "cache_index": ()}
 
 
 def make_batch(cfg: ModelConfig, shape_or_bs, seq_len: int = 0, rng=None,

@@ -29,8 +29,13 @@ Under ``parallel.sharding.sharding_context`` on a mesh of processes,
 batch axes just before the layer (FSDP), the embedding, attention, MLP,
 experts and the vocab projection are split over the model axis where the
 rules split their weights (``parallel.tpmm``), and the logits come out
-whole for this rank's batch rows.  The hybrid and ssm families take no
-model split (ROADMAP item 25).
+whole for this rank's batch rows; a collected cache holds this rank's rows
+and the K/V heads its projections computed.  ``decode_step`` runs the same
+way over this rank's shards of the dense cache (``shard_cache``: the rows
+of its batch split, and the sequence split over the model axis by
+``cache_logical_axes``), its attention merged over the sequence split,
+and returns the whole batch's logits on every rank.  The hybrid and ssm
+families take no model split (ROADMAP item 25).
 """
 from __future__ import annotations
 
@@ -408,15 +413,13 @@ def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
 
     Under a sharding context on a mesh of processes (see the module), the
     forward is this rank's share: ``tokens`` are its batch rows, the
-    parameters its shards, and no cache is collected."""
+    parameters its shards, and a collected cache holds its rows (with the
+    K/V heads of its projections: its own where the rules split them)."""
     layer = {"dense": _attn_layer, "vlm": _attn_layer, "moe": _attn_layer,
              "ssm": _ssm_layer, "hybrid": _hybrid_layer}[cfg.family]
     sf = sharding.sharded_forward(cfg, build_spec)
-    if sf is not None:
-        if collect_cache:
-            raise ValueError("a sharded forward collects no cache")
-        if cfg.family in ("hybrid", "ssm"):
-            _refuse_model_split(cfg, sf)
+    if sf is not None and cfg.family in ("hybrid", "ssm"):
+        _refuse_model_split(cfg, sf)
     psum = None if opts.tp_shardmap else torch.float32
     params = use_top(params, sf)
     h = embed_inputs(params, cfg, tokens, img_embeds, psum)
@@ -490,6 +493,81 @@ def init_cache(cfg, batch_size: int, max_seq: int, device, dtype):
     return cache
 
 
+#: the logical axes of a decode cache's leaves, by leaf name (the JAX
+#: ``cache_logical_axes``' table); zamba2's shared K/V take k's and v's
+CACHE_AXES = {
+    "k": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "shift1": ("layers", "batch", None, "embed"),
+    "shift2": ("layers", "batch", None, "embed"),
+    "wkv": ("layers", "batch", "rwkv_heads", None, None),
+    "conv": ("layers", "batch", "conv", "mamba_inner"),
+    "ssm": ("layers", "batch", "mamba_heads", None, "state"),
+}
+
+
+def cache_logical_axes(cfg, cache):
+    """The logical axes of every leaf of ``init_cache``'s cache (the JAX
+    ``cache_logical_axes``), a tree like the cache."""
+    del cfg
+
+    def walk(t, name=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        return CACHE_AXES[name]
+    return walk(cache)
+
+
+def _cache_split(cache, part, name, axes, sf):
+    """(the mesh axes splitting the sequence dim, their group, this rank's
+    first position) of the leaf ``cache[part][name]``, a shard from
+    ``shard_cache`` of a dense cache leaf (L, B, S, ...) whose logical
+    ``axes`` name its dims; its global shape is the cache's
+    ``"global_shapes"`` entry.  Raises where the split is not one this step
+    runs: the batch dim split other than the batch rows, or a dim past the
+    sequence split."""
+    full = cache.get("global_shapes", {}).get(part, {}).get(name)
+    if full is None:
+        raise ValueError(
+            "under a sharding context the decode step takes this rank's "
+            "shards of the dense cache from LM.shard_cache (or "
+            "transformer.shard_cache), which records the cache's global "
+            "shapes")
+    spec = sharding.spec_for(axes, full, sf.rules, sf.mesh)
+    entries = tuple(spec) + (None,) * (len(full) - len(spec))
+    ax = sharding.spec_axes
+    if entries[0] is not None or ax((entries[1],)) != sf.batch_axes:
+        raise ValueError(f"a cache leaf split {entries} does not split its "
+                         f"batch rows over the batch axes {sf.batch_axes}")
+    if any(e is not None for e in entries[3:]):
+        raise ValueError(f"a cache leaf split {entries} past its sequence "
+                         "dim: the sharded decode splits the batch rows and "
+                         "the sequence only")
+    seq = ax((entries[2],))
+    if not seq:
+        return (), None, 0
+    return (seq, sf.mesh.group(seq),
+            sf.mesh.index(seq) * cache[part][name].shape[2])
+
+
+def shard_cache(cfg, cache, mesh, rules, axes=None):
+    """This rank's shards of a whole dense cache (``init_cache``'s, or its
+    meta stand-in) under ``rules`` by ``axes`` (default
+    ``cache_logical_axes``), with ``"global_shapes"``: each leaf's whole
+    shape, a tree like the cache's, which the sharded ``decode_step``
+    reads (a shard alone cannot tell whether a rule split it)."""
+    axes = axes if axes is not None else cache_logical_axes(cfg, cache)
+    specs = sharding.logical_to_sharding(axes, cache, mesh, rules)
+
+    def walk(t, spec, leaf):
+        if isinstance(t, dict):
+            return {k: walk(v, spec[k], leaf) for k, v in t.items()}
+        return leaf(t, spec)
+    out = walk(cache, specs, lambda t, spec: sharding.shard(t, spec, mesh))
+    out["global_shapes"] = walk(cache, specs, lambda t, _: tuple(t.shape))
+    return out
+
+
 def decode_step(params, cfg, tokens, cache, positions,
                 decode_impl: str = "kernel", norm_impl: str = "kernel",
                 pool_group=None, dp_group=None):
@@ -510,8 +588,23 @@ def decode_step(params, cfg, tokens, cache, positions,
     ``init_cache`` (or of ``forward(collect_cache=True)``) only, whose
     states they update in place (``_recurrent_decode``).  A vlm step takes
     no image: its image rows are in the cache from the prefill, as in JAX.
-    Returns (logits (B, 1, Vp), cache)."""
+    Returns (logits (B, 1, Vp), cache).
+
+    Under a sharding context on a mesh of processes, ``tokens`` and
+    ``positions`` are the global batch's and ``cache`` this rank's shards
+    of the dense cache (``shard_cache``); see ``_sharded_decode``.  The
+    returned logits are the whole batch's, on every rank."""
     page_table = cache.get("page_table")
+    sf = sharding.sharded_forward(cfg, build_spec)
+    if sf is not None:
+        if page_table is not None or pool_group is not None \
+                or dp_group is not None:
+            raise ValueError(
+                "under a sharding context the decode step runs over the "
+                "dense cache of init_cache (shard_cache); paged pools and "
+                "pool groups split pages instead")
+        return _sharded_decode(params, cfg, tokens, cache, positions, sf,
+                               norm_impl), cache
     if cfg.family not in ("dense", "vlm", "moe"):
         if page_table is not None or pool_group is not None \
                 or dp_group is not None:
@@ -540,18 +633,64 @@ def decode_step(params, cfg, tokens, cache, positions,
     return unembed(params, cfg, h, norm_impl), cache
 
 
-def _recurrent_decode(params, cfg, tokens, cache, positions, norm_impl):
+def _sharded_decode(params, cfg, tokens, cache, positions, sf, norm_impl):
+    """The decode step of this rank of ``sf``'s mesh (the decode the JAX
+    dry-run lowers with the cache sharded by ``cache_logical_axes``): this
+    rank's rows of the global ``tokens`` and ``positions`` over its shards
+    of the dense cache; each layer's weights gathered over the batch axes
+    just before the layer (FSDP, ``ShardedForward.use``); the projections,
+    MLP, experts and vocab projection tensor-parallel where the rules
+    split their weights; the attention over this rank's rows of the
+    sequence, merged over the sequence split
+    (``attention.sharded_attention_decode_block``); a moe layer routes the
+    whole batch as one group, its rows gathered over the batch axes first,
+    as the single-rank step routes them.  The hybrid and ssm families take
+    a data-only mesh (ROADMAP item 25).  Returns the whole batch's logits
+    (B, 1, Vp), gathered over the batch axes."""
+    mesh, rules = sf.mesh, sf.rules
+    rows = sharding.batch_rows(mesh, rules, tokens.shape[0])
+    dp = mesh.group(sf.batch_axes) if sf.batch_axes else None
+    tokens, positions = tokens[rows], positions[rows]
+    params = use_top(params, sf)
+    if cfg.family in ("hybrid", "ssm"):
+        _refuse_model_split(cfg, sf)
+        logits = _recurrent_decode(params, cfg, tokens, cache, positions,
+                                   norm_impl, sf)
+        return coll.gather_from(logits, 0, dp)
+    kc, vc = cache["layers"]["k"], cache["layers"]["v"]
+    _, seq_group, offset = _cache_split(cache, "layers", "k",
+                                        CACHE_AXES["k"], sf)
+    h = embed(params, cfg, tokens)
+    for i in range(cfg.num_layers):
+        lp = use(params, "layers", sf, i)
+        h = h + attn.sharded_attention_decode_block(
+            lp["attn"], cfg, apply_norm(lp["ln1"], h, cfg, norm_impl),
+            kc[i], vc[i], positions, seq_group, offset, norm_impl)
+        f_in = apply_norm(lp["ln2"], h, cfg, norm_impl)
+        if "moe" in lp:
+            whole = coll.gather_from(f_in, 0, dp)
+            h = h + moe_mod.moe_ffn_decode(lp["moe"], cfg, whole)[0][rows]
+        else:
+            h = h + mlp_mod.mlp(lp["mlp"], cfg, f_in)
+    return coll.gather_from(unembed(params, cfg, h, norm_impl), 0, dp)
+
+
+def _recurrent_decode(params, cfg, tokens, cache, positions, norm_impl,
+                      sf=None):
     """The ssm and hybrid decode step (the JAX ``decode_step`` bodies):
     every layer's exact single-step recurrence (plain torch: neither
     package has a kernel for it), its new states copied into the cache in
     place; zamba2's shared block decodes over its raw dense K/V rows at
-    ``positions``.  Returns the logits (B, 1, Vp)."""
+    ``positions``.  Under a ``ShardedForward`` (a data-only mesh) these are
+    this rank's rows and shards, each layer's weights gathered just before
+    it, and the shared block attends over a sequence split where the rules
+    make one.  Returns the logits (B, 1, Vp)."""
     states = cache["layers"]
     h = embed(params, cfg, tokens)
     emb0 = h
     n_shared = 0
     for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
+        lp = use(params, "layers", sf, i)
         x = apply_norm(lp["ln1"], h, cfg, norm_impl)
         if cfg.family == "ssm":
             y, (shift1, wkv) = rwkv6.tmix_block(
@@ -571,12 +710,20 @@ def _recurrent_decode(params, cfg, tokens, cache, positions, norm_impl):
             h = h + y
             new = {"conv": torch.cat(conv, dim=-1), "ssm": ssm}
             if _fires(cfg, i):
-                sp, skv = params["shared"], cache["shared"]
+                sp, skv = use(params, "shared", sf), cache["shared"]
                 u = _shared_in(sp, h, emb0)
-                a = attn.attention_decode_block(
-                    sp["attn"], cfg, apply_norm(sp["ln1"], u, cfg, norm_impl),
-                    skv["k"][n_shared], skv["v"][n_shared], positions,
-                    norm_impl=norm_impl)
+                a_in = apply_norm(sp["ln1"], u, cfg, norm_impl)
+                k, v = skv["k"][n_shared], skv["v"][n_shared]
+                if sf is None:
+                    a = attn.attention_decode_block(
+                        sp["attn"], cfg, a_in, k, v, positions,
+                        norm_impl=norm_impl)
+                else:
+                    _, group, offset = _cache_split(
+                        cache, "shared", "k", CACHE_AXES["k"], sf)
+                    a = attn.sharded_attention_decode_block(
+                        sp["attn"], cfg, a_in, k, v, positions, group,
+                        offset, norm_impl)
                 h = h + _shared_ffn(sp, cfg, u + a, norm_impl)
                 n_shared += 1
         for name, t in new.items():

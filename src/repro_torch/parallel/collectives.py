@@ -27,7 +27,10 @@ computation gets the gradient of its own share.  Hence:
 (``parallel.pipeline``), which wraps them in its own autograd functions.
 
 ``CollectiveCounter`` counts the collectives that actually run, with their
-bytes and the host seconds spent in them.
+bytes and the host seconds spent in them, and keeps a record of each (its
+kind, its operand's and result's bytes, its group's size and ranks), which
+``repro_torch.roofline.collectives`` reads; ``send``/``recv`` count there
+as ``collective-permute``, the HLO's name for a pipeline hop.
 """
 from __future__ import annotations
 
@@ -62,15 +65,16 @@ def _staged(fn, t: torch.Tensor, group) -> torch.Tensor:
     return fn(t)
 
 
-def all_reduce(t: torch.Tensor, group, dtype=None) -> torch.Tensor:
-    """The sum of ``t`` over ``group``, reduced in ``dtype`` (default t's)
-    and returned in t's dtype."""
+def all_reduce(t: torch.Tensor, group, dtype=None,
+               op: str = "sum") -> torch.Tensor:
+    """The sum (or with ``op="max"`` the maximum) of ``t`` over ``group``,
+    reduced in ``dtype`` (default t's) and returned in t's dtype."""
     if group is None:
         return t
     src = t if dtype is None else t.to(dtype)
     name = group.group_name
     out = _staged(lambda x: _C.wait_tensor(_C.all_reduce(
-        x.contiguous(), "sum", name)), src, group)
+        x.contiguous(), op, name)), src, group)
     return out.to(t.dtype)
 
 
@@ -115,6 +119,7 @@ def send(t: torch.Tensor, dst: int, group, tag: int) -> None:
     """Point-to-point send to group rank ``dst`` (through the host over
     gloo)."""
     src = t.detach().cpu() if dist.get_backend(group) == "gloo" else t
+    _count_p2p(t, group)
     dist.send(src.contiguous(), dist.get_global_rank(group, dst), group=group,
               tag=tag)
 
@@ -126,6 +131,7 @@ def recv(like: torch.Tensor, src: int, group, tag: int) -> torch.Tensor:
     buf = torch.empty(like.shape, dtype=like.dtype,
                       device="cpu" if host else like.device)
     dist.recv(buf, dist.get_global_rank(group, src), group=group, tag=tag)
+    _count_p2p(buf, group)
     return buf.to(like.device)
 
 
@@ -207,18 +213,75 @@ def exchange(x, group):
     return x if group is None else _Exchange.apply(x, group)
 
 
+#: the HLO name of each functional collective (``roofline.collectives``)
+HLO_KIND = {"all_reduce": "all-reduce",
+            "all_gather_into_tensor": "all-gather",
+            "reduce_scatter_tensor": "reduce-scatter",
+            "all_to_all_single": "all-to-all",
+            "p2p": "collective-permute"}
+
+_counters = []          # the active CollectiveCounters, innermost last
+
+
+def _group_ranks(group) -> tuple:
+    """The global ranks of ``group`` (a process group or its name)."""
+    if isinstance(group, str):
+        from torch.distributed.distributed_c10d import \
+            _resolve_process_group
+        group = _resolve_process_group(group)
+    if group is None:
+        return (dist.get_rank(),)
+    return tuple(dist.get_process_group_ranks(group))
+
+
+def _count_p2p(t: torch.Tensor, group) -> None:
+    """One pipeline hop (a send or a receive) of ``t``, on every active
+    counter."""
+    for c in _counters:
+        c.record("p2p", t, t, group)
+
+
 class CollectiveCounter(TorchDispatchMode):
     """Counts the functional collectives that run while it is active, and
     their bytes (input for all-reduce and reduce-scatter, output for
     all-gather, input for all-to-all) and the host seconds spent in them
-    and in their waits.  Enter it around a whole step: a collective that
-    selective remat replays from its saved output never reaches it."""
+    and in their waits, and the point-to-point hops of ``send``/``recv``
+    under ``"p2p"`` (each hop's tensor on both ends).  Enter it around a
+    whole step: a collective that selective remat replays from its saved
+    output never reaches it.  ``records`` holds each one as a dict: its
+    HLO ``kind``, ``in_bytes``, ``out_bytes``, and its group's
+    ``group_size`` and global ``ranks``."""
 
     def __init__(self):
         super().__init__()
         self.calls = {}
         self.bytes_by = {}
         self.seconds = 0.0
+        self.records = []
+        self._ranks = {}
+
+    def __enter__(self):
+        _counters.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _counters.remove(self)
+        return super().__exit__(*exc)
+
+    def record(self, name: str, src, out, group) -> None:
+        key = group if isinstance(group, str) else id(group)
+        if key not in self._ranks:
+            self._ranks[key] = _group_ranks(group)
+        ranks = self._ranks[key]
+        self.calls[name] = self.calls.get(name, 0) + 1
+        b = (out if name == "all_gather_into_tensor" else src)
+        self.bytes_by[name] = (self.bytes_by.get(name, 0)
+                               + b.numel() * b.element_size())
+        self.records.append({
+            "kind": HLO_KIND[name],
+            "in_bytes": src.numel() * src.element_size(),
+            "out_bytes": out.numel() * out.element_size(),
+            "group_size": len(ranks), "ranks": ranks})
 
     @property
     def bytes(self) -> int:
@@ -236,9 +299,8 @@ class CollectiveCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         self.seconds += time.perf_counter() - t0
         if func in COLLECTIVE_OPS:
-            name = func.overloadpacket.__name__
-            self.calls[name] = self.calls.get(name, 0) + 1
-            src = out if name == "all_gather_into_tensor" else args[0]
-            self.bytes_by[name] = (self.bytes_by.get(name, 0)
-                                   + src.numel() * src.element_size())
+            # the group name is the last positional argument of every one
+            self.record(func.overloadpacket.__name__, args[0], out,
+                        args[-1] if isinstance(args[-1], str)
+                        else kwargs["group_name"])
         return out

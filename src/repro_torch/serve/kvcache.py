@@ -150,6 +150,16 @@ def decode_transient_bytes(cfg, batch: int, max_pages: int, page_size: int,
     return 2 * page_size * hd * itemsize + 4 * g * (hd + 2)
 
 
+def prefill_transient_bytes(cfg, group: int, block_len: int, dtype,
+                            kv_dtype: str = "native") -> int:
+    """Per-rank transient of the sharded paged prefill write path: the
+    (group, block_len) staged K/V block each rank scatters from,
+    O(group·block) and independent of the pool's width P (a replicated
+    pool-sized temporary would be ``P · page_kv_bytes``).  The JAX
+    function's byte math."""
+    return group * block_len * kv_position_bytes(cfg, dtype, kv_dtype)
+
+
 class StagedBuffer:
     """A device tensor of fixed shape, refreshed from a host copy.  ``dev``
     is the same tensor for the life of the buffer, so a CUDA graph can read

@@ -12,12 +12,18 @@ import pytest
 import torch
 
 from repro.configs import CONFIGS as JCONFIGS
+from repro.configs import SHAPES as JSHAPES
+from repro.configs.base import ParallelConfig as JParallelConfig
+from repro.configs.base import RunConfig as JRunConfig
 from repro.configs.base import ShapeConfig as JShapeConfig
 from repro.models import ForwardOpts as JOpts
 from repro.models import LM as JLM
 from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro_torch.configs import CONFIGS as TCONFIGS
+from repro_torch.configs import SHAPES as TSHAPES
+from repro_torch.configs import ParallelConfig as TParallelConfig
+from repro_torch.configs import RunConfig as TRunConfig
 from repro_torch.configs import ShapeConfig as TShapeConfig
 from repro_torch.models import ForwardOpts, LM
 from repro_torch.models import attention as tattn
@@ -62,6 +68,14 @@ def test_config_copies_equal_jax(name):
                                                                 kind)
         assert dataclasses.asdict(js) == dataclasses.asdict(ts)
         assert js.tokens_per_step == ts.tokens_per_step
+    # so are ParallelConfig, RunConfig and the shape set
+    assert dataclasses.asdict(JParallelConfig()) == dataclasses.asdict(
+        TParallelConfig())
+    assert JParallelConfig().num_devices == TParallelConfig().num_devices
+    assert dataclasses.asdict(JRunConfig(model=j)) == dataclasses.asdict(
+        TRunConfig(model=t))
+    assert {k: dataclasses.asdict(v) for k, v in JSHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in TSHAPES.items()}
 
 
 @pytest.mark.parametrize("impl", ["kernel", "plain"])

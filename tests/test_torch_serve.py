@@ -238,6 +238,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.parallel.seqattn, repro_torch.parallel.epmoe\n"
         "import repro_torch.parallel.compression\n"
         "import repro_torch.parallel.pipeline, repro_torch.launch.pp_dryrun\n"
+        "import repro_torch.configs.shapes, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.mesh, repro_torch.roofline.kernels\n"
+        "import repro_torch.roofline.analysis, repro_torch.roofline.report\n"
+        "import repro_torch.roofline.collectives\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
@@ -246,10 +250,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
-    # 35, the ten of repro_torch.core, models.moe and models.encdec, and
-    # the nine of parallel training (parallel.collectives, mesh, sharding,
-    # tpmm, seqattn, epmoe, compression, pipeline and launch.pp_dryrun)
-    assert int(res.stdout) >= 56
+    # 35, the ten of repro_torch.core, models.moe and models.encdec, the
+    # nine of parallel training (parallel.collectives, mesh, sharding,
+    # tpmm, seqattn, epmoe, compression, pipeline and launch.pp_dryrun),
+    # and the dry-run's eight (configs.shapes, launch.dryrun, launch.mesh,
+    # and roofline with its kernels, analysis, report and collectives)
+    assert int(res.stdout) >= 56 + 8
 
 
 def test_default_device_entry_points_raise_without_a_card():
