@@ -249,7 +249,8 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    bytes, peak memory; launches exact (zamba2's prefill K2 6 and K3 89
    times, each decode step K3 89 times and no K2; rwkv6 none); the first
    tokens and the two paths' stream agreement printed.
-13. recurrent training (zamba2-1.2b, rwkv6-1.6b at full width and depth,
+13. recurrent training (zamba2-1.2b at 12 of 38 layers, rwkv6-1.6b at 6
+   of 24, full width (depth cut for the smoke's time),
    fp32 parameters and moments, bf16 compute, random weights from seed
    0): ``FTTrainLoop`` over ``make_train_step`` (blockwise attention, plain
    norms, the plain chunked mixers; K4 and K5) on one fixed batch from a
@@ -286,9 +287,10 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    decode steps) with every layer's expert ids recorded on both paths: a
    row whose ids differ must be a router tie (gap below 1e-4) and takes
    its sequence (prefill) or the decode group (from that step) out of the
-   logits gate, counted; (b) moonshot at full width in bf16 cut to 24 of
+   logits gate, counted; (b) moonshot at full width in bf16 cut to 12 of
    its 48 layers (``LM.init`` draws each stacked leaf in fp32 first: 84.6
-   GiB at 48 layers, 42.6 at 24, reckoned and measured) on phase 5's
+   GiB at 48 layers, 42.6 at 24, reckoned and measured; 12 for the smoke's
+   time) on phase 5's
    workload through the graph and eagerly, native and int8: graph streams
    equal the eager ones, one replay a decode step, K1/K2/K3 launches exact;
    replay ms, tok/s, TTFT p50, pool and graph pool bytes, peak memory; (c)
@@ -348,6 +350,22 @@ code 1, no result line) without one.  Phases, each of which fails the run:
    fp32 compute to 1e-3 (two steps), K3 launches and collectives equal to the
    dry-run's, step ms; (d) ``python -m repro_torch.launch.dryrun --arch
    qwen3-4b --shape decode_32k`` under this machine's torch.
+19. tensor parallelism of the hybrid, ssm and enc-dec families on a 1x2
+   ``data x model`` mesh of two rank processes (``--tp-families-rank R
+   --port P``): zamba2-1.2b at 6 layers (2 x 256), rwkv6-1.6b at 4 (2 x
+   128), seamless-m4t-large-v2 at 2 + 2 (2 x 64), full width, fp32
+   parameters and bf16 compute, zero- and one-initialised leaves redrawn;
+   each rank computes the single rank's references itself; (a) the bf16
+   forward on the kernel path: logits by (c)'s bf16 rule below, launches
+   exact, each K2/K6/K7 launch on the rank's heads run again and held to
+   its plain version on the same shard (2e-2 of the output's largest
+   value) and timed; (b) three train steps: losses and parameters after
+   AdamW by phase 17's rules, each step-0 gradient shard within 2e-2 of
+   the fp32-compute gradient or twice the single rank's own bf16 error,
+   and in fp32 compute within 1e-3 of the single rank's; (c) 8 dense-cache
+   decode steps over ``shard_cache``'s shards (4 slots, 256 rows; zamba2's
+   conv shard misaligned with its mixer's split) by phase 18 (c)'s rules;
+   step ms, collectives a step, the phase's time.
 
 It then prints a ``kernels`` JSON line (K1's entries at the serve shape,
 with the long shape's numbers under ``long``; phases 11 and 14's head
@@ -359,7 +377,9 @@ K2 as ``name[KV=16,G=1,D=64]`` and ``name[KV=16,G=1,D=64,non-causal]``;
 phases 13, 15 and 16's K4 and K5 as ``name[<arch> train]``, timed at
 that phase's shapes and holding its launches, phase 17's as
 ``name[qwen3-4b 2x2 train]``, timed at a rank's shapes and holding rank
-0's launches; none with 0 launches), the
+0's launches, phase 19's local-head launches as ``name[<arch> model split
+1x2: ...]``, timed on rank 0's shard and holding both ranks' launches;
+none with 0 launches), the
 card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -4835,6 +4855,9 @@ def recurrent_decode_serve() -> None:
 #: at 4 x 1024, which with the 17.6 GiB of fp32 state passes the card: it
 #: runs at 4 x 512 (PERF.md's prediction for phase 13)
 REMAT_RUNS = (("none", 512), ("selective", 1024), ("full", 1024))
+#: phase 13's depths (full width): a cut for the smoke's time, which phase
+#: 19 brought near its limit on a slow host
+RECURRENT_TRAIN_LAYERS = {"zamba2-1.2b": 12, "rwkv6-1.6b": 6}
 
 
 def _train_loop_run(lm, tcfg, opts, batch, steps, tmp):
@@ -4884,7 +4907,9 @@ def _train_gates(tag, log_, launches, steps, n_leaves):
 
 
 def recurrent_train(report, steps: int = 6) -> None:
-    """Phase 13: zamba2-1.2b and rwkv6-1.6b at full width and depth (fp32
+    """Phase 13: zamba2-1.2b and rwkv6-1.6b at full width, cut to
+    RECURRENT_TRAIN_LAYERS (the smoke's time; zamba2's shared block fires
+    twice in 12 layers) (fp32
     parameters and moments, bf16 compute, random weights from seed 0)
     trained by ``FTTrainLoop`` over ``make_train_step`` (the plain chunked
     mixers, blockwise attention, plain norms; K4 and K5) on one fixed batch
@@ -4908,7 +4933,8 @@ def recurrent_train(report, steps: int = 6) -> None:
     gen = torch.Generator().manual_seed(13)
     (ROOT / "build").mkdir(exist_ok=True)
     for name in RECURRENT:
-        cfg = get_config(name)
+        cfg = dataclasses.replace(get_config(name),
+                                  num_layers=RECURRENT_TRAIN_LAYERS[name])
         lm = LM(cfg)
         tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
                            total_steps=steps)
@@ -5550,7 +5576,7 @@ def encdec_train(report, steps: int = 4) -> None:
 
 def moe_phase(report) -> None:
     """Phase 15: the head layouts, (a) the fp32 kernel path against the
-    plain path, (b) moonshot-v1-16b-a3b served at 24 of its 48 layers
+    plain path, (b) moonshot-v1-16b-a3b served at 12 of its 48 layers
     (native and int8 pages, graph and eager), (c) arctic-480b served at 1
     of its 35 layers (the same), (d) moonshot trained at 2 layers."""
     moe_layouts(report)
@@ -5558,7 +5584,7 @@ def moe_phase(report) -> None:
     pairs = (("native", {}), ("int8", {"kv_dtype": "int8"}),
              ("native-eager", {"cuda_graph": False}),
              ("int8-eager", {"kv_dtype": "int8", "cuda_graph": False}))
-    moe_serve(report, MOONSHOT, 24, pairs, 153)
+    moe_serve(report, MOONSHOT, 12, pairs, 153)
     moe_serve(report, ARCTIC, 1, pairs, 154)
     moe_train(report)
 
@@ -6457,6 +6483,505 @@ def dryrun_phase(p7: dict, p17: list) -> None:
     assert not failed, failed
 
 
+# ------------------------------------------------------------ phase 19 ----
+
+TP_SEED = 19
+TP_STEPS = 3
+TP_DECODE_STEPS = 8
+#: the fp32-compute run of (c) shows the split exact; two steps do that
+TP_FP32_STEPS = 2
+TP_DECODE_B, TP_DECODE_S = 4, 256
+TP_POSITIONS = (17, 100, 180, 240)
+#: phase 19's families at full width and cut depth (zamba2's shared block
+#: fires once in 6 layers), each with its train batch (B, S)
+TP_FAMILIES = (("zamba2-1.2b", {"num_layers": 6}, (2, 256)),
+               ("rwkv6-1.6b", {"num_layers": 4}, (2, 128)),
+               (SEAMLESS, {"num_layers": 2, "encoder_layers": 2}, (2, 64)))
+#: the ops wrappers whose launches phase 19 captures on each rank's heads
+TP_OPS = {"mamba2_ssd": "ssd_scan_bhsd", "rwkv6_wkv": "wkv6_scan_bhsd",
+          "flash_attention": "flash_attention_bhsd"}
+
+
+def _exact_frac(a, b) -> float:
+    """The fp32 split's gradient leaf ``a`` against the single rank's ``b``
+    as a share of its limit: relative L2 EP_GATE, with the CPU tests'
+    per-element atol of 1e-6 (GRAD's) as a floor, for the leaves whose
+    gradient is zero up to rounding (softmax makes K's bias gradient
+    zero)."""
+    a, b = a.detach().float(), b.detach().float()
+    return float(torch.linalg.vector_norm(a - b) / (
+        EP_GATE * torch.linalg.vector_norm(b) + 1e-6 * b.numel() ** 0.5))
+
+
+def _tp_setup(name, kw, bs):
+    """A phase 19 family: fp32 parameters and bf16 compute, the train
+    step's plain forms (blockwise attention in 256-row chunks, plain norms
+    and mixers, selective remat), warmup 1, a batch from TP_SEED."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import ForwardOpts, LM, make_batch
+    cfg = dataclasses.replace(get_config(name), **kw)
+    assert cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=10)
+    opts = ForwardOpts(attn_impl="blockwise", norm_impl="plain",
+                       mixer_impl="plain", q_chunk=256, kv_chunk=256,
+                       remat="selective")
+    return LM(cfg), tcfg, opts, make_batch(cfg, *bs, rng=TP_SEED)
+
+
+def _tp_redraw(lm, params) -> None:
+    """Every leaf that init sets to zeros or ones (biases, LayerNorms,
+    rwkv6's mixing coefficients, mamba2's D), drawn around that value from
+    TP_SEED, in place: a zero bias hides a dropped one, and AdamW's step on
+    a leaf whose gradient is rounding noise (softmax makes K's bias
+    gradient zero) is past any gate relative to a zero leaf."""
+    from repro_torch.models.common import spec_leaves
+    gen = torch.Generator(device=DEV).manual_seed(TP_SEED)
+    for path, p in spec_leaves(lm.spec()):
+        if p.init in ("zeros", "ones"):
+            *parents, last = path.split("/")
+            node = params
+            for k in parents:
+                node = node[k]
+            node[last] = float(p.init == "ones") + 0.2 * torch.randn(
+                p.shape, generator=gen, device=DEV)
+
+
+def _tp_expected(cfg) -> dict:
+    """Each kernel's launches in one bf16 forward of ``cfg`` on the kernel
+    path under a model split: K6 or K7 a layer, K2 each attention (not the
+    plain cross-attention), K3 each RMSNorm but mamba2's gated one, which
+    is split (``tpmm.split_rms_norm``)."""
+    if cfg.family == "hybrid":
+        shared = cfg.num_layers // cfg.hybrid_attn_every
+        return {"ssd_scan_bhsd": cfg.num_layers,
+                "flash_attention_bhsd": shared,
+                "rmsnorm_rows": cfg.num_layers + 2 * shared + 1}
+    if cfg.family == "ssm":
+        return {"wkv6_scan_bhsd": cfg.num_layers}
+    return {"flash_attention_bhsd": cfg.encoder_layers + cfg.num_layers}
+
+
+def _tp_entry(cfg, fn, args, kw) -> str:
+    """The ``kernels`` line's name of a launch on this rank's heads."""
+    where = f"{cfg.name} model split 1x2"
+    if fn == "flash_attention":
+        _, _, kv, g, d = args[0].shape
+        return (f"flash_attention_bhsd[{where}: {kv * g} of {cfg.num_heads} "
+                f"heads, KV={kv},G={g},D={d}"
+                f"{'' if kw.get('causal', True) else ',non-causal'}]")
+    if fn == "mamba2_ssd":
+        b, s, h, pd = args[0].shape
+        return (f"ssd_scan_bhsd[{where}: {h} of {cfg.ssm_heads} heads, "
+                f"P={pd},N={args[2].shape[-1]}]")
+    b, s, h, kd = args[0].shape
+    return (f"wkv6_scan_bhsd[{where}: {h} of {cfg.rwkv_heads} heads, "
+            f"K=V={kd}]")
+
+
+def _tp_kernel(fn, real, args, kw, timed: bool) -> dict:
+    """A launch captured on this rank's heads, run again on the same
+    inputs and held to its plain version; with ``timed``, the kernel, its
+    plain version and (K2) SDPA timed on them, beside the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    if fn == "flash_attention":
+        q, k, v = args
+        causal = kw.get("causal", True)
+
+        def plain():
+            return model_ref(fa, q, k, v, causal)
+        work = rk.flash_attention(q, k, causal)
+    elif fn == "mamba2_ssd":
+        x, da, bm, cm = args
+        b, s, h, _ = x.shape
+
+        def plain():
+            return ssd.ssd_scan_ref(
+                fold(x), da.transpose(1, 2).reshape(b * h, s), bm, cm,
+                chunk=kw["chunk"]).unflatten(0, (b, h)).transpose(1, 2)
+        work = rk.ssd_scan(*args)
+    else:
+        b, s, h, _ = args[0].shape
+
+        def plain():
+            return wkv.wkv6_scan_ref(
+                *[fold(t) for t in args[:4]], args[4],
+                chunk=kw["chunk"]).unflatten(0, (b, h)).transpose(1, 2)
+        work = rk.wkv6_scan(*args)
+    ref = plain()
+    err = max_err(real(*args, **kw), ref)
+    out = dict(max_abs_err=err, rel=err / float(ref.abs().max()),
+               shapes=[list(t.shape) for t in args])
+    if not timed:
+        return out
+    lib_ms = None
+    if fn == "flash_attention":
+        b, s, kv, g, d = q.shape
+        qh = q.permute(0, 2, 3, 1, 4).reshape(b, kv * g, s, d).contiguous()
+        kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
+        lib_ms = time_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(
+                             qh, kh, vh, is_causal=causal,
+                             enable_gqa=g > 1))
+    bms, by = work.bound()
+    return dict(out, ms=time_ms(lambda: real(*args, **kw)),
+                plain_ms=time_ms(plain, iters=5), bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def _tp_family(name, kw, bs, mesh, rules, rank) -> dict:
+    """One family of phase 19 on this rank: the single rank's references
+    on the card (each rank computes them and keeps its shards), then (a)
+    the bf16 forward on the kernel path, (b) the train steps, (c) the
+    dense-cache decode, on the 1x2 mesh."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.models import ForwardOpts, LM
+    from repro_torch.models.common import spec_leaves
+    from repro_torch.parallel.collectives import CollectiveCounter
+    from repro_torch.parallel.sharding import (sharding_context, shard,
+                                               shard_tree, spec_for)
+    from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import (init_opt_state, lr_schedule,
+                                             tree_leaves, tree_map)
+    from repro_torch.train.trainer import train_state_specs
+    lm, tcfg, opts, batch = _tp_setup(name, kw, bs)
+    cfg = lm.cfg
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32"))
+    leaves = spec_leaves(lm.spec())
+    specs = [spec_for(p.axes, p.shape, rules, mesh) for _, p in leaves]
+    params = lm.init(TP_SEED, device=DEV, dtype=torch.float32)
+    _tp_redraw(lm, params)
+    toks = batch["tokens"].to(DEV)
+    enc = batch["enc_embeds"].to(DEV) if "enc_embeds" in batch else None
+    fwd = ForwardOpts()
+    t_ref = time.perf_counter()
+    # the single rank: (a)'s logits, bf16 and fp32 compute
+    with torch.no_grad():
+        ref = lm.forward(params, toks, fwd, enc_embeds=enc)[0]
+        noise_a = _leaf_l2(ref, lm32.forward(params, toks, fwd,
+                                             enc_embeds=enc)[0])
+    # (b)'s step-0 gradients (bf16, and fp32 compute for each leaf's own
+    # bf16 error) and parameters after the steps, as this rank's shards
+    state = {"params": tree_map(torch.clone, params),
+             "opt": init_opt_state(params), "step": 0}
+    met, grads = _grads_of(lm, state, batch, opts, tcfg)
+    exact = _grads_of(lm32, state, batch, opts, tcfg)[1]
+    noise = [_leaf_l2(g, e) for g, e in zip(grads, exact)]
+    grads, exact = ([shard(g, sp, mesh) for g, sp in zip(t, specs)]
+                    for t in (grads, exact))
+    step = make_train_step(lm, tcfg, opts)
+    losses = [met["loss"]]
+    for _ in range(TP_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    ref_params = [shard(t, sp, mesh)
+                  for t, sp in zip(tree_leaves(state["params"]), specs)]
+    del state, m
+    free()
+    # (c)'s decode over a dense cache drawn from TP_SEED
+    cache = lm.init_cache(TP_DECODE_B, TP_DECODE_S, backend=None, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(TP_SEED)
+    for t in _leaves(cache):
+        t.normal_(generator=gen)
+    dtoks = torch.randint(0, cfg.vocab_size, (TP_DECODE_STEPS,
+                                              TP_DECODE_B, 1),
+                          generator=gen, device=DEV, dtype=torch.int32)
+    pos = torch.tensor(TP_POSITIONS, dtype=torch.int32, device=DEV)
+    cache32 = tree_map(lambda t: t.float(), cache)
+
+    def single(model, c, steps):
+        c = tree_map(torch.clone, c)
+        with torch.no_grad():
+            return [model.decode_step(params, dtoks[i], c, pos + i)[0]
+                    for i in range(steps)]
+
+    dref, dref32 = (single(lm, cache, TP_DECODE_STEPS),
+                    single(lm32, cache32, TP_DECODE_STEPS))
+    dnoise = max(_leaf_l2(a, b) for a, b in zip(dref, dref32))
+    ref_s = time.perf_counter() - t_ref
+    shards = shard_tree(params, train_state_specs(lm, mesh, rules)["params"],
+                        mesh)
+    del params
+    free()
+    out = dict(ref_s=ref_s)
+
+    # (a) the bf16 forward on the kernel path, each launch captured
+    captured, calls = {}, {}
+
+    def capturing(fn, real):
+        def run(*args, **kwargs):
+            key = (fn, kwargs.get("causal", True))
+            captured.setdefault(key, (args, kwargs))
+            calls[key] = calls.get(key, 0) + 1
+            return real(*args, **kwargs)
+        return run
+
+    reals = {fn: getattr(ops, fn) for fn in TP_OPS}
+    ops.reset_launch_counts()
+    with contextlib.ExitStack() as stack, torch.no_grad(), \
+            sharding_context(mesh, rules):
+        for fn, real in reals.items():
+            stack.enter_context(_patched(ops, fn, capturing(fn, real)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = lm.forward(shards, toks, fwd, enc_embeds=enc)[0]
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    kernels = {}
+    for (fn, causal), (args, kwargs) in sorted(captured.items()):
+        dist.barrier()            # rank 0 times with the card to itself
+        entry = _tp_entry(cfg, fn, args, kwargs)
+        kernels[entry] = dict(
+            _tp_kernel(fn, reals[fn], args, kwargs, timed=rank == 0),
+            launches=calls[(fn, causal)])
+        dist.barrier()
+    per_kernel = {}
+    for (fn, _), n in calls.items():
+        per_kernel[TP_OPS[fn]] = per_kernel.get(TP_OPS[fn], 0) + n
+    out["a"] = dict(l2=_leaf_l2(got, ref), rel=_leaf_rel(got, ref),
+                    noise=noise_a, shape=list(got.shape), launches=launches,
+                    expected=_tp_expected(cfg), calls=per_kernel,
+                    kernels=kernels, ms=fwd_s * 1e3)
+    del got, ref, captured
+    free()
+
+    # (b) the train steps on the mesh
+    sp = tree_map(torch.clone, shards)
+    state = {"params": sp, "opt": init_opt_state(sp), "step": 0}
+    lr_sum = sum(lr_schedule(tcfg, i) for i in range(TP_STEPS))
+    with sharding_context(mesh, rules):
+        met, got = _grads_of(lm, state, batch, opts, tcfg, mesh, rules)
+        # phase 17's reading: the split's bf16 gradient against the single
+        # rank's, each leaf to 2e-2 or twice the single rank's own bf16
+        # error (against fp32 compute).  Printed; where that error passes
+        # ~50% (rwkv6's u: 104% at full width) the single rank's bf16
+        # gradient is rounding noise, and the distance between two noise
+        # samples bounds nothing
+        p17 = max((e / max(BF16_GATE, 2 * n), e, max(BF16_GATE, 2 * n), path)
+                  for (path, _), e, n in zip(
+                      leaves, (_leaf_l2(g, r) for g, r in zip(got, grads)),
+                      noise))
+        # the gate: the split's bf16 gradient against fp32 compute (the
+        # single rank's, on this rank's shard), each leaf to 2e-2 or twice
+        # the single rank's own bf16 error on that shard
+        l2 = [(_leaf_l2(g, e) / max(BF16_GATE, 2 * _leaf_l2(r, e)),
+               _leaf_l2(g, e), max(BF16_GATE, 2 * _leaf_l2(r, e)), path)
+              for (path, _), g, r, e in zip(leaves, got, grads, exact)]
+        # and the split in fp32 compute against the single rank in fp32
+        got32 = _grads_of(lm32, state, batch, opts, tcfg, mesh, rules)[1]
+        exact32 = max((_exact_frac(g, e), _leaf_l2(g, e), path)
+                      for (path, _), g, e in zip(leaves, got32, exact))
+        del got, grads, got32, exact
+        step = make_train_step(lm, tcfg, opts)
+        ops.reset_launch_counts()
+        cc = CollectiveCounter()
+        mesh_losses, times = [met["loss"]], []
+        with cc:
+            for _ in range(TP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                mesh_losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        train_launches = {k: n for k, n in ops.launch_counts().items() if n}
+    offs = [(*_adam_off(g, r, lr_sum), path) for (path, _), g, r in zip(
+        leaves, tree_leaves(state["params"]), ref_params)]
+    out["b"] = dict(losses=mesh_losses, ref_losses=losses, grad_l2=max(l2),
+                    p17=p17, exact32=exact32,
+                    param_off=max(offs), param_steps=max(o[1] for o in offs),
+                    step_s=times, coll_calls=cc.total // TP_STEPS,
+                    coll_bytes=cc.bytes // TP_STEPS, coll_s=cc.seconds,
+                    launches=train_launches, n_leaves=len(leaves))
+    del state, sp, ref_params, m
+    free()
+
+    # (c) the dense-cache decode on the mesh, bf16 then fp32 compute
+    sc, sc32 = (lm.shard_cache(tree_map(torch.clone, c), mesh, rules)
+                for c in (cache, cache32))
+    conv = ({} if cfg.family != "hybrid" else
+            dict(conv_cols=sc["layers"]["conv"].shape[-1],
+                 x_channels=cfg.d_inner // 2))
+    del cache, cache32
+    cc = CollectiveCounter()
+    dgot, dtimes = [], []
+    with torch.no_grad(), sharding_context(mesh, rules), cc:
+        for i in range(TP_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dgot.append(lm.decode_step(shards, dtoks[i], sc, pos + i)[0])
+            torch.cuda.synchronize()
+            dtimes.append(time.perf_counter() - t0)
+    with torch.no_grad(), sharding_context(mesh, rules):
+        dgot32 = [lm32.decode_step(shards, dtoks[i], sc32, pos + i)[0]
+                  for i in range(TP_FP32_STEPS)]
+    out["c"] = dict(
+        l2=max(_leaf_l2(a, b) for a, b in zip(dgot, dref)),
+        rel=max(_leaf_rel(a, b) for a, b in zip(dgot, dref)), noise=dnoise,
+        rel32=max(_leaf_rel(a, b) for a, b in zip(dgot32, dref32)),
+        shape=list(dgot[0].shape), step_s=dtimes,
+        coll_calls=cc.total // TP_DECODE_STEPS, coll_s=cc.seconds,
+        peak=torch.cuda.max_memory_allocated(), **conv)
+    return out
+
+
+def tp_families_main(rank: int, port: int) -> int:
+    """One rank of phase 19: each family on a 1x2 ``data x model`` mesh of
+    two rank processes of this script over gloo on this card."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import default_rules
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(minutes=10))
+    assert torch.cuda.is_available(), "a phase 19 rank found no card"
+    mesh = make_mesh((1, 2), ("data", "model"))
+    rules = default_rules(mesh.axis_names)
+    out = {}
+    for name, kw, bs in TP_FAMILIES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[name] = _tp_family(name, kw, bs, mesh, rules, rank)
+        out[name]["s"] = time.perf_counter() - t0
+        free()
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def tp_families_phase(report) -> None:
+    """Phase 19: tensor parallelism of the hybrid, ssm and enc-dec families
+    on two rank processes of this script (``--tp-families-rank R --port
+    P``) over gloo on this card, a 1x2 ``data x model`` mesh: zamba2-1.2b
+    at 6 layers, rwkv6-1.6b at 4, seamless-m4t-large-v2 at 2 + 2, full
+    width, each against the single rank on the same weights (``LM.init``
+    with its zero- and one-initialised leaves redrawn, ``_tp_redraw``).
+    (a) The bf16 forward on the kernel path: K2, K6 and K7 on each rank's
+    heads, each launch held to its plain version on the same shard (phase
+    3's bf16 tolerance relative to the output's largest value: the model's
+    activations are not phase 3's |y| ~ 1), the launch counts exact, the
+    logits by phase 18 (c)'s bf16 rule.  (b) Three train steps: the loss
+    and the parameters after AdamW by phase 17's rules; every step-0
+    gradient shard in fp32 compute within EP_GATE of the single rank's,
+    and in bf16 within 2e-2 of the fp32-compute gradient or twice the
+    single rank's own bf16 error (phase 17's limit, measured from fp32
+    compute rather than from the single rank's bf16 gradient, which for a
+    leaf whose bf16 gradient is rounding noise bounds nothing).  (c) Eight
+    dense-cache decode steps over ``shard_cache``'s shards (zamba2's conv
+    shard misaligned with its mixer's split) by phase 18 (c)'s rules:
+    bf16, and two steps in fp32 compute at 1e-3."""
+    from repro_torch.configs import get_config
+    results = _spawn("--tp-families-rank", 2, {})
+    failed = []
+    for name, _, bs in TP_FAMILIES:
+        family = get_config(name).family
+        for r, res in enumerate(results):
+            f = res[name]
+            a, b, c = f["a"], f["b"], f["c"]
+            lim_a = max(BF16_GATE, 2 * a["noise"])
+            log(f"[19 {name} rank {r}] (a) bf16 forward {bs[0]} x {bs[1]} on "
+                f"the kernel path, {a['ms']:.1f} ms: logits {a['shape']} "
+                f"against the single rank: relative L2 {a['l2']:.3e} (limit "
+                f"{lim_a:.3e}: {BF16_GATE} or twice the single rank's own bf16 "
+                f"error, {a['noise']:.3e}), rel max err {a['rel']:.3e}; "
+                f"launches {a['launches']} (expected {a['expected']}, "
+                f"captured calls {a['calls']})")
+            for entry, k in a["kernels"].items():
+                log(f"[19 {name} rank {r}]   {entry}: shapes {k['shapes']}, "
+                    f"{k['launches']} launches, against the plain version on "
+                    f"the same shard max_abs_err {k['max_abs_err']:.3e}, "
+                    f"relative to its largest value {k['rel']:.3e} (limit "
+                    f"{TOL[torch.bfloat16]}: phase 3's inputs keep |y| near "
+                    "1, the model's do not)"
+                    + (f"; kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} "
+                       f"ms, library {k['library_ms']} ms, bound "
+                       f"{k['bound_ms']:.5f} ms ({k['bound_by']}) "
+                       f"[{nvidia_smi_line()}]" if "ms" in k else ""))
+                failed += [m for ok, m in (
+                    (k["rel"] <= TOL[torch.bfloat16],
+                     f"{name} rank {r}: {entry} differs from its plain "
+                     "version"),) if not ok]
+            rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                           b["ref_losses"]))
+            (share, worst, path) = b["param_off"]
+            want = {"softmax_xent_fwd": TP_STEPS,
+                    "softmax_xent_bwd": TP_STEPS,
+                    "adamw_fused": TP_STEPS * b["n_leaves"]}
+            log(f"[19 {name} rank {r}] (b) losses {b['losses']} (single rank "
+                f"{b['ref_losses']}; worst rel {rel:.3e}, limit {BF16_GATE}); "
+                f"step-0 gradient shards against fp32 compute: relative L2 at "
+                f"most {b['grad_l2'][0]:.3f} of its leaf's limit "
+                f"({b['grad_l2'][3]}: {b['grad_l2'][1]:.3e}, limit "
+                f"{b['grad_l2'][2]:.3e}: {BF16_GATE} or twice the single "
+                f"rank's own bf16 error); against the single rank's bf16 "
+                f"gradient (phase 17's reading, not gated) at most "
+                f"{b['p17'][0]:.3f} of phase 17's limit ({b['p17'][3]}: "
+                f"{b['p17'][1]:.3e}, limit {b['p17'][2]:.3e}); in fp32 compute "
+                f"the split's gradient shards at most {b['exact32'][0]:.3f} of "
+                f"their limit from the single rank's ({b['exact32'][2]}: "
+                f"relative L2 {b['exact32'][1]:.3e}; limit {EP_GATE}, atol "
+                f"1e-6 an element); "
+                f"parameters after step {TP_STEPS - 1}: at most {share:.2e} of "
+                f"a leaf past {BF16_GATE} of its largest value ({path}; limit "
+                f"{ADAM_OUTLIERS}), those within {b['param_steps']:.3f} x two "
+                f"full steps (limit {ADAM_STEPS}); step ms "
+                f"{[round(t * 1e3, 1) for t in b['step_s']]}, collectives "
+                f"{b['coll_calls']} a step, {b['coll_bytes'] / 2**20:.1f} MiB a "
+                f"step, {b['coll_s'] / sum(b['step_s']) * 100:.1f}% of the "
+                f"steps' host time in them; launches {b['launches']} "
+                f"(expected {want})")
+            lim_c = max(BF16_GATE, 2 * c["noise"])
+            conv = (f"; conv shard {c['conv_cols']} columns against "
+                    f"{c['x_channels']} x channels a rank"
+                    if "conv_cols" in c else "")
+            log(f"[19 {name} rank {r}] (c) {TP_DECODE_STEPS} decode steps, "
+                f"{TP_DECODE_B} slots over {TP_DECODE_S} rows: logits "
+                f"{c['shape']} relative L2 {c['l2']:.3e} (limit {lim_c:.3e}: "
+                f"{BF16_GATE} or twice the single rank's own bf16 error, "
+                f"{c['noise']:.3e}), rel max err {c['rel']:.3e}; in fp32 "
+                f"compute rel max err {c['rel32']:.3e} (limit {EP_GATE}){conv}; "
+                f"step ms {[round(t * 1e3, 1) for t in c['step_s']]}, "
+                f"collectives {c['coll_calls']} a step, "
+                f"{c['coll_s'] / sum(c['step_s']) * 100:.1f}% of the steps' "
+                f"host time in them; peak {c['peak'] / 2**30:.2f} GiB; the "
+                f"family took {f['s']:.1f}s on this rank ({f['ref_s']:.1f}s of "
+                f"it the single rank's references) [{nvidia_smi_line()}]")
+            failed += [m for ok, m in (
+                (a["l2"] <= lim_a, f"{name} rank {r}: (a) logits differ"),
+                (a["launches"] == a["expected"] and all(
+                    a["launches"][k] == n for k, n in a["calls"].items()),
+                 f"{name} rank {r}: (a) launch counts"),
+                (b["exact32"][0] <= 1.0,
+                 f"{name} rank {r}: (b) fp32 gradient shards differ"),
+                (rel <= BF16_GATE, f"{name} rank {r}: (b) losses differ"),
+                (b["grad_l2"][0] <= 1.0,
+                 f"{name} rank {r}: (b) gradient shards differ"),
+                (share <= ADAM_OUTLIERS and b["param_steps"] <= ADAM_STEPS,
+                 f"{name} rank {r}: (b) parameters differ"),
+                (b["launches"] == want, f"{name} rank {r}: (b) K4/K5 launches"),
+                (c["l2"] <= lim_c, f"{name} rank {r}: (c) bf16 logits differ"),
+                (c["rel32"] <= EP_GATE,
+                 f"{name} rank {r}: (c) fp32 logits differ"),
+                (family != "hybrid" or c["conv_cols"] != c["x_channels"],
+                 f"{name} rank {r}: (c) the conv shard lines up"))
+                if not ok]
+        for entry, k in results[0][name]["a"]["kernels"].items():
+            report[entry] = dict(
+                launches=sum(res[name]["a"]["kernels"][entry]["launches"]
+                             for res in results),
+                max_abs_err=max(res[name]["a"]["kernels"][entry][
+                    "max_abs_err"] for res in results),
+                **{key: k[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")})
+    assert not failed, failed
+
+
 def free() -> None:
     """Drop what a finished phase left, so the next one has the card."""
     gc.collect()
@@ -6601,7 +7126,8 @@ def main() -> int:
     recurrent_decode_serve()
     free()
 
-    phase("13 recurrent training: zamba2-1.2b and rwkv6-1.6b at full size, "
+    phase("13 recurrent training: zamba2-1.2b (12 layers) and rwkv6-1.6b "
+          "(6 layers) at full width, "
           "remat none, selective and full")
     t0 = time.perf_counter()
     recurrent_train(report)
@@ -6617,7 +7143,7 @@ def main() -> int:
     log(f"phase 14 took {time.perf_counter() - t0:.1f}s")
 
     phase("15 moe: moonshot-v1-16b-a3b fp32 kernel path vs plain path, "
-          "moonshot (24 layers) and arctic-480b (1 layer) served in bf16, "
+          "moonshot (12 layers) and arctic-480b (1 layer) served in bf16, "
           "moonshot trained")
     t0 = time.perf_counter()
     moe_phase(report)
@@ -6644,6 +7170,14 @@ def main() -> int:
     del p7
     free()
     log(f"phase 18 took {time.perf_counter() - t0:.1f}s")
+
+    phase("19 tensor parallelism of the hybrid, ssm and enc-dec families on "
+          "this card's rank processes: zamba2-1.2b (6 layers), rwkv6-1.6b (4) "
+          "and seamless-m4t-large-v2 (2 + 2) on 1x2, forward, train, decode")
+    t0 = time.perf_counter()
+    tp_families_phase(report)
+    free()
+    log(f"phase 19 took {time.perf_counter() - t0:.1f}s")
 
     csrc = "src/repro_torch/csrc/"
     meta = {"paged_flash_decode": ("cuda", csrc + "paged_decode.cu",
@@ -6704,7 +7238,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    for flag, entry in (("--train-mesh-rank", "train_mesh_main"),
+    for flag, entry in (("--tp-families-rank", "tp_families_main"),
+                        ("--train-mesh-rank", "train_mesh_main"),
                         ("--train-mesh-pair", "train_mesh_pair_main"),
                         ("--decode-mesh-rank", "decode_mesh_main"),
                         ("--dryrun-rank", "dryrun_rank_main")):

@@ -106,13 +106,8 @@ def project_qkv(p, cfg, x, positions, norm_impl: str = "kernel",
         q = coll.gather_from(q, 2, gq)
         k = coll.gather_from(k, 2, gkv)
         v = coll.gather_from(v, 2, gkv)
-    elif gq is not None and gkv is None:
-        k = coll.copy_to(k, gq, psum_dtype)
-        v = coll.copy_to(v, gq, psum_dtype)
-        hl = q.shape[2]
-        heads = coll.group_rank(gq) * hl + torch.arange(hl, device=q.device)
-        group = cfg.num_heads // cfg.num_kv_heads
-        k, v = k[:, :, heads // group], v[:, :, heads // group]
+    else:
+        k, v = _kv_of_heads(cfg, q, k, v, gq, gkv, psum_dtype)
     b, s, h, hd = q.shape
     kv = k.shape[2]
     if flat_heads and kv != h:
@@ -120,6 +115,21 @@ def project_qkv(p, cfg, x, positions, norm_impl: str = "kernel",
         v = v.repeat_interleave(h // kv, dim=2)
         kv = h
     return q.reshape(b, s, kv, h // kv, hd), k, v
+
+
+def _kv_of_heads(cfg, q, k, v, gq, gkv, psum_dtype=None):
+    """K/V for this rank's q heads (B, S, H_local, D): as they are, unless
+    the q heads are split over ``gq`` while the rule for ``kv_heads``
+    dropped (``gkv`` None: KV does not divide), when K/V are whole on every
+    rank and each of this rank's q heads takes its own K/V head, flat."""
+    if gq is None or gkv is not None:
+        return k, v
+    k = coll.copy_to(k, gq, psum_dtype)
+    v = coll.copy_to(v, gq, psum_dtype)
+    hl = q.shape[2]
+    heads = coll.group_rank(gq) * hl + torch.arange(hl, device=q.device)
+    group = cfg.num_heads // cfg.num_kv_heads
+    return k[:, :, heads // group], v[:, :, heads // group]
 
 
 def output_proj(p, cfg, y, psum_dtype=None):
@@ -235,21 +245,29 @@ def cross_attention_block(p, cfg, x, enc_kv):
     no RoPE, against the precomputed encoder ``enc_kv`` = (k, v)
     (B, E, KV, D), non-causal, through the plain ``blockwise_attention``
     with its default chunks, as JAX's (no TPU kernel runs here).  x
-    (B, S, d) -> (B, S, d)."""
+    (B, S, d) -> (B, S, d).  Under a sharding context whose model axis
+    splits the heads, q and ``enc_kv`` (from ``encode_kv``) hold this
+    rank's heads, and the reductions run in fp32 (GSPMD's: JAX's enc-dec
+    takes no ``tp_shardmap``)."""
     b, s, _ = x.shape
-    kv = cfg.num_kv_heads
-    q = _proj(p["wq"], x)
-    q = q.reshape(b, s, kv, cfg.num_heads // kv, cfg.resolved_head_dim)
-    k, v = enc_kv
-    return output_proj(p, cfg, blockwise_attention(q, k, v, causal=False))
+    psum = torch.float32
+    q = _proj(p["wq"], x, psum)
+    k, v = _kv_of_heads(cfg, q, *enc_kv, tp_group(p["wq"]["kernel"], 1),
+                        tp_group(p["wk"]["kernel"], 1), psum)
+    kv = k.shape[2]
+    q = q.reshape(b, s, kv, q.shape[2] // kv, q.shape[-1])
+    return output_proj(p, cfg, blockwise_attention(q, k, v, causal=False),
+                       psum)
 
 
 def encode_kv(p, cfg, enc_out):
     """The cross-attention K/V of the encoder output (B, E, d): the
     projections and their biases, no RoPE.  Returns (k, v) (B, E, KV,
-    D)."""
+    D), this rank's K/V heads where the model axis splits them (the
+    input's gradient reduced in fp32)."""
     del cfg
-    return _proj(p["wk"], enc_out), _proj(p["wv"], enc_out)
+    return (_proj(p["wk"], enc_out, torch.float32),
+            _proj(p["wv"], enc_out, torch.float32))
 
 
 # ----------------------------------------------------------------- decode ----
@@ -610,17 +628,24 @@ def dense_decode_partials(q, k_rows, v_rows, positions, offset: int):
     """One rank's partial decode attention over its rows of a dense cache
     split along the sequence: q (B, 1, KV, G, D) at (B,) global
     ``positions``; k_rows, v_rows (B, S_local, KV, D), the positions from
-    ``offset``.  Row j is live where ``offset + j <= positions``.  Scores
-    and softmax in fp32, the weights cast to the rows' dtype before PV, as
-    in ``chunk_attention``.  Returns the raw fp32 triple (acc (B, 1, KV, G, D), l (B, KV, G), m (B, KV,
-    G)); a rank with no live row of a slot gives (0, 0, NEG_INF)."""
+    ``offset``.  Row j is live where ``offset + j <= positions``; with
+    ``positions`` None every row is (the cross-attention's encoder rows).
+    Scores and softmax in fp32, the weights cast to the rows' dtype before
+    PV, as in ``chunk_attention``.  Returns the raw fp32 triple (acc (B,
+    1, KV, G, D), l (B, KV, G), m (B, KV, G)); a rank with no live row of
+    a slot gives (0, 0, NEG_INF)."""
     s = torch.einsum("bqkgd,bskd->bkgqs", q, k_rows).float()[..., 0, :]
     s = s / math.sqrt(q.shape[-1])
-    cols = offset + torch.arange(k_rows.shape[1], device=q.device)
-    valid = (cols[None, :] <= positions.long()[:, None])[:, None, None]
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    mx = s.amax(dim=-1)
-    p = torch.where(valid, torch.exp(s - mx[..., None]), torch.zeros_like(s))
+    if positions is None:
+        mx = s.amax(dim=-1)
+        p = torch.exp(s - mx[..., None])
+    else:
+        cols = offset + torch.arange(k_rows.shape[1], device=q.device)
+        valid = (cols[None, :] <= positions.long()[:, None])[:, None, None]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        mx = s.amax(dim=-1)
+        p = torch.where(valid, torch.exp(s - mx[..., None]),
+                        torch.zeros_like(s))
     acc = torch.einsum("bkgs,bskd->bkgd", p.to(v_rows.dtype), v_rows)
     return acc.float()[:, None], p.sum(dim=-1), mx
 
@@ -665,13 +690,41 @@ def sharded_attention_decode_block(p, cfg, x, k_rows, v_rows, positions,
     for cache, new in ((k_rows, k), (v_rows, v)):
         cache[rows, idx] = torch.where(mine, new[:, 0].to(cache.dtype),
                                        cache[rows, idx])
+    return _merged_out(p, cfg, q, k_rows, v_rows, positions, seq_group,
+                       offset)
+
+
+def _merged_out(p, cfg, q, k_rows, v_rows, positions, seq_group, offset):
+    """The sequence-split decode attention of q (every head) over this
+    rank's rows, merged over ``seq_group``, then the output projection of
+    this rank's heads, reduced over the model group in fp32."""
+    psum = torch.float32
     y = merge_decode_partials(
         *dense_decode_partials(q, k_rows, v_rows, positions, offset),
         seq_group).to(q.dtype)
-    y = y.reshape(b, 1, -1, y.shape[-1])
+    y = y.reshape(*y.shape[:2], -1, y.shape[-1])
     g = tp_group(p["wo"]["kernel"], 0)
     if g is not None:          # every head on every rank: keep this rank's
         hl = p["wo"]["kernel"].shape[0]
         r = coll.group_rank(g)
         y = coll.copy_to(y, g, psum)[:, :, r * hl:(r + 1) * hl]
     return output_proj(p, cfg, y, psum)
+
+
+def sharded_cross_attention_decode_block(p, cfg, x, k_rows, v_rows,
+                                         seq_group):
+    """One decoder token's cross-attention under a sharding context, over
+    this rank's rows of the encoder K/V (B, E_local, KV, D), split along
+    the encoder sequence over ``seq_group`` (``None``: all E rows):
+    non-causal over every row, the partials merged over the group as
+    ``sharded_attention_decode_block`` merges the self-attention's.  q
+    comes out of the tensor-parallel projection with every head (gathered
+    over the model group where the rules split the heads).  x (B, 1, d)
+    -> (B, 1, d)."""
+    psum = torch.float32
+    q = coll.gather_from(_proj(p["wq"], x, psum), 2,
+                         tp_group(p["wq"]["kernel"], 1))
+    q = coll.copy_to(q, seq_group, psum)
+    kv = k_rows.shape[2]
+    q = q.reshape(*q.shape[:2], kv, q.shape[2] // kv, q.shape[-1])
+    return _merged_out(p, cfg, q, k_rows, v_rows, None, seq_group, 0)

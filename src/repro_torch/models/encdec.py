@@ -19,6 +19,14 @@ bodies run under the remat policy of ``ForwardOpts`` (``_remat``).  The
 cross-attention K/V are dense per-request state with no page structure:
 the paged backend, pool groups, chunked prefill and the serve engine
 refuse encdec configs, as JAX's do.
+
+Under a sharding context on a mesh of processes every attention (self and
+cross) and MLP is tensor-parallel where the rules split its heads and
+columns (``parallel.tpmm``, its reductions in fp32: JAX's enc-dec takes no
+``tp_shardmap``), and the decode step reads the dense cache split along
+its sequence over the model axis (``ENC_CACHE_AXES``): the self-attention
+rows merged as the decoder-only families merge theirs, the encoder rows
+by ``attention.sharded_cross_attention_decode_block``.
 """
 from __future__ import annotations
 
@@ -29,10 +37,8 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import DTYPES, P, apply_norm, norm_spec, \
     stack_spec
 from repro_torch.models.transformer import (ForwardOpts, _cache_split,
-                                            _records_grad,
-                                            _refuse_model_split, _remat,
-                                            _stack, embed, unembed, use,
-                                            use_top)
+                                            _records_grad, _remat, _stack,
+                                            embed, unembed, use, use_top)
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding
 
@@ -131,12 +137,10 @@ def forward(params, cfg, tokens, enc_embeds,
     """The encoder over ``enc_embeds`` (B, E, d), then the decoder over
     tokens (B, S).  Returns (logits (B, S, Vp), cache | None).  Under a
     sharding context on a mesh of processes, this rank's share of the
-    batch, its FSDP shards gathered layer by layer; a model split of the
-    weights is refused (ROADMAP item 25); a collected cache holds this
-    rank's rows."""
+    batch, its FSDP shards gathered layer by layer and its model shards
+    computed tensor-parallel; a collected cache holds this rank's rows
+    with the K/V heads of its projections (self and cross)."""
     sf = sharding.sharded_forward(cfg, build_spec)
-    if sf is not None:
-        _refuse_model_split(cfg, sf)
     params = use_top(params, sf)
     enc_out = encode(params, cfg, enc_embeds, opts, sf)
     return decoder_forward(params, cfg, tokens, enc_out, opts, collect_cache,
@@ -163,22 +167,22 @@ def decode_step(params, cfg, tokens, cache, positions,
     ``cache`` the dense layout of ``init_cache`` (or a prefill's cache
     whose K/V rows were copied into one), its self-attention rows written
     in place at each slot's position.  Returns (logits (B, 1, Vp),
-    cache).  Under a sharding context on a mesh of processes (a data-only
-    mesh: ROADMAP item 25), ``tokens`` and ``positions`` are the global
-    batch's and ``cache`` this rank's rows of it (``LM.shard_cache``);
-    the whole batch's logits come back on every rank."""
+    cache).  Under a sharding context on a mesh of processes, ``tokens``
+    and ``positions`` are the global batch's and ``cache`` this rank's
+    shards of it (``LM.shard_cache``: its batch rows, each leaf's
+    sequence split over the model axis); the whole batch's logits come
+    back on every rank."""
     if "page_table" in cache:
         raise ValueError("paged KV decode is decoder-only transformer "
                          "families")
     lc = cache["layers"]
     sf = sharding.sharded_forward(cfg, build_spec)
-    dp = rows = None
+    dp = None
     if sf is not None:
-        _refuse_model_split(cfg, sf)
-        for name in lc:
-            if _cache_split(cache, "layers", name, ENC_CACHE_AXES, sf)[0]:
-                raise ValueError("the enc-dec decode takes a cache split "
-                                 "over its batch rows only")
+        _, self_group, offset = _cache_split(cache, "layers", "k",
+                                             ENC_CACHE_AXES, sf)
+        cross_group = _cache_split(cache, "layers", "xk", ENC_CACHE_AXES,
+                                   sf)[1]
         rows = sharding.batch_rows(sf.mesh, sf.rules, tokens.shape[0])
         dp = sf.mesh.group(sf.batch_axes) if sf.batch_axes else None
         tokens, positions = tokens[rows], positions[rows]
@@ -186,12 +190,23 @@ def decode_step(params, cfg, tokens, cache, positions,
     h = embed(params, cfg, tokens)
     for i in range(cfg.num_layers):
         lp = use(params, "dec_layers", sf, i)
-        h = h + attn.attention_decode_block(
-            lp["self_attn"], cfg, apply_norm(lp["ln1"], h, cfg, norm_impl),
-            lc["k"][i], lc["v"][i], positions, norm_impl=norm_impl)
-        h = h + attn.cross_attention_block(
-            lp["cross_attn"], cfg, apply_norm(lp["ln2"], h, cfg, norm_impl),
-            (lc["xk"][i], lc["xv"][i]))
+        a_in = apply_norm(lp["ln1"], h, cfg, norm_impl)
+        if sf is None:
+            h = h + attn.attention_decode_block(
+                lp["self_attn"], cfg, a_in, lc["k"][i], lc["v"][i],
+                positions, norm_impl=norm_impl)
+        else:
+            h = h + attn.sharded_attention_decode_block(
+                lp["self_attn"], cfg, a_in, lc["k"][i], lc["v"][i],
+                positions, self_group, offset, norm_impl)
+        c_in = apply_norm(lp["ln2"], h, cfg, norm_impl)
+        if sf is None:
+            h = h + attn.cross_attention_block(
+                lp["cross_attn"], cfg, c_in, (lc["xk"][i], lc["xv"][i]))
+        else:
+            h = h + attn.sharded_cross_attention_decode_block(
+                lp["cross_attn"], cfg, c_in, lc["xk"][i], lc["xv"][i],
+                cross_group)
         h = h + mlp_mod.mlp(lp["mlp"], cfg,
                             apply_norm(lp["ln3"], h, cfg, norm_impl))
     logits = unembed(params, cfg, h, norm_impl)

@@ -16,6 +16,17 @@ after it is a view.  K6 has no initial or final state (nor has the TPU
 kernel): a prefill that keeps its states runs ``ssd_chunked``.  The
 depthwise conv is shift-and-add in the model dtype, as in JAX (an fp32
 ``F.conv1d`` on the card would go through cuDNN in TF32).
+
+Under a sharding context whose model axis splits ``mamba_inner`` and
+``mamba_heads`` (JAX's ``mamba_spec`` rules), a rank holds its d_inner/n
+channels of ``wz``, ``wx``, ``conv_x`` and the norm scale, its H/n heads
+of ``wdt``, ``A_log``, ``D`` and ``dt_bias``, and its rows of ``wo``; the
+B/C path (``wB``, ``wC``, ``conv_B``, ``conv_C``) is whole on every rank.
+The in-projections read x through one ``copy_to``, B and C enter the
+split heads through one ``copy_to`` (every head reads them), the scan runs
+on this rank's heads, the gated RMSNorm reduces each row's sum of squares
+over the group (``tpmm.split_rms_norm``: K3 never runs on a part of a
+row), and ``wo`` is row parallel.
 """
 from __future__ import annotations
 
@@ -24,7 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import P, rms_norm
-from repro_torch.parallel.tpmm import col_proj_tp, down_proj_tp
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.tpmm import down_proj_tp, split_rms_norm, tp_group
 
 
 def mamba_spec(cfg):
@@ -148,21 +160,30 @@ def mamba_block(p, cfg, x, *, impl: str = "kernel", norm_impl: str = "kernel",
     JAX's exact single-step recurrence from ``conv_state``/``ssm_state``
     (zeros when None): the state update and readout in fp32, Y cast to the
     model dtype.  Weights are cast to x's dtype at each use, as JAX casts
-    its fp32 masters.  With ``tp_shardmap`` the z/x in-projections and the
-    out-projection go through ``parallel.tpmm``, as JAX's (the plain
-    contractions outside a context that splits ``mamba_inner``; training
-    refuses such a split of the hybrid family, ROADMAP item 25)."""
+    its fp32 masters.
+
+    Under a model split (see the module) d_inner and H are this rank's
+    (the states too: the conv state's x slice and the SSM state hold its
+    channels and heads), and the tensor-parallel reductions run in fp32,
+    or with ``tp_shardmap`` in the compute dtype (``parallel.tpmm``)."""
     b, s, d = x.shape
-    din, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
+    n, pdim = cfg.ssm_state, cfg.ssm_head_dim
+    din, h = p["wx"]["kernel"].shape[1], p["A_log"].shape[0]
+    if din != h * pdim:
+        raise ValueError(
+            f"{cfg.name}: the model axis splits d_inner ({cfg.d_inner} -> "
+            f"{din} a rank) but not the {cfg.ssm_heads} SSM heads, so a "
+            "rank's channels are not whole heads")
     dtype = x.dtype
+    psum = None if tp_shardmap else torch.float32
+    g = tp_group(p["wx"]["kernel"], 1)
+    xt = coll.copy_to(x, g, psum)
 
-    def proj(name):
-        if tp_shardmap and name in ("wz", "wx"):
-            return col_proj_tp(x, p[name]["kernel"], psum_dtype=None)
-        return x @ p[name]["kernel"].to(dtype)
+    def proj(t, name):
+        return t @ p[name]["kernel"].to(dtype)
 
-    z, xs, Bm, Cm, dt = (proj(k) for k in ("wz", "wx", "wB", "wC", "wdt"))
+    z, xs, dt = (proj(xt, k) for k in ("wz", "wx", "wdt"))
+    Bm, Cm = proj(x, "wB"), proj(x, "wC")
     cs = ((None,) * 3 if conv_state is None else
           (conv_state[..., :din], conv_state[..., din:din + n],
            conv_state[..., din + n:]))
@@ -170,6 +191,10 @@ def mamba_block(p, cfg, x, *, impl: str = "kernel", norm_impl: str = "kernel",
     Bm, cs_b = _causal_conv(Bm, p["conv_B"], cs[1])
     Cm, cs_c = _causal_conv(Cm, p["conv_C"], cs[2])
     xs, Bm, Cm = F.silu(xs), F.silu(Bm), F.silu(Cm)
+    if g is not None:
+        # whole on every rank and read by each rank's heads
+        bc = coll.copy_to(torch.cat([Bm, Cm], dim=-1), g, psum)
+        Bm, Cm = bc[..., :n], bc[..., n:]
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())         # (B, S, H)
     dA = dt * -torch.exp(p["A_log"].float())                   # <= 0
@@ -195,8 +220,10 @@ def mamba_block(p, cfg, x, *, impl: str = "kernel", norm_impl: str = "kernel",
         Y, final = ssd_chunked(Xdt, dA, Bm, Cm, cfg.ssm_chunk,
                                initial_state=ssm_state, return_final=True)
     Y = Y + p["D"].to(dtype)[None, None, :, None] * X
-    Y = Y.reshape(b, s, din)
-    Y = rms_norm(Y * F.silu(z), p["norm"]["scale"], cfg.norm_eps, norm_impl)
-    out = (down_proj_tp(Y, p["wo"]["kernel"]) if tp_shardmap
-           else Y @ p["wo"]["kernel"].to(dtype))
+    Y = Y.reshape(b, s, din) * F.silu(z)
+    if g is None:
+        Y = rms_norm(Y, p["norm"]["scale"], cfg.norm_eps, norm_impl)
+    else:
+        Y = split_rms_norm(Y, p["norm"]["scale"], cfg.norm_eps, g)
+    out = down_proj_tp(Y, p["wo"]["kernel"], psum_dtype=psum)
     return out, ((cs_x, cs_b, cs_c), final)

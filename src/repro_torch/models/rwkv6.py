@@ -14,6 +14,19 @@ LoRA's second matrix ``wB`` multiplies in fp32 (so it is stored fp32, see
 ``repro_torch.models.params``), and the ``ln_x`` group norm takes its mean
 in the model dtype and its variance in fp32.  The shift states are the
 last row of each block's input, the normed residual.
+
+Under a sharding context whose model axis splits ``rwkv_heads`` (JAX's
+rules), a rank holds its d/n columns of the time mix's ``wr``, ``wk``,
+``wv``, ``wg`` and of ``u``'s heads, and its rows of ``wo``; the channel
+mix splits ``wk`` by ``mlp`` (column parallel), ``wv`` row parallel, and
+``wr`` by ``rwkv_heads``.  The token-shift mixing, the decay LoRA and
+``ln_x`` stay whole on every rank: the four projections' inputs enter the
+split through one ``copy_to``, and the log decay and ``ln_x``'s scale and
+bias through ``tpmm.local_part`` (each rank takes its heads' columns, the
+gradients summed over the group).  The recurrence runs on this rank's
+heads.  The channel mix's receptance is this rank's columns, gathered
+whole over the group (one all-gather; its backward takes this rank's
+slice), and multiplies the reduced value.
 """
 from __future__ import annotations
 
@@ -22,6 +35,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import P
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.tpmm import (col_proj_tp, down_proj_tp, local_part,
+                                       tp_group)
 
 LORA_MIX = 32
 LORA_DECAY = 64
@@ -155,25 +171,39 @@ def log_decay(p, xw):
 
 
 def tmix_block(p, cfg, x, *, impl: str = "kernel", shift_state=None,
-               wkv_state=None, decode: bool = False):
+               wkv_state=None, decode: bool = False,
+               tp_shardmap: bool = False):
     """Time mix, x (B, S, d) -> (y (B, S, d), (the shift state x[:, -1:],
     the WKV state (B, H, K, V) fp32)), as JAX's.  ``impl``
     picks the recurrence of the full-sequence forward (``"kernel"``: K7,
     which has no state, so its WKV state is None; ``"plain"``:
     ``wkv6_chunked`` from ``wkv_state``); ``decode`` (S = 1) runs
     ``wkv6_decode`` from ``wkv_state`` (zeros when None).  ``shift_state``
-    seeds the token shift."""
+    seeds the token shift.  Under a model split (see the module) H is this
+    rank's heads, the WKV state's too, and the tensor-parallel reductions
+    run in fp32, or with ``tp_shardmap`` in the compute dtype."""
     b, s, d = x.shape
-    h, kd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    kd = cfg.rwkv_head_dim
+    h, dl = p["u"].shape[0], p["wr"]["kernel"].shape[1]
+    if dl != h * kd:
+        raise ValueError(
+            f"{cfg.name}: the model axis splits the {d} time-mix channels "
+            f"({dl} a rank) but not the {cfg.rwkv_heads} heads, so a rank's "
+            "channels are not whole heads")
     dtype = x.dtype
+    psum = None if tp_shardmap else torch.float32
+    g = tp_group(p["wr"]["kernel"], 1)
     sx = _shift(x, shift_state) - x
     xr, xw, xk, xv, xg = _mix_inputs(p, x, sx)
+    if g is not None:
+        xr, xk, xv, xg = coll.copy_to(torch.stack([xr, xk, xv, xg]), g,
+                                      psum).unbind(0)
 
     r = xr @ p["wr"]["kernel"].to(dtype)
     kk = xk @ p["wk"]["kernel"].to(dtype)
     vv = xv @ p["wv"]["kernel"].to(dtype)
-    g = F.silu(xg @ p["wg"]["kernel"].to(dtype))
-    lw = log_decay(p, xw)
+    gate = F.silu(xg @ p["wg"]["kernel"].to(dtype))
+    lw = local_part(log_decay(p, xw), -1, g, psum)
 
     rh, kh, vh, lwh = (t.reshape(b, s, h, kd) for t in (r, kk, vv, lw))
     state = None
@@ -197,20 +227,28 @@ def tmix_block(p, cfg, x, *, impl: str = "kernel", shift_state=None,
     # per-head group norm (ln_x): mean in the model dtype, variance in fp32
     mu = out.float().mean(dim=-1, keepdim=True).to(dtype)
     var = out.float().var(dim=-1, unbiased=False, keepdim=True)
-    out = ((out - mu) * torch.rsqrt(var + 64e-5).to(dtype)).reshape(b, s, d)
-    out = out * p["ln_x"]["scale"].to(dtype) + p["ln_x"]["bias"].to(dtype)
-    out = out * g
-    return out @ p["wo"]["kernel"].to(dtype), (x[:, -1:], state)
+    out = ((out - mu) * torch.rsqrt(var + 64e-5).to(dtype)).reshape(b, s, dl)
+    ln = p["ln_x"]
+    scale, bias = (ln["scale"], ln["bias"]) if g is None else local_part(
+        torch.stack([ln["scale"], ln["bias"]]), -1, g, psum).unbind(0)
+    out = (out * scale.to(dtype) + bias.to(dtype)) * gate
+    return (down_proj_tp(out, p["wo"]["kernel"], psum_dtype=psum),
+            (x[:, -1:], state))
 
 
-def cmix_block(p, cfg, x, *, shift_state=None):
+def cmix_block(p, cfg, x, *, shift_state=None, tp_shardmap: bool = False):
     """Channel mix, x (B, S, d) -> (y (B, S, d), the shift state
-    x[:, -1:]), as JAX's.  ``shift_state`` seeds the token shift."""
+    x[:, -1:]), as JAX's.  ``shift_state`` seeds the token shift.  Under a
+    model split (see the module) the key is column and the value row
+    parallel, and the receptance's columns are gathered whole."""
     dtype = x.dtype
+    psum = None if tp_shardmap else torch.float32
     sx = _shift(x, shift_state) - x
     xk = x + sx * p["mu_k"].to(dtype)
     xr = x + sx * p["mu_r"].to(dtype)
-    kk = torch.square(F.relu(xk @ p["wk"]["kernel"].to(dtype)))
-    vv = kk @ p["wv"]["kernel"].to(dtype)
-    rr = torch.sigmoid(xr @ p["wr"]["kernel"].to(dtype))
-    return rr * vv, x[:, -1:]
+    kk = torch.square(F.relu(col_proj_tp(xk, p["wk"]["kernel"],
+                                         psum_dtype=psum)))
+    vv = down_proj_tp(kk, p["wv"]["kernel"], psum_dtype=psum)
+    wr = p["wr"]["kernel"]
+    rr = torch.sigmoid(col_proj_tp(xr, wr, psum_dtype=psum))
+    return coll.gather_from(rr, -1, tp_group(wr, 1)) * vv, x[:, -1:]

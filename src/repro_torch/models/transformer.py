@@ -35,7 +35,11 @@ way over this rank's shards of the dense cache (``shard_cache``: the rows
 of its batch split, and the sequence split over the model axis by
 ``cache_logical_axes``), its attention merged over the sequence split,
 and returns the whole batch's logits on every rank.  The hybrid and ssm
-families take no model split (ROADMAP item 25).
+families split their mixers over the model axis as JAX's rules do
+(``mamba2``, ``rwkv6``): their collected cache holds this rank's channels
+and heads of each state, and their decode step reads ``shard_cache``'s
+state shards, gathering a leaf over the model group where its split does
+not line up with the weights' (zamba2's conv state, ``_recurrent_decode``).
 """
 from __future__ import annotations
 
@@ -235,17 +239,6 @@ def use_top(params, sf):
             for k, v in params.items()}
 
 
-def _refuse_model_split(cfg, sf):
-    """Tensor parallelism covers the dense, vlm and moe families; the
-    others train under a mesh without a model split only."""
-    if sf is not None and sf.model_size() > 1:
-        raise ValueError(
-            f"{cfg.name} ({cfg.family}): a mesh with a model axis of "
-            f"{sf.model_size()} splits its weights, and tensor parallelism "
-            "of the hybrid, ssm and enc-dec families is not ported yet "
-            "(ROADMAP item 25); train it on a mesh without a model split")
-
-
 def embed(params, cfg, tokens, psum_dtype=torch.float32):
     """Token embedding in the compute dtype (``cfg.dtype``).  Where the
     table is this rank's rows of a vocab split over the model axis
@@ -337,10 +330,12 @@ def _attn_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
 def _ssm_layer(lp, cfg, h, opts: ForwardOpts, collect: bool = False):
     x = apply_norm(lp["ln1"], h, cfg, opts.norm_impl)
     y, (shift1, wkv) = rwkv6.tmix_block(
-        lp["tmix"], cfg, x, impl="plain" if collect else opts.mixer_impl)
+        lp["tmix"], cfg, x, impl="plain" if collect else opts.mixer_impl,
+        tp_shardmap=opts.tp_shardmap)
     h = h + y
     x2 = apply_norm(lp["ln2"], h, cfg, opts.norm_impl)
-    y2, shift2 = rwkv6.cmix_block(lp["cmix"], cfg, x2)
+    y2, shift2 = rwkv6.cmix_block(lp["cmix"], cfg, x2,
+                                  tp_shardmap=opts.tp_shardmap)
     return h + y2, None, {"shift1": shift1, "wkv": wkv, "shift2": shift2}
 
 
@@ -414,12 +409,12 @@ def forward(params, cfg, tokens, opts: ForwardOpts = ForwardOpts(),
     Under a sharding context on a mesh of processes (see the module), the
     forward is this rank's share: ``tokens`` are its batch rows, the
     parameters its shards, and a collected cache holds its rows (with the
-    K/V heads of its projections: its own where the rules split them)."""
+    K/V heads of its projections, and the recurrent states of its mixers'
+    channels and heads: its own where the rules split them; a hybrid conv
+    state is its x channels, then B and C)."""
     layer = {"dense": _attn_layer, "vlm": _attn_layer, "moe": _attn_layer,
              "ssm": _ssm_layer, "hybrid": _hybrid_layer}[cfg.family]
     sf = sharding.sharded_forward(cfg, build_spec)
-    if sf is not None and cfg.family in ("hybrid", "ssm"):
-        _refuse_model_split(cfg, sf)
     psum = None if opts.tp_shardmap else torch.float32
     params = use_top(params, sf)
     h = embed_inputs(params, cfg, tokens, img_embeds, psum)
@@ -639,21 +634,20 @@ def _sharded_decode(params, cfg, tokens, cache, positions, sf, norm_impl):
     rank's rows of the global ``tokens`` and ``positions`` over its shards
     of the dense cache; each layer's weights gathered over the batch axes
     just before the layer (FSDP, ``ShardedForward.use``); the projections,
-    MLP, experts and vocab projection tensor-parallel where the rules
-    split their weights; the attention over this rank's rows of the
+    MLP, experts, mixers and vocab projection tensor-parallel where the
+    rules split their weights; the attention over this rank's rows of the
     sequence, merged over the sequence split
     (``attention.sharded_attention_decode_block``); a moe layer routes the
     whole batch as one group, its rows gathered over the batch axes first,
-    as the single-rank step routes them.  The hybrid and ssm families take
-    a data-only mesh (ROADMAP item 25).  Returns the whole batch's logits
-    (B, 1, Vp), gathered over the batch axes."""
+    as the single-rank step routes them; the hybrid and ssm families over
+    their state shards (``_recurrent_decode``).  Returns the whole batch's
+    logits (B, 1, Vp), gathered over the batch axes."""
     mesh, rules = sf.mesh, sf.rules
     rows = sharding.batch_rows(mesh, rules, tokens.shape[0])
     dp = mesh.group(sf.batch_axes) if sf.batch_axes else None
     tokens, positions = tokens[rows], positions[rows]
     params = use_top(params, sf)
     if cfg.family in ("hybrid", "ssm"):
-        _refuse_model_split(cfg, sf)
         logits = _recurrent_decode(params, cfg, tokens, cache, positions,
                                    norm_impl, sf)
         return coll.gather_from(logits, 0, dp)
@@ -675,38 +669,137 @@ def _sharded_decode(params, cfg, tokens, cache, positions, sf, norm_impl):
     return coll.gather_from(unembed(params, cfg, h, norm_impl), 0, dp)
 
 
+#: the dim of each recurrent state leaf that a split can cut past its
+#: batch rows: the shift states' and the conv state's channels, the WKV
+#: and SSM states' heads
+_STATE_DIM = {"shift1": 3, "shift2": 3, "conv": 3, "wkv": 2, "ssm": 2}
+
+
+def _state_entry(cache, name, sf):
+    """The spec entry (None: whole) splitting the state dim of the
+    recurrent leaf ``cache["layers"][name]``, a shard from ``shard_cache``
+    whose global shape is the cache's ``"global_shapes"`` entry.  Raises
+    where the split is not one this step reads: the batch dim split other
+    than the batch rows, or another dim split."""
+    full = cache.get("global_shapes", {}).get("layers", {}).get(name)
+    if full is None:
+        raise ValueError(
+            "under a sharding context the decode step takes this rank's "
+            "shards of the dense cache from LM.shard_cache (or "
+            "transformer.shard_cache), which records the cache's global "
+            "shapes")
+    spec = sharding.spec_for(CACHE_AXES[name], full, sf.rules, sf.mesh)
+    entries = tuple(spec) + (None,) * (len(full) - len(spec))
+    dim = _STATE_DIM[name]
+    if entries[0] is not None or sharding.spec_axes(
+            (entries[1],)) != sf.batch_axes or any(
+            e is not None for j, e in enumerate(entries) if j > 1
+            and j != dim):
+        raise ValueError(f"a {name} state split {entries}: the sharded "
+                         "decode splits the batch rows and the state's "
+                         f"dim {dim} only")
+    return entries[dim]
+
+
+def _group(entry, sf):
+    return None if entry is None else sf.mesh.group(
+        sharding.spec_axes((entry,)))
+
+
+def _block(t, dim: int, entry, sf):
+    """This rank's block along ``dim`` of ``t``, whole there, under a spec
+    ``entry`` (None: all of it)."""
+    if entry is None:
+        return t
+    axes = sharding.spec_axes((entry,))
+    n = t.shape[dim] // sf.mesh.axis_size(axes)
+    return t.narrow(dim, sf.mesh.index(axes) * n, n)
+
+
+def _regroup(t, dim: int, have, want, sf):
+    """``t``, split along ``dim`` by the spec entry ``have``, split by
+    ``want`` instead (gathered over ``have``'s group where they differ)."""
+    if have == want:
+        return t
+    return _block(coll.all_gather(t, dim, _group(have, sf)), dim, want, sf)
+
+
+def _state_in(name, t, have, want, sf, din: int):
+    """One layer's state shard ``t`` (split by the cache's entry ``have``)
+    as the mixer reads it (split by its weights' entry ``want``).  The
+    conv state's shard of d_inner + 2N columns does not line up with the
+    mixer's d_inner / n x channels (nor its B and C, whole on every rank):
+    it is gathered whole and cut to the x channels, then B and C."""
+    dim = _STATE_DIM[name] - 1
+    if name != "conv":
+        return _regroup(t, dim, have, want, sf)
+    whole = coll.all_gather(t, dim, _group(have, sf))
+    return torch.cat([_block(whole[..., :din], dim, want, sf),
+                      whole[..., din:]], dim)
+
+
+def _state_out(name, t, have, want, sf, din_local: int):
+    """The mixer's new state ``t`` as the cache's shard holds it: the
+    inverse of ``_state_in`` (the conv state's x channels gathered whole
+    over the mixer's group, then the cache's block taken)."""
+    dim = _STATE_DIM[name] - 1
+    if name != "conv":
+        return _regroup(t, dim, want, have, sf)
+    xs = coll.all_gather(t[..., :din_local], dim, _group(want, sf))
+    return _block(torch.cat([xs, t[..., din_local:]], dim), dim, have, sf)
+
+
+def _mixer_entries(lp, cfg):
+    """The spec entry by which each recurrent state's dim is split in the
+    mixer's weights (``ShardedForward.use``'s ``mesh_axes``)."""
+    if cfg.family == "ssm":
+        return {"shift1": None, "shift2": None,
+                "wkv": lp["tmix"]["u"].mesh_axes[0]}
+    return {"conv": lp["mamba"]["wx"]["kernel"].mesh_axes[1],
+            "ssm": lp["mamba"]["A_log"].mesh_axes[0]}
+
+
 def _recurrent_decode(params, cfg, tokens, cache, positions, norm_impl,
                       sf=None):
     """The ssm and hybrid decode step (the JAX ``decode_step`` bodies):
     every layer's exact single-step recurrence (plain torch: neither
     package has a kernel for it), its new states copied into the cache in
     place; zamba2's shared block decodes over its raw dense K/V rows at
-    ``positions``.  Under a ``ShardedForward`` (a data-only mesh) these are
-    this rank's rows and shards, each layer's weights gathered just before
-    it, and the shared block attends over a sequence split where the rules
-    make one.  Returns the logits (B, 1, Vp)."""
+    ``positions``.  Under a ``ShardedForward`` these are this rank's rows
+    and shards, each layer's weights gathered just before it; each state
+    shard is moved to the split its mixer reads (``_state_in``: as it is
+    where they line up, gathered where they do not, as zamba2's conv state
+    over a model split) and back (``_state_out``), and the shared block
+    attends over a sequence split where the rules make one.  Returns the
+    logits (B, 1, Vp)."""
     states = cache["layers"]
+    have = (None if sf is None else
+            {name: _state_entry(cache, name, sf) for name in states})
     h = embed(params, cfg, tokens)
     emb0 = h
     n_shared = 0
     for i in range(cfg.num_layers):
         lp = use(params, "layers", sf, i)
+        st = {name: t[i] for name, t in states.items()}
+        if sf is not None:
+            want = _mixer_entries(lp, cfg)
+            st = {name: _state_in(name, t, have[name], want[name], sf,
+                                  cfg.d_inner) for name, t in st.items()}
         x = apply_norm(lp["ln1"], h, cfg, norm_impl)
         if cfg.family == "ssm":
             y, (shift1, wkv) = rwkv6.tmix_block(
-                lp["tmix"], cfg, x, shift_state=states["shift1"][i],
-                wkv_state=states["wkv"][i], decode=True)
+                lp["tmix"], cfg, x, shift_state=st["shift1"],
+                wkv_state=st["wkv"], decode=True)
             h = h + y
             x2 = apply_norm(lp["ln2"], h, cfg, norm_impl)
             y2, shift2 = rwkv6.cmix_block(lp["cmix"], cfg, x2,
-                                          shift_state=states["shift2"][i])
+                                          shift_state=st["shift2"])
             h = h + y2
             new = {"shift1": shift1, "wkv": wkv, "shift2": shift2}
         else:
             y, (conv, ssm) = mamba2.mamba_block(
                 lp["mamba"], cfg, x, norm_impl=norm_impl,
-                conv_state=states["conv"][i], ssm_state=states["ssm"][i],
-                decode=True)
+                conv_state=st["conv"], ssm_state=st["ssm"], decode=True)
             h = h + y
             new = {"conv": torch.cat(conv, dim=-1), "ssm": ssm}
             if _fires(cfg, i):
@@ -726,6 +819,11 @@ def _recurrent_decode(params, cfg, tokens, cache, positions, norm_impl,
                         offset, norm_impl)
                 h = h + _shared_ffn(sp, cfg, u + a, norm_impl)
                 n_shared += 1
+        if sf is not None:
+            din_local = lp["mamba"]["wx"]["kernel"].shape[1] \
+                if cfg.family == "hybrid" else 0
+            new = {name: _state_out(name, t, have[name], want[name], sf,
+                                    din_local) for name, t in new.items()}
         for name, t in new.items():
             states[name][i].copy_(t)
     return unembed(params, cfg, h, norm_impl)

@@ -247,15 +247,23 @@ class ShardedForward:
     every parameter of ``spec_tree`` (a model's ``build_spec``) and the
     gather that ``use`` makes of a weight before it is used.
 
-    ``use`` returns each leaf with its batch-axis dims gathered (in
-    ``dtype``, the compute dtype, or fp32 for an ``fp32`` leaf: gathering in
-    the compute dtype gives the values that a cast after the gather would),
-    and sets on it ``mesh_axes``, the model-axis entry of each dim that
-    stays this rank's, which ``parallel.tpmm`` reads."""
+    ``use`` returns each leaf with its dims split over the batch axes or
+    the FSDP axes (the rules' ``embed`` axes) gathered (in ``dtype``, the
+    compute dtype, or fp32 for an ``fp32`` leaf: gathering in the compute
+    dtype gives the values that a cast after the gather would), and sets
+    on it ``mesh_axes``, the model-axis entry of each dim that stays this
+    rank's, which ``parallel.tpmm`` reads.  A gather over a batch axis
+    reduce-scatters its backward (each rank computes its own rows); over
+    an FSDP axis the batch does not split (long-context decode's rules
+    replicate the batch), the computation is the same on every rank of it
+    and the backward takes this rank's slice."""
 
     def __init__(self, mesh, rules: Rules, spec_tree, dtype):
         self.mesh, self.rules, self.dtype = mesh, rules, dtype
         self.batch_axes = batch_axes(mesh, rules)
+        self.gather_axes = self.batch_axes + tuple(
+            a for a in _axes_tuple(rules.get("embed"))
+            if a in mesh.shape and a not in self.batch_axes)
         self.specs = self._resolve(spec_tree)
 
     def _resolve(self, spec):
@@ -264,9 +272,6 @@ class ShardedForward:
         entries = _entries(spec_for(spec.axes, spec.shape, self.rules,
                                     self.mesh), len(spec.shape))
         return entries, spec.fp32
-
-    def model_size(self, axis: str = "model") -> int:
-        return self.mesh.shape.get(axis, 1)
 
     def use(self, tree, specs, stacked: bool = False):
         """``tree``'s leaves, ready for the compute (see the class).  With
@@ -282,12 +287,14 @@ class ShardedForward:
         used = set()
         for dim, entry in enumerate(entries):
             axes = _axes_tuple(entry)
-            dp_axes = [a for a in axes if a in self.batch_axes]
+            dp_axes = [a for a in axes if a in self.gather_axes]
             if dp_axes and len(dp_axes) != len(axes):
                 raise NotImplementedError(
                     f"a dim sharded over batch and other axes ({axes})")
             for a in reversed(dp_axes):
-                t = coll.gather_from(t, dim, self.mesh.group(a), "sum")
+                t = coll.gather_from(t, dim, self.mesh.group(a),
+                                     "sum" if a in self.batch_axes
+                                     else "slice")
             used.update(dp_axes)
         rest = tuple(a for a in self.batch_axes if a not in used)
         if rest:
@@ -295,7 +302,7 @@ class ShardedForward:
         if t is tree:                  # a fresh tensor to carry mesh_axes
             t = t.view_as(t)
         t.mesh_axes = tuple(None if entry is None or _axes_tuple(entry)[0]
-                            in self.batch_axes else entry
+                            in self.gather_axes else entry
                             for entry in entries)
         return t
 

@@ -11,6 +11,15 @@ FSDP), and runs the contraction on the local shard:
   this rank's, so the products are partial sums, all-reduced over the
   model group.
 
+Two helpers serve the blocks whose split reaches past a contraction (the
+recurrent mixers):
+
+* ``local_part``     — this rank's block of a tensor that is whole on every
+  model rank, entered through ``copy_to``, so the blocks' gradients sum
+  over the group into the whole tensor's;
+* ``split_rms_norm`` — RMSNorm over a dim split over the group: each row's
+  sum of squares all-reduced in fp32, then each rank scales its columns.
+
 ``psum_dtype`` is the dtype of those reductions: the compute dtype by
 default, which is ``tpmm``'s bf16 psum; ``torch.float32`` reduces the
 partial sums in fp32 and casts after, JAX's GSPMD form, which the models
@@ -25,6 +34,8 @@ policy saves the collectives' own outputs
 name.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models.common import add_bias
 from repro_torch.parallel import collectives as coll
@@ -78,3 +89,30 @@ def down_proj_tp(h, kernel, bias=None, axis: str = "model", psum_dtype=None):
     g = tp_group(kernel, 0, axis)
     out = h @ kernel.to(h.dtype)
     return _with_bias(coll.reduce_from(out, g, psum_dtype), bias)
+
+
+def local_part(t, dim: int, group, psum_dtype=None):
+    """This rank's 1/n block along ``dim`` of ``t``, a tensor whole and the
+    same on every rank of ``group``: ``copy_to`` then the block, so the
+    backward sums each rank's block gradient over the group into the whole
+    tensor's gradient.  ``group`` None: ``t`` as it is."""
+    if group is None:
+        return t
+    w = t.shape[dim] // coll.group_size(group)
+    return coll.copy_to(t, group, psum_dtype).narrow(
+        dim, coll.group_rank(group) * w, w)
+
+
+def split_rms_norm(x, scale, eps: float, group):
+    """RMSNorm over the last dim of a tensor split along it over ``group``:
+    ``x`` and ``scale`` are this rank's columns.  Each row's sum of squares
+    is all-reduced over the group in fp32, one (..., 1) collective whose
+    backward is an all-reduce too (every rank's columns read the whole
+    sum); the rest is ``rmsnorm_ref``'s fp32 arithmetic, cast back to x's
+    dtype.  ``group`` None: the whole row's norm."""
+    xf = x.float()
+    ss = (xf * xf).sum(dim=-1, keepdim=True)
+    ss = coll.copy_to(coll.reduce_from(ss, group, torch.float32), group,
+                      torch.float32)
+    var = ss / (x.shape[-1] * coll.group_size(group))
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

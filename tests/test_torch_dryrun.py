@@ -1,12 +1,12 @@
 """The dry-run of the port on the CPU: its configs and a cell's inputs against
 the JAX package's, the sharded dense-cache decode step on 2×2 gloo ranks
 against the single-rank port and JAX's ``LM.decode_step`` (and the
-hybrid, ssm and enc-dec decode on a data-only mesh of four, refused on a
-model split), the dry-run's
+hybrid, ssm and enc-dec decode on a data-only mesh of four and on the 2×2
+mesh's model split), the dry-run's
 per-rank FLOPs and collectives against the same steps run for real on
-those ranks, and the command line on full-size cells (an ``ok`` decode
-cell, a skipped one, one that fails with ROADMAP item 25's error) and
-``pp_dryrun``'s.
+those ranks (qwen3-4b's train and decode steps, zamba2's train step), and
+the command line on full-size cells (``ok`` decode and hybrid train cells,
+a skipped one, one made to raise) and ``pp_dryrun``'s.
 
 Four gloo rank processes (the 2×2 ``data × model`` mesh) and one dry-run
 process (a fake group of four ranks, each rank in turn) run at once: a
@@ -45,7 +45,8 @@ from test_torch_tenancy import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CASES = {"qwen3": ("qwen3-4b", {}), "moonshot": ("moonshot-v1-16b-a3b", {})}
-#: the families that take a data-only mesh (ROADMAP item 25)
+#: the hybrid, ssm and enc-dec families, decoded on a data-only mesh and
+#: on the 2x2 mesh
 DATA_ONLY = ("zamba2-1.2b", "rwkv6-1.6b", "seamless-m4t-large-v2")
 B, S, STEPS, POS = 4, 16, 3, 9
 TRAIN_B, TRAIN_S = 4, 64
@@ -207,8 +208,21 @@ for key, (name, kw) in CASES.items():
         lm.decode_step(sp, W[key]["tokens"][0], cache, torch.full((B,), POS, dtype=torch.int32))
     out["count/decode"] = dict(flops=fc.get_total_flops(), calls=cc.calls,
                                coll=parse_collectives(cc.records))
+# zamba2's train step on the 2x2 mesh, counted as the dry-run reckons it
+zcfg = dataclasses.replace(CONFIGS["zamba2-1.2b"].reduced(), dtype="float32")
+zlm = LM(zcfg)
+cc, fc = CollectiveCounter(), FlopCounterMode(display=False)
+p = clone(W["zamba2-1.2b"]["params"])
+st = shard_train_state({"params": p, "opt": init_opt_state(p), "step": 0}, zlm, mesh, rules)
+with sharding_context(mesh, rules):
+    step = make_train_step(zlm, TrainConfig(), _forward_opts(zcfg, ShapeConfig("t", TRAIN_S, TRAIN_B, "train")))
+    with fc, cc:
+        step(st, make_batch(zcfg, TRAIN_B, TRAIN_S, dtype=torch.float32))
+out["count/zamba2_train"] = dict(flops=fc.get_total_flops(), calls=cc.calls,
+                                 coll=parse_collectives(cc.records))
 # the hybrid, ssm and enc-dec decode: batch rows split over a data-only
-# mesh of four, and refused on the 2x2 mesh's model split
+# mesh of four, and on the 2x2 mesh, whose model axis splits the mixers'
+# channels and heads and the caches' sequences
 m4 = make_mesh((4,), ("data",))
 r4 = default_rules(m4.axis_names)
 for name in DATA_ONLY:
@@ -226,12 +240,10 @@ for name in DATA_ONLY:
                 got.append(lm.decode_step(sp, toks[i], sc, pos + i)[0])
     out[f"data/{name}"], out[f"data/{name}/single"] = got, ref
     sp2 = shard_tree(params, logical_to_sharding(lm.param_logical_axes(), params, mesh, rules), mesh)
-    try:
-        with torch.no_grad(), sharding_context(mesh, rules):
-            lm.decode_step(sp2, toks[0], lm.shard_cache(clone(cache), mesh, rules), pos)
-        out[f"refused/{name}"] = ""
-    except ValueError as e:
-        out[f"refused/{name}"] = str(e)
+    sc2 = lm.shard_cache(clone(cache), mesh, rules)
+    with torch.no_grad(), sharding_context(mesh, rules):
+        out[f"split/{name}"] = [lm.decode_step(sp2, toks[i], sc2, pos + i)[0]
+                                for i in range(2)]
 torch.save(out, f"{work}/rank{rank}.pt")
 dist.destroy_process_group()
 print("RANK OK")
@@ -259,6 +271,14 @@ for rank in range(4):
                              _forward_opts(cfg, ts)),
         "decode": dryrun_step(lm, "decode", input_specs(cfg, ds, torch.float32), mesh, rules,
                               _forward_opts(cfg, ds))}
+zcfg = dataclasses.replace(CONFIGS["zamba2-1.2b"].reduced(), dtype="float32")
+for rank in range(4):
+    init_fake_group(4, rank)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    ts = ShapeConfig("t", TRAIN_S, TRAIN_B, "train")
+    out[rank]["zamba2_train"] = dryrun_step(
+        LM(zcfg), "train", input_specs(zcfg, ts, torch.float32), mesh,
+        default_rules(mesh.axis_names), _forward_opts(zcfg, ts))
 torch.save(out, f"{work}/dryrun.pt")
 print("DRYRUN OK")
 """
@@ -392,20 +412,24 @@ def test_shard_cache_records_the_global_shapes(runs, key):
 @pytest.mark.parametrize("name", DATA_ONLY)
 def test_data_only_decode_of_hybrid_ssm_encdec(runs, name):
     """zamba2 (its shared block's K/V too), rwkv6 and seamless decode their
-    batch rows split over a data-only mesh of four, equal to the single
-    rank; on the 2×2 mesh's model split each raises ROADMAP item 25's
-    ``ValueError``, as its forward does."""
+    batch rows split over a data-only mesh of four, and on the 2×2 mesh
+    (the model axis splitting the mixers' channels and heads, the
+    attention heads and the caches' sequences), equal to the single rank
+    on every rank (``tests/test_torch_tp_families.py`` holds the split
+    decode to JAX's too)."""
     for res in runs["ranks"]:
-        for got, ref in zip(res[f"data/{name}"], res[f"data/{name}/single"]):
-            assert got.shape == ref.shape and got.shape[0] == B
-            np.testing.assert_allclose(_np(got), _np(ref), **TOL)
-        assert "ROADMAP item 25" in res[f"refused/{name}"]
+        for run in ("data", "split"):
+            for got, ref in zip(res[f"{run}/{name}"],
+                                res[f"data/{name}/single"]):
+                assert got.shape == ref.shape and got.shape[0] == B
+                np.testing.assert_allclose(_np(got), _np(ref), **TOL)
 
 
-@pytest.mark.parametrize("kind", ["train", "decode"])
+@pytest.mark.parametrize("kind", ["train", "decode", "zamba2_train"])
 def test_dryrun_counts_equal_the_real_step_rank_by_rank(runs, kind):
-    """The dry-run of a reduced qwen3-4b train step and decode step on a
-    fake group of four, once as each rank, against the same steps run on
+    """The dry-run of a reduced qwen3-4b train step and decode step, and of
+    a reduced zamba2 train step (its mixers split over the model axis), on
+    a fake group of four, once as each rank, against the same steps run on
     the gloo ranks: the aten FLOPs (``FlopCounterMode``; the CPU runs the
     kernels' plain versions, which count none, and the dry-run reckons the
     kernels' work apart) and every collective, its kind, bytes and
@@ -417,10 +441,11 @@ def test_dryrun_counts_equal_the_real_step_rank_by_rank(runs, kind):
         assert dry["collective_calls"] == real["calls"]
         assert dry["collectives"] == real["coll"]
         kernels = dry["kernels"]
-        if kind == "train":
+        if kind != "decode":
+            key = "qwen3" if kind == "train" else "zamba2-1.2b"
             assert {k: v["launches"] for k, v in kernels.items()} == {
                 "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
-                "adamw_fused": len(list(_leaves(runs["inputs"]["qwen3"][
+                "adamw_fused": len(list(_leaves(runs["inputs"][key][
                     "params"])))}
         else:
             assert set(kernels) == {"rmsnorm_rows"}
@@ -506,20 +531,38 @@ def _cli(*args, module="repro_torch.launch.dryrun"):
                             text=True, env=_env(), cwd=ROOT)
 
 
+#: the dry-run's command line with its step made to raise, in the
+#: subprocess that runs it
+RAISING_CLI = ("import sys\n"
+               "from repro_torch.launch import dryrun\n"
+               "def raising(*args, **kwargs):\n"
+               "    raise ValueError('a cell made to fail')\n"
+               "dryrun.dryrun_step = raising\n"
+               "sys.argv[0] = 'dryrun'\n"
+               "dryrun.main()\n")
+
+
 def test_cli_full_size_cells(tmp_path):
     """``--arch qwen3-4b --shape decode_32k`` at full size writes an ok
     record with every field; qwen3-4b × long_500k is skipped with JAX's
-    text; zamba2-1.2b × train_4k fails with ROADMAP item 25's error on the
-    model axis of 16 (exit code 1, a [FAIL] line); ``pp_dryrun`` writes its
-    record with the pipeline's hops counted."""
+    text; zamba2-1.2b × train_4k writes an ok record, its mixers split over
+    the model axis of 16; a cell whose step raises (patched in the
+    subprocess) gives exit code 1, a [FAIL] line and a record of the
+    error; ``pp_dryrun`` writes its record with the pipeline's hops
+    counted."""
     out = str(tmp_path)
     procs = {
         "ok": _cli("--arch", "qwen3-4b", "--shape", "decode_32k",
                    "--out-dir", out),
         "skip": _cli("--arch", "qwen3-4b", "--shape", "long_500k",
                      "--out-dir", out),
-        "fail": _cli("--arch", "zamba2-1.2b", "--shape", "train_4k",
-                     "--out-dir", out),
+        "hybrid": _cli("--arch", "zamba2-1.2b", "--shape", "train_4k",
+                       "--out-dir", out),
+        "fail": subprocess.Popen(
+            [sys.executable, "-c", RAISING_CLI, "--arch", "rwkv6-1.6b",
+             "--shape", "decode_32k", "--out-dir", out],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=_env(), cwd=ROOT),
         "pp": _cli("--out-dir", out, module="repro_torch.launch.pp_dryrun")}
     res = {k: (*p.communicate(timeout=300), p.returncode)
            for k, p in procs.items()}
@@ -552,13 +595,24 @@ def test_cli_full_size_cells(tmp_path):
                               "(DESIGN.md §4)")
     assert stdout.startswith("[SKIP] pod16x16 qwen3-4b long_500k")
 
-    stdout, stderr, rc = res["fail"]
-    assert rc == 1
-    assert stdout.startswith("[FAIL] pod16x16 zamba2-1.2b train_4k")
+    stdout, stderr, rc = res["hybrid"]
+    assert rc == 0, stderr[-3000:]
+    assert stdout.startswith("[OK] pod16x16 zamba2-1.2b train_4k")
     rec = json.loads((tmp_path / "pod16x16" /
                       "zamba2-1.2b__train_4k.json").read_text())
-    assert rec["ok"] is False and rec["error"].startswith("ValueError: ")
-    assert "ROADMAP item 25" in rec["error"]
+    assert RECORD_KEYS <= set(rec) and rec["ok"] is True
+    assert rec["n_params"] == TCONFIGS["zamba2-1.2b"].param_count()
+    assert rec["collectives"]["total_bytes"] > 0
+    assert {"all-gather", "all-reduce", "reduce-scatter"} <= set(
+        rec["collectives"]["per_kind"])
+
+    stdout, stderr, rc = res["fail"]
+    assert rc == 1
+    assert stdout.startswith("[FAIL] pod16x16 rwkv6-1.6b decode_32k")
+    rec = json.loads((tmp_path / "pod16x16" /
+                      "rwkv6-1.6b__decode_32k.json").read_text())
+    assert rec["ok"] is False
+    assert rec["error"] == "ValueError: a cell made to fail"
 
     stdout, stderr, rc = res["pp"]
     assert rc == 0, stderr[-3000:]

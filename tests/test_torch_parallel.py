@@ -18,9 +18,10 @@ lr > 0, also against the single-rank port: JAX's ``lr_schedule`` gives lr
 0 at step 0, so that step moves nothing).  Against the single-rank port:
 splits where a rule drops (MQA's one K/V head over two ranks), the MoE
 experts split over the model axis, the collective count of selective
-remat against none's, the elastic restore both ways, ``build_pp_forward``
-and zamba2's data-only step; the hybrid, ssm and enc-dec families refuse a
-model split."""
+remat against none's, the elastic restore both ways, ``build_pp_forward``,
+zamba2's data-only step and a 1×2 train step of each of the hybrid, ssm
+and enc-dec families (``tests/test_torch_tp_families.py`` holds those
+three to JAX's sharded step)."""
 import dataclasses
 import socket
 import subprocess
@@ -47,6 +48,8 @@ TCFG = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
 VARIANTS = {"default": {}, "tp_shardmap": {"tp_shardmap": True},
             "seqsp": {"attn_impl": "seqsp"}}
 MESH22 = ((2, 2), ("data", "model"))
+#: the families split over a 1×2 mesh's model axis by the PAIR ranks
+SPLIT_FAMILIES = ("zamba2-1.2b", "rwkv6-1.6b", "seamless-m4t-large-v2")
 # AdamW divides by sqrt(v): where a gradient is at the noise level of the
 # reductions' summation order, its step carries that noise magnified, up
 # to a full step of either sign.  Parameters after AdamW are held to GRAD
@@ -413,21 +416,24 @@ from repro_torch.train.trainer import TRAIN_OPTS
 from repro_torch.train.optimizer import init_opt_state, tree_leaves
 
 W = torch.load(f"{work}/weights.pt")
-out = {"refused": {}}
+out = {}
+tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
 split = make_mesh((1, 2), ("data", "model"))
-for name in ("zamba2-1.2b", "rwkv6-1.6b", "seamless-m4t-large-v2"):
+srules = default_rules(split.axis_names)
+for name in SPLIT_FAMILIES:
     cfg = dataclasses.replace(CONFIGS[name].reduced(), dtype="float32")
     lm = LM(cfg)
-    params = lm.init(0, device="cpu", dtype=torch.float32)
-    batch = make_batch(cfg, 2, 32, dtype=torch.float32)
+    params = W[name]
     st = shard_train_state({"params": params, "opt": init_opt_state(params), "step": 0},
-                           lm, split, default_rules(split.axis_names))
-    try:
-        with sharding_context(split, default_rules(split.axis_names)):
-            make_train_step(lm, TrainConfig(), TRAIN_OPTS)(st, batch)
-        out["refused"][name] = ""
-    except ValueError as e:
-        out["refused"][name] = str(e)
+                           lm, split, srules)
+    step = make_train_step(lm, tcfg, TRAIN_OPTS)
+    losses = []
+    with sharding_context(split, srules):
+        for i in range(2):
+            st, m = step(st, make_batch(cfg, 2, 32, dtype=torch.float32))
+            losses.append(m["loss"])
+    out[f"split/{name}/loss"] = losses
+    out[f"split/{name}/params"] = tree_leaves(st["params"])
 mesh = make_mesh((2,), ("data",))
 rules = default_rules(mesh.axis_names)
 cfg = dataclasses.replace(CONFIGS["zamba2-1.2b"].reduced(), dtype="float32")
@@ -449,6 +455,25 @@ print("PAIR OK")
 """
 
 
+def _redraw(lm, params, seed: int):
+    """Every leaf that init sets to zeros or ones (biases, norms, rwkv6's
+    mixing coefficients, mamba2's D), drawn around that value from
+    ``seed``, in place.  A zero bias hides a dropped one, and AdamW's step
+    on a leaf whose gradient is rounding noise (softmax makes K's bias
+    gradient zero) moves a zero parameter past GRAD's atol, where a
+    nonzero one stays inside its rtol."""
+    gen = torch.Generator().manual_seed(seed)
+    for path, p in spec_leaves(lm.spec()):
+        if p.init in ("zeros", "ones"):
+            *parents, last = path.split("/")
+            node = params
+            for k in parents:
+                node = node[k]
+            node[last] = (float(p.init == "ones")
+                          + 0.2 * torch.randn(p.shape, generator=gen))
+    return params
+
+
 def _weights(work: Path):
     """The port's weights for each case (fp32, from seeds), saved for the
     ranks (torch) and the oracle (numpy, the JAX tree's paths)."""
@@ -459,6 +484,10 @@ def _weights(work: Path):
                           ("zamba2", "zamba2-1.2b", {})):
         w[key] = LM(_cfg(name, **kw)).init(3, device="cpu",
                                            dtype=torch.float32)
+    for i, name in enumerate(SPLIT_FAMILIES):
+        lm = LM(_cfg(name))
+        w[name] = _redraw(lm, lm.init(0, device="cpu", dtype=torch.float32),
+                          21 + i)
     w["granite"] = LM(_cfg("granite-20b-code", num_layers=4)).init(
         5, device="cpu", dtype=torch.float32)
     torch.save(w, work / "weights.pt")
@@ -477,6 +506,7 @@ def runs(tmp_path_factory):
                               text=True, env=_env(devices=4), cwd=ROOT)]
     for script, n in ((RANKS, 4), (PAIR, 2)):
         port = _free_port()
+        script = f"SPLIT_FAMILIES = {SPLIT_FAMILIES!r}\n" + script
         procs += [subprocess.Popen(
             [sys.executable, "-c", script, str(r), str(port), str(work)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -710,10 +740,34 @@ def test_pp_forward_matches_lm_forward(runs):
         _close(res["pp/logits"].numpy(), runs["jax"]["pp/logits"], FWD)
 
 
-def test_model_split_refused_for_hybrid_ssm_encdec(runs):
-    for res in runs["pair"]:
-        for name, msg in res["refused"].items():
-            assert "ROADMAP item 25" in msg, name
+@pytest.mark.parametrize("name", SPLIT_FAMILIES)
+def test_model_split_train_step_matches_single_rank(runs, name):
+    """zamba2, rwkv6 and seamless on a 1×2 ``data × model`` mesh (the
+    mixers, attention and MLPs split over the model axis; the train step's
+    own opts, selective remat; zero- and one-initialised leaves redrawn):
+    the losses of two steps and every parameter shard after them against
+    one rank."""
+    cfg = _cfg(name)
+    lm = LM(cfg)
+    tcfg = TrainConfig(**TCFG)
+    state = init_train_state(lm, 0, tcfg, device="cpu")
+    for t, w in zip(tree_leaves(state["params"]),
+                    tree_leaves(runs["weights"][name])):
+        t.copy_(w)
+    step = make_train_step(lm, tcfg, TRAIN_OPTS)
+    losses = []
+    for _ in range(2):
+        state, m = step(state, make_batch(cfg, 2, 32, dtype=torch.float32))
+        losses.append(float(m["loss"]))
+    whole = [p.detach().numpy() for p in tree_leaves(state["params"])]
+    for r, res in enumerate(runs["pair"]):
+        mesh = Mesh((1, 2), ("data", "model")).place(r)
+        _close([float(x) for x in res[f"split/{name}/loss"]], losses, FWD)
+        for (path, _), got, want in zip(spec_leaves(lm.spec()),
+                                        res[f"split/{name}/params"],
+                                        _shards(lm, whole, mesh)):
+            assert got.shape == want.shape, path
+            _assert_adam_close(got.detach().numpy(), want, path)
 
 
 def test_zamba2_data_only_step_matches_single_rank(runs):
